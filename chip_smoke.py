@@ -7,12 +7,13 @@ CUDA toolkit:
 
 Phases (any failure raises and the script exits nonzero):
 
-1. print the card's name and power limit; build the SHA-256 kernel from
-   ``mirbft_tpu_torch/csrc/sha256.cu`` and print ptxas's register report;
-2. hold the kernel against its plain PyTorch version and hashlib, bit for
-   bit: block-boundary lengths, rows with fewer blocks than the bucket,
-   padding rows, and the main path's two launch shapes, (8192, 1, 16) and
-   (256, 128, 16);
+1. print the card's name and power limit; build the SHA-256 and Ed25519
+   kernels from ``mirbft_tpu_torch/csrc/{sha256,ed25519}.cu`` (one ``nvcc``
+   each, started together) and print ptxas's register and spill report;
+2. hold the SHA-256 kernel against its plain PyTorch version and hashlib,
+   bit for bit: block-boundary lengths, rows with fewer blocks than the
+   bucket, padding rows, and the main path's two launch shapes,
+   (8192, 1, 16) and (256, 128, 16);
 3. the determinism anchor: 16 nodes x 64 clients x 25 requests, BatchSize
    200, every digest from the kernel: 2320 events, one app chain, 1600
    commits per node;
@@ -26,8 +27,31 @@ Phases (any failure raises and the script exits nonzero):
    the seconds in the cyclic collector, and the plane's host seconds at
    submit, at launch and blocked at flush; with ``--profile PATH`` one more host run and one more kernel
    run go under cProfile and their top functions are written to PATH;
-5. the kernel's time at both launch shapes (CUDA events over many launches
-   after a warm-up) beside its bound and the plain version's time.
+5. the SHA-256 kernel's time at both launch shapes (CUDA events over many
+   launches after a warm-up) beside its bound and the plain version's time;
+6. the rung-3 clients sign their requests (a process pool, before any
+   clock); then both Ed25519 kernels against their plain versions and the
+   RFC 8032 oracle on one corpus, launched at exactly n = 8, 256, 512, 1024
+   and 4096 rows (256 and 512 are the main path's launches in phases 7 and
+   8): valid signatures, corrupted R, corrupted S, wrong messages, keys
+   with no square root, x = 0 with the sign bit set, small-order keys (the
+   identity, a point of order 8), R with no root; host-rejected rows (y >=
+   p, S >= L, bad lengths) come on top of the n and must not reach a
+   kernel.  Verdicts and decompressed points must be equal;
+7. a signed engine run, 16 nodes x 64 clients x 4 requests, BatchSize 200,
+   with a forged request at every node: the async signature plane on the
+   kernels against the host-oracle plane; equal events, app chains,
+   committed sequences and recorded events, no forgery committed, every
+   request rejected on the host or launched, at a shape phase 6 compared;
+8. rung 3 at full scale (bench.py:671-760: 64 nodes, f = 21, 1024 signed
+   clients x 8 requests, BatchSize 200) with the speculative signature
+   plane and the kernel hash plane: the event count and app chain head of
+   the JAX package's own run, 8192 commits on every node, every verify and
+   every digest on the card; committed req/s, the verify p99, the kernels'
+   device time and the card's idle share;
+9. both Ed25519 kernels' times at n = 512, 1024 and 4096 (CUDA events over
+   launches queued behind a spin kernel) beside their bounds, and the plain
+   versions' times at n = 512.
 
 It then prints the kernels as one JSON line, the card's name and power
 limit, and, last, the result line the chip check reads.  Without a CUDA
@@ -42,8 +66,10 @@ import gc
 import hashlib
 import io
 import json
+import multiprocessing
 import pstats
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -54,6 +80,18 @@ NODES, CLIENTS, BATCH_SIZE = 16, 64, 200
 ANCHOR_REQS, RUNG2_REQS = 25, 100
 READY_LATENCY_MS = 400
 RUNG2_PAIRS = 10  # host/kernel pairs: the run-to-run spread is wide
+SIGNED_REQS = 4  # phase 7: 16 nodes x 64 clients x 4 signed requests
+FORGED_REQ_NO = 99
+# The JAX package's own rung-3 run on a CPU (SpeculativeSignaturePlane with
+# its host batch authority): tests/test_torch_signing.py::
+# test_reference_rung3_anchor pins the same two numbers.
+RUNG3_EVENTS = 43280
+RUNG3_CHAIN = "12951e5407835b23b58650b2b28549b9404f5ecd6bafca472ff60a59b1f0e2cc"
+ED25519_SHAPES = (512, 1024, 4096)  # signatures per launch, timed
+# Launch shapes held against the plain versions and the oracle: the timed
+# ones, a small one, and phase 7's wave of 64 clients x 4 requests.
+ED25519_COMPARED = (8, CLIENTS * SIGNED_REQS, *ED25519_SHAPES)
+POOL_PROCESSES = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 IV = (
@@ -227,21 +265,20 @@ def profile_rung2(make_plane, path_label, out) -> None:
               f"wall {wall:.6f} s\n{text.getvalue()}\n")
 
 
-def time_kernel(blocks, n_blocks, reps):
-    """(device ms per launch, host ms per call).  The device time is taken
-    with CUDA events around ``reps`` launches queued behind a spin kernel,
-    so they run back to back and the host's per-call cost (tens of
-    microseconds, longer than a 1-block launch) is not in it."""
+def time_device(launch, reps):
+    """(device ms per launch, host ms per call) of ``launch()``.  The
+    device time is taken with CUDA events around ``reps`` launches queued
+    behind a spin kernel, so they run back to back and the host's per-call
+    cost (tens of microseconds, longer than a 1-block SHA-256 launch) is
+    not in it."""
     import torch
 
-    from mirbft_tpu_torch.ops.sha256 import sha256_digest_words
-
     for _ in range(10):
-        sha256_digest_words(blocks, n_blocks)
+        launch()
     torch.cuda.synchronize()
     start = time.perf_counter()
     for _ in range(reps):
-        sha256_digest_words(blocks, n_blocks)
+        launch()
     torch.cuda.synchronize()
     call_ms = (time.perf_counter() - start) * 1e3 / reps
     began = torch.cuda.Event(enable_timing=True)
@@ -250,7 +287,7 @@ def time_kernel(blocks, n_blocks, reps):
     torch.cuda._sleep(int(2 * call_ms * 1e-3 * reps * 2e9))
     began.record()
     for _ in range(reps):
-        sha256_digest_words(blocks, n_blocks)
+        launch()
     ended.record()
     ended.synchronize()
     return began.elapsed_time(ended) / reps, call_ms
@@ -266,6 +303,220 @@ def time_plain(blocks, n_blocks):
     sha256_digest_words_plain(blocks, n_blocks)
     torch.cuda.synchronize()
     return (time.perf_counter() - start) * 1e3
+
+
+def ptxas_report(text: str) -> dict:
+    """{kernel name: (registers, stack bytes, spill store bytes, spill load
+    bytes)} from nvcc's ``-Xptxas -v`` output."""
+    report = {}
+    for block in text.split("Compiling entry function ")[1:]:
+        mangled = block.split("'")[1]
+        name = re.search(r"mirbft_\w+?_kernel", mangled).group(0)
+        stack, stores, loads = map(int, re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads", block).groups())
+        registers = int(re.search(r"Used (\d+) registers", block).group(1))
+        report[name] = (registers, stack, stores, loads)
+    return report
+
+
+def oracle_row(row):
+    """The RFC 8032 oracle on one (pk, msg, sig) row: its verdict and the
+    affine (x, y) of A and of R, or None where a point does not decode.
+    Runs in pool workers."""
+    from mirbft_tpu_torch.crypto import ed25519_host as host
+
+    pk, msg, sig = row
+
+    def affine(encoded):
+        point = host.decompress(encoded) if len(encoded) == 32 else None
+        return None if point is None else point[:2]
+
+    return host.verify(pk, msg, sig), affine(pk), affine(sig[:32])
+
+
+def encode_point(y: int, sign: int = 0) -> bytes:
+    return int.to_bytes(y | (sign << 255), 32, "little")
+
+
+def order8_encoding() -> bytes:
+    """A point of order 8: the torsion part of the first small-y point
+    that has one."""
+    from mirbft_tpu_torch.crypto import ed25519_host as host
+
+    for y in range(2, 100):
+        point = host.decompress(encode_point(y))
+        if point is None:
+            continue
+        torsion = host.scalar_mult(host.L, point)
+        if not host.point_equal(host.scalar_mult(4, torsion), host.IDENTITY):
+            return host.compress(torsion)
+    raise AssertionError("no point of order 8 found")
+
+
+def rung3_row(presigned, key, kind: int):
+    """(pk, msg, sig) of a presigned rung-3 request: valid (kind 0),
+    corrupted R (1), corrupted S (2) or a wrong message (3)."""
+    from mirbft_tpu_torch.testengine.signing import signing_message, split_signed
+
+    payload, sig, pk = split_signed(presigned[key])
+    msg = signing_message(key[0], key[1], payload)
+    if kind == 1:
+        sig = bytes([sig[0] ^ 2]) + sig[1:]
+    elif kind == 2:
+        sig = sig[:40] + bytes([sig[40] ^ 8]) + sig[41:]
+    elif kind == 3:
+        msg += b"?"
+    return pk, msg, sig
+
+
+def signature_corpus(presigned) -> tuple:
+    """Phase 6's corpus: 4096 rows that reach the kernels (the edge rows,
+    then presigned rung-3 requests, valid and corrupted in turn), whose
+    prefixes are the corpora at every n (n = 8 holds the first 8 edge
+    rows), and the rows the host rejects, added to every corpus."""
+    from mirbft_tpu_torch.crypto import ed25519_host as host
+
+    keys = sorted(presigned)
+    pk, msg, sig = rung3_row(presigned, keys[0], 0)
+    r = 77  # a signature [r]B, r that the identity as key satisfies
+    r_sig = host.compress(
+        host.scalar_mult(r, host.to_extended(host.BASE))
+    ) + r.to_bytes(32, "little")
+    rows = [rung3_row(presigned, keys[0], kind) for kind in range(4)] + [
+        (encode_point(2), b"m", r_sig),  # A has no square root
+        (encode_point(1), b"m", r_sig),  # A = identity (small order)
+        (encode_point(1, 1), b"m", r_sig),  # x = 0 with the sign bit set
+        (order8_encoding(), b"m", r_sig),  # A of order 8
+        (pk, msg, encode_point(2) + sig[32:]),  # R has no square root
+    ]
+    fill = max(ED25519_COMPARED) - len(rows)
+    rows += [rung3_row(presigned, keys[1 + i], i % 4) for i in range(fill)]
+    rejects = [
+        (encode_point(host.P), msg, sig),  # y_A >= p
+        (pk, msg, encode_point(host.P + 5) + sig[32:]),  # y_R >= p
+        (pk, msg, sig[:32] + host.L.to_bytes(32, "little")),  # S >= L
+        (pk[:31], msg, sig),  # bad key length
+        (pk, msg, sig[:63]),  # bad signature length
+    ]
+    return rows, rejects
+
+
+def compare_ed25519(n, rows, oracle) -> int:
+    """Both kernels against their plain versions and the oracle on one
+    corpus, of which exactly n rows reach the kernels; returns the max
+    absolute difference between kernel and plain outputs (0 when
+    equal)."""
+    import torch
+
+    from mirbft_tpu_torch.ops import ed25519
+
+    live = [
+        (i, ed25519.marshal_light(*row)) for i, row in enumerate(rows)
+    ]
+    live = [(i, m) for i, m in live if m is not None]
+    check(len(live) == n, f"ed25519 n={n}: {len(live)} rows reach the kernels")
+    enc, s_words, k_words = (
+        torch.from_numpy(a).to("cuda")
+        for a in ed25519.pack_rows([m for _i, m in live])
+    )
+    xy, ok = ed25519.decompress(enc)
+    verdicts = ed25519.ladder(xy, ok, s_words, k_words)
+    torch.cuda.synchronize()
+    plain_xy, plain_ok = ed25519.decompress_plain(enc)
+    plain_verdicts = ed25519.ladder_plain(plain_xy, plain_ok, s_words, k_words)
+    err = max(
+        int((xy - plain_xy).abs().max()), int((ok - plain_ok).abs().max()),
+        int((verdicts - plain_verdicts).abs().max()),
+    )
+    check(err == 0, f"ed25519 n={n}: kernel != plain (max abs err {err})")
+    xy, ok, verdicts = xy.cpu().numpy(), ok.cpu().tolist(), verdicts.cpu()
+    m = len(live)
+    for j, (i, _row) in enumerate(live):
+        expect, a_point, r_point = oracle[i]
+        check(bool(verdicts[j]) == expect, f"ed25519 n={n}: row {i} verdict")
+        for slot, point in ((j, a_point), (m + j, r_point)):
+            check(bool(ok[slot]) == (point is not None),
+                  f"ed25519 n={n}: row {i} decompression ok flag")
+            if point is not None:
+                got = tuple(ed25519.limbs_to_int(xy[slot, c]) for c in (0, 1))
+                check(got == tuple(point), f"ed25519 n={n}: row {i} point")
+    pks, msgs, sigs = map(list, zip(*rows))
+    got = ed25519.verify_batch(pks, msgs, sigs, device="cuda").tolist()
+    check(got == [o[0] for o in oracle[: len(rows)]],
+          f"ed25519 n={n}: verify_batch != oracle")
+    accepted = sum(got)
+    print(f"  ed25519 n={n}: {m} rows reach the kernels ({2 * m} points), "
+          f"{len(rows) - m} rejected on the host, {accepted} accepted, "
+          f"{sum(ok)} points decode: kernel == plain == oracle")
+    return err
+
+
+def signed_engine_run(plane, signer):
+    """Phase 7's run: events, wall s, and what the run decides (app chains,
+    committed sequences, recorded events on the wire)."""
+    import torch
+
+    from mirbft_tpu_torch import pb
+    from mirbft_tpu_torch.testengine import BasicRecorder
+
+    gc.collect()
+    start = time.perf_counter()
+    rec = BasicRecorder(
+        NODES, CLIENTS, SIGNED_REQS, batch_size=BATCH_SIZE, signer=signer,
+        signature_plane=plane,
+    )
+    forged = pb.Request(
+        client_id=NODES, req_no=FORGED_REQ_NO, data=b"evil" + b"\x01" * 96
+    )
+    for node in range(NODES):
+        rec._schedule(
+            0, node, pb.StateEvent(type=pb.EventPropose(request=forged))
+        )
+    events = rec.drain_clients(max_steps=20_000_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    committed = {n: list(s.committed_reqs) for n, s in rec.node_states.items()}
+    check(all(rn != FORGED_REQ_NO for reqs in committed.values()
+              for _c, rn, _s in reqs), "phase 7: a forged request committed")
+    decided = (
+        {n: s.app_chain for n, s in rec.node_states.items()}, committed,
+        [(when, node, pb.encode(event))
+         for when, node, event in rec.recorded_events],
+    )
+    return events, wall, decided, rec
+
+
+def p99_ms(seconds: list) -> float:
+    ms = sorted(1e3 * s for s in seconds)
+    return ms[min(len(ms) - 1, int(0.99 * len(ms)))]
+
+
+def ed25519_bounds(n: int, sms: int, clock: float) -> dict:
+    """Each Ed25519 kernel's bound at n signatures: integer instructions
+    over the INT32 instruction rate, and bytes over 3.35 TB/s."""
+    from mirbft_tpu_torch.ops import ed25519
+
+    rate = sms * INT32_LANES_PER_SM * clock * 1e6
+    consts = ed25519.CONST_ROWS * ed25519.NLIMB * 4
+    shapes = {
+        # 2n points: 32 bytes in, (x, y) 80 bytes and a flag out
+        "decompress": (2 * n * ed25519.int_ops_per_row(ed25519.DECOMPRESS_OPS),
+                       2 * n * (32 + 80 + 4) + consts),
+        # n rows: two points and two flags in, S and k, a verdict out
+        "ladder": (n * ed25519.int_ops_per_row(ed25519.LADDER_OPS),
+                   n * (2 * 80 + 2 * 4 + 64 + 4) + consts),
+    }
+    out = {}
+    for name, (ops, moved) in shapes.items():
+        ops_ms = ops / rate * 1e3
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        out[name] = dict(
+            int_ops=ops, bytes=moved, ops_bound_ms=ops_ms,
+            bytes_bound_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        )
+    return out
 
 
 def main() -> int:
@@ -287,6 +538,7 @@ def main() -> int:
         INT_OPS_PER_COMPRESSION,
         sha256_digest_words,
     )
+    from mirbft_tpu_torch.testengine import BasicRecorder
     from mirbft_tpu_torch.testengine.crypto_plane import (
         AsyncKernelHashPlane,
         CoalescingHashPlane,
@@ -300,13 +552,20 @@ def main() -> int:
           f"CUDA {torch.version.cuda}, {kind}, {sms} SMs")
 
     # -- phase 1: build ------------------------------------------------------
-    start = time.perf_counter()
-    lib = _build.build("sha256")
-    build_s = time.perf_counter() - start
-    ptxas = lib.with_suffix(".ptxas.txt").read_text()
-    print(f"phase 1 ok: sha256.cu built for sm_90a in {build_s:.3f} s")
-    for line in ptxas.splitlines():
-        print(f"  {line.strip()}")
+    t0 = time.perf_counter()
+    libs = _build.build_all(["sha256", "ed25519"])
+    build_s = time.perf_counter() - t0
+    print(f"phase 1 ok: sha256.cu and ed25519.cu built for sm_90a in "
+          f"{build_s:.3f} s (one nvcc each, together)")
+    ptxas = {}
+    for name, lib in libs.items():
+        text = lib.with_suffix(".ptxas.txt").read_text()
+        for line in text.splitlines():
+            print(f"  {line.strip()}")
+        ptxas.update(ptxas_report(text))
+    for kernel, (regs, stack, stores, loads) in sorted(ptxas.items()):
+        print(f"  {kernel}: {regs} registers, {stack} bytes stack frame, "
+              f"{stores} bytes spill stores, {loads} bytes spill loads")
 
     # -- phase 2: kernel == plain == hashlib ---------------------------------
     rng = random.Random(SEED)
@@ -444,7 +703,9 @@ def main() -> int:
     for shape, packed in packed_by_shape.items():
         blocks, n_blocks = to_tensors(packed, "cuda")
         reps = 400 if shape[1] == 1 else 100
-        ms, call_ms = time_kernel(blocks, n_blocks, reps)
+        ms, call_ms = time_device(
+            lambda: sha256_digest_words(blocks, n_blocks), reps
+        )
         clock = sm_clock_mhz()
         compressions = int(packed.n_blocks.sum())
         ops_ms = (
@@ -474,13 +735,210 @@ def main() -> int:
         )
     print("phase 5 ok")
 
+    print(f"phase 5 done at {time.perf_counter() - t0:.1f} s")
+    rung2_launches = main_launches
+
+    from mirbft_tpu_torch.ops import ed25519
+    from mirbft_tpu_torch.testengine import rung3
+    from mirbft_tpu_torch.testengine.signing import (
+        AsyncSignaturePlane,
+        SignaturePlane,
+        SpeculativeSignaturePlane,
+        host_verifier,
+        make_signer,
+    )
+
+    # -- phase 6: Ed25519 kernels == plain == oracle -------------------------
+    start = time.perf_counter()
+    presigned = rung3.presign(processes=POOL_PROCESSES)
+    presign_s = time.perf_counter() - start
+    print(f"  rung-3 clients signed {len(presigned)} requests in "
+          f"{presign_s:.3f} s ({POOL_PROCESSES} processes)")
+    rows, rejects = signature_corpus(presigned)
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(POOL_PROCESSES) as pool:
+        oracle = pool.map(oracle_row, rows + rejects, chunksize=64)
+    reject_oracle = oracle[len(rows):]
+    check(not any(o[0] for o in reject_oracle), "a host reject verifies")
+    ed_err = 0
+    for n in ED25519_COMPARED:
+        ed_err = max(ed_err, compare_ed25519(
+            n, rows[:n] + rejects, oracle[:n] + reject_oracle
+        ))
+    print(f"phase 6 ok: ed25519 kernels == plain == oracle at n = "
+          f"{', '.join(map(str, ED25519_COMPARED))}; max_abs_err {ed_err} "
+          f"(done at {time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 7: signed engine run, kernels against the host oracle ---------
+    signatures: dict = {}
+    sign = make_signer()
+
+    def signer(cid, rn, payload):
+        key = (cid, rn, payload)
+        if key not in signatures:
+            signatures[key] = sign(cid, rn, payload)
+        return signatures[key]
+
+    host_plane = SignaturePlane(host_verifier)
+    host_events, host_wall, host_decided, _ = signed_engine_run(
+        host_plane, signer
+    )
+    async_plane = AsyncSignaturePlane()
+    ed25519.decompress.launches = ed25519.ladder.launches = 0
+    events, wall, decided, rec = signed_engine_run(async_plane, signer)
+    signed_launches = (ed25519.decompress.launches, ed25519.ladder.launches)
+    check(events == host_events, f"phase 7: {events} != {host_events} events")
+    check(decided[0] == host_decided[0], "phase 7: app chains differ")
+    check(decided[1] == host_decided[1], "phase 7: committed sequences differ")
+    check(decided[2] == host_decided[2], "phase 7: recorded events differ")
+    check(len(set(decided[0].values())) == 1, "phase 7: nodes diverged")
+    # Every distinct request was rejected on the host (the forgery) or
+    # launched, in waves of a shape phase 6 held against the oracle.
+    check(async_plane.device_verifies == CLIENTS * SIGNED_REQS
+          and async_plane.host_rejects == 1,
+          f"phase 7: {async_plane.device_verifies} verifies on the card, "
+          f"{async_plane.host_rejects} host rejects")
+    check(set(async_plane.flush_sizes) <= set(ED25519_COMPARED),
+          f"phase 7: waves of {async_plane.flush_sizes} rows")
+    check(signed_launches[1] == async_plane.launches > 0,
+          "phase 7: the ladder launches do not match the plane's")
+    check(rec.hash_plane.host_digests == 0, "phase 7: a digest on the host")
+    print(
+        f"phase 7 ok: signed {NODES}x{CLIENTS}x{SIGNED_REQS} BatchSize "
+        f"{BATCH_SIZE} with a forged request at every node: {events} events "
+        f"on both planes, equal chains, commits and recorded events "
+        f"({len(decided[2])}); host plane wall {host_wall:.6f} s, "
+        f"{sum(host_plane.flush_sizes)} host verifies; async plane wall "
+        f"{wall:.6f} s, {async_plane.device_verifies} verifies on the card "
+        f"in {async_plane.launches} waves ({async_plane.demand_flushes} "
+        f"demanded), host rejects {async_plane.host_rejects}, kernel "
+        f"{async_plane.kernel_ms:.6f} ms; rejections "
+        f"{rec.byzantine_rejections} (done at "
+        f"{time.perf_counter() - t0:.1f} s)"
+    )
+
+    # -- phase 8: rung 3 at full scale ---------------------------------------
+    plane = SpeculativeSignaturePlane()
+    gc.collect()
+    sha256_digest_words.launches = 0
+    ed25519.decompress.launches = ed25519.ladder.launches = 0
+    GC_TIMER.seconds, GC_TIMER.timing = 0.0, True
+    cpu = (time.process_time(), time.thread_time())
+    start = time.perf_counter()
+    rec = BasicRecorder(
+        rung3.NODES, rung3.CLIENTS, rung3.REQS, batch_size=rung3.BATCH_SIZE,
+        network_state=rung3.network_state(),
+        signer=lambda cid, rn, _payload: presigned[(cid, rn)],
+        signature_plane=plane, record=False,
+    )
+    events = rec.drain_clients(max_steps=50_000_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    cpu = (time.process_time() - cpu[0], time.thread_time() - cpu[1])
+    GC_TIMER.timing = False
+    rung3_launches = {
+        "sha256_digest": sha256_digest_words.launches,
+        "ed25519_decompress": ed25519.decompress.launches,
+        "ed25519_ladder": ed25519.ladder.launches,
+    }
+    total = rung3.CLIENTS * rung3.REQS
+    chains = {rec.node_states[n].app_chain.hex() for n in range(rung3.NODES)}
+    hash_plane = rec.hash_plane
+    check(events == RUNG3_EVENTS, f"rung 3: {events} events, not {RUNG3_EVENTS}")
+    check(chains == {RUNG3_CHAIN}, f"rung 3: app chains {chains}")
+    check(all(rec.committed_at(n) == total for n in range(rung3.NODES)),
+          f"rung 3: not every node committed {total} requests")
+    check(plane.speculative_evictions == 0, "rung 3: evictions")
+    check(plane.device_verifies == total and plane.host_rejects == 0,
+          f"rung 3: {plane.device_verifies} verifies on the card")
+    check(set(plane.flush_sizes) <= set(ED25519_COMPARED),
+          f"rung 3: bursts of {sorted(set(plane.flush_sizes))} rows")
+    check(hash_plane.host_digests == 0, "rung 3: a digest on the host")
+    check(all(count > 0 for count in rung3_launches.values()),
+          f"rung 3: a kernel never launched: {rung3_launches}")
+    device_ms = plane.kernel_ms + hash_plane.kernel_ms
+    print(
+        f"phase 8 ok: rung 3 {rung3.NODES} nodes x {rung3.CLIENTS} clients x "
+        f"{rung3.REQS} BatchSize {rung3.BATCH_SIZE}: {events} events, chain "
+        f"{RUNG3_CHAIN[:16]}..., {total} commits on every node; wall "
+        f"{wall:.6f} s, {total / wall:.3f} committed req/s; verify p99 "
+        f"{p99_ms(plane.flush_wall_s):.6f} ms over {len(plane.flush_wall_s)} "
+        f"bursts (max {1e3 * max(plane.flush_wall_s):.6f} ms, sum "
+        f"{sum(plane.flush_wall_s):.6f} s); verifies device "
+        f"{plane.device_verifies} host rejects {plane.host_rejects}, evictions "
+        f"{plane.speculative_evictions}, forced joins {plane.forced_joins}; "
+        f"digests device {hash_plane.device_digests} host "
+        f"{hash_plane.host_digests}; launches {rung3_launches}; device time "
+        f"ed25519 {plane.kernel_ms:.6f} ms + sha256 "
+        f"{hash_plane.kernel_ms:.6f} ms, card idle "
+        f"{100 * (1 - device_ms / 1e3 / wall):.4f}% of wall; cpu process "
+        f"{cpu[0]:.6f} s main thread {cpu[1]:.6f} s collector "
+        f"{GC_TIMER.seconds:.6f} s; hash plane submit "
+        f"{hash_plane.submit_s:.6f} s launch {hash_plane.launch_s:.6f} s "
+        f"blocking {sum(hash_plane.flush_wall_s):.6f} s in "
+        f"{hash_plane.launches} launches (done at "
+        f"{time.perf_counter() - t0:.1f} s)"
+    )
+
+    # -- phase 9: Ed25519 kernel times, bounds, plain times ------------------
+    ed_shapes = {"ed25519_decompress": [], "ed25519_ladder": []}
+    for n in ED25519_SHAPES:
+        marshalled = [
+            ed25519.marshal_light(*rung3_row(presigned, key, i % 4))
+            for i, key in enumerate(sorted(presigned)[:n])
+        ]
+        enc, s_words, k_words = (
+            torch.from_numpy(a).to("cuda")
+            for a in ed25519.pack_rows(marshalled)
+        )
+        xy, ok = ed25519.decompress(enc)
+        dec_ms, dec_call = time_device(lambda: ed25519.decompress(enc), 50)
+        lad_ms, lad_call = time_device(
+            lambda: ed25519.ladder(xy, ok, s_words, k_words), 20
+        )
+        clock = sm_clock_mhz()
+        bounds = ed25519_bounds(n, sms, clock)
+        plain = {}
+        if n == ED25519_SHAPES[0]:
+            for name, fn in (
+                ("decompress", lambda: ed25519.decompress_plain(enc)),
+                ("ladder", lambda: ed25519.ladder_plain(xy, ok, s_words,
+                                                        k_words)),
+            ):
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                plain[name] = (time.perf_counter() - start) * 1e3
+        for name, ms, call_ms in (("decompress", dec_ms, dec_call),
+                                  ("ladder", lad_ms, lad_call)):
+            bound = bounds[name]
+            ed_shapes["ed25519_" + name].append(dict(
+                n=n, rows=2 * n if name == "decompress" else n, ms=ms,
+                call_ms=call_ms, plain_ms=plain.get(name), library_ms=None,
+                sm_clock_mhz=clock, **bound,
+            ))
+            print(
+                f"  {name} n={n}: {ms:.6f} ms a launch ({call_ms:.6f} ms a "
+                f"call on the host clock); bound {bound['bound_ms']:.6f} ms "
+                f"({bound['bound_by']}: {bound['int_ops']} int ops / ({sms} "
+                f"SMs x {INT32_LANES_PER_SM} INT32 lanes x {clock:.0f} MHz) "
+                f"= {bound['ops_bound_ms']:.6f} ms; {bound['bytes']} bytes / "
+                f"3.35 TB/s = {bound['bytes_bound_ms']:.6f} ms), "
+                f"{100 * bound['bound_ms'] / ms:.2f}% of bound"
+                + (f"; plain {plain[name]:.3f} ms" if plain else "")
+                + "; library_ms null (no PyTorch call verifies Ed25519)"
+            )
+    print(f"phase 9 ok (done at {time.perf_counter() - t0:.1f} s)")
+
     head = per_shape[0]
     kernels = [{
         "name": "sha256_digest",
         "route": "cuda",
         "source": "mirbft_tpu_torch/csrc/sha256.cu",
         "replaces": "mirbft_tpu/ops/sha256_pallas.py:102",
-        "launches": main_launches,
+        "launches": rung2_launches,
+        "launches_rung3": rung3_launches["sha256_digest"],
         "matched_plain": max_err == 0,
         "max_abs_err": max_err,
         "ms": head["ms"],
@@ -490,7 +948,31 @@ def main() -> int:
         "library_ms": None,
         "shape": head["shape"],
         "per_shape": per_shape,
+        "ptxas": ptxas.get("mirbft_sha256_digest_kernel"),
     }]
+    for name, replaces in (
+        ("ed25519_decompress", "mirbft_tpu/ops/ed25519_pallas.py:410"),
+        ("ed25519_ladder", "mirbft_tpu/ops/ed25519_pallas.py:356"),
+    ):
+        shapes = ed_shapes[name]
+        head = shapes[0]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mirbft_tpu_torch/csrc/ed25519.cu",
+            "replaces": replaces,
+            "launches": rung3_launches[name],
+            "matched_plain": ed_err == 0,
+            "max_abs_err": ed_err,
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": None,
+            "shape": [head["rows"]],
+            "per_shape": shapes,
+            "ptxas": ptxas.get(f"mirbft_{name}_kernel"),
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for
+Each ``csrc/<name>.cu`` is compiled on first use (or all together by
+``build_all``) with ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, and loaded with
 ``ctypes``.  No PyTorch headers are included, so a build takes seconds.
 Libraries go to ``build/kernels/`` beside the package (listed in
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -68,6 +70,15 @@ def build(name: str) -> Path:
     # Rename into place so a concurrent loader never sees half a file.
     os.replace(partial, lib)
     return lib
+
+
+def build_all(names) -> dict:
+    """Build several sources at once, one ``nvcc`` for each, all started
+    together; returns {name: library path}.  Raises the first failure."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        paths = list(pool.map(build, names))
+    return dict(zip(names, paths))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -14,9 +14,12 @@ import torch
 
 from mirbft_tpu_torch.core import device_tracker
 from mirbft_tpu_torch.core.state_machine import StateMachine
+from mirbft_tpu_torch.crypto import ed25519_host
+from mirbft_tpu_torch.ops import ed25519 as port_ed25519
 from mirbft_tpu_torch.ops import sha256 as port_sha256
 from mirbft_tpu_torch.ops.batching import pack_preimages, to_tensors
 from mirbft_tpu_torch.testengine import BasicRecorder
+from mirbft_tpu_torch.testengine import signing
 from mirbft_tpu_torch.testengine.crypto_plane import AsyncKernelHashPlane
 
 REPO = Path(__file__).resolve().parent.parent
@@ -112,6 +115,16 @@ def _packed():
     return pack_preimages([b"abc"], batch_floor=1)
 
 
+SEED = b"\x03" * 32
+SIGNED = (
+    [ed25519_host.public_key(SEED)], [b"m"], [ed25519_host.sign(SEED, b"m")]
+)
+
+
+def _rows():
+    return [port_ed25519.marshal_light(*t) for t in zip(*SIGNED)]
+
+
 @pytest.mark.parametrize(
     "entry",
     [
@@ -120,10 +133,19 @@ def _packed():
         lambda: port_sha256.sha256_chunked([[b"a", b"bc"]]),
         lambda: to_tensors(_packed()),
         lambda: BasicRecorder(node_count=1, client_count=1, reqs_per_client=3),
+        signing.AsyncSignaturePlane,
+        signing.SpeculativeSignaturePlane,
+        lambda: port_ed25519.verify_batch(*SIGNED),
+        lambda: port_ed25519.verify_batch_pallas(*SIGNED),
+        lambda: port_ed25519.verify_batch([], [], []),
+        lambda: port_ed25519.launch_rows(_rows()),
+        lambda: signing.kernel_verifier([(7, 0, b"x" * 100)]),
     ],
     ids=[
         "kernel_plane", "sha256_many", "sha256_chunked", "to_tensors",
-        "recorder",
+        "recorder", "async_signature_plane", "speculative_signature_plane",
+        "verify_batch", "verify_batch_pallas", "verify_batch_empty",
+        "launch_rows", "kernel_verifier",
     ],
 )
 def test_entry_points_raise_without_a_card(no_card, entry):
@@ -141,11 +163,37 @@ def test_entry_points_raise_without_a_card(no_card, entry):
             node_count=1, client_count=1, reqs_per_client=3,
             hash_plane=AsyncKernelHashPlane(device="cpu"),
         ).drain_clients(max_steps=20000),
+        lambda: signing.AsyncSignaturePlane(device="cpu"),
+        lambda: signing.SpeculativeSignaturePlane(device="cpu"),
+        lambda: port_ed25519.verify_batch(*SIGNED, device="cpu"),
+        lambda: port_ed25519.verify_batch_pallas(*SIGNED, device="cpu"),
+        lambda: port_ed25519.launch_rows(_rows(), device="cpu"),
     ],
-    ids=["kernel_plane", "sha256_many", "to_tensors", "recorder"],
+    ids=[
+        "kernel_plane", "sha256_many", "to_tensors", "recorder",
+        "async_signature_plane", "speculative_signature_plane",
+        "verify_batch", "verify_batch_pallas", "launch_rows",
+    ],
 )
 def test_entry_points_run_on_the_cpu_when_asked(no_card, entry):
     assert entry() is not None
+
+
+def test_signing_has_no_except_around_a_verify():
+    """No verdict on the signed path may come from a handler: signing.py
+    and ops/ed25519.py hold no try statement at all."""
+    for name in ("testengine/signing.py", "ops/ed25519.py"):
+        tree = ast.parse((PORT / name).read_text())
+        tries = [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+        assert not tries, f"{name}: try at line {tries[0].lineno}"
+
+
+def test_signing_has_no_host_authority_switch():
+    """The JAX package's kernel_authority()/batch_verifier() picked a host
+    route when no device was attached; the port has neither."""
+    assert not hasattr(signing, "kernel_authority")
+    assert not hasattr(signing, "batch_verifier")
+    assert not hasattr(signing, "rlc_verifier")
 
 
 def test_recorder_has_no_hash_executor_route():
