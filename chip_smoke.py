@@ -3,13 +3,14 @@
 Run from the root of a checkout, on a machine with a CUDA card and the
 CUDA toolkit:
 
-    python3 chip_smoke.py [--profile PATH]
+    python3 chip_smoke.py [--profile PATH] [--live-rounds N]
 
 Phases (any failure raises and the script exits nonzero):
 
-1. print the card's name and power limit; build the SHA-256 and Ed25519
-   kernels from ``mirbft_tpu_torch/csrc/{sha256,ed25519}.cu`` (one ``nvcc``
-   each, started together) and print ptxas's register and spill report;
+1. print the card's name and power limit; build the SHA-256 (digest and
+   chain) and Ed25519 kernels from ``mirbft_tpu_torch/csrc/{sha256,ed25519}.cu``
+   (one ``nvcc`` each, started together) and print ptxas's register and
+   spill report;
 2. hold the SHA-256 kernel against its plain PyTorch version and hashlib,
    bit for bit: block-boundary lengths, rows with fewer blocks than the
    bucket, padding rows, and the main path's two launch shapes,
@@ -51,7 +52,26 @@ Phases (any failure raises and the script exits nonzero):
    device time and the card's idle share;
 9. both Ed25519 kernels' times at n = 512, 1024 and 4096 (CUDA events over
    launches queued behind a spin kernel) beside their bounds, and the plain
-   versions' times at n = 512.
+   versions' times at n = 512;
+10. the SHA-256 chain kernel against its plain version, exactly, at
+    (1024, 16) and the ragged (1000, 16) blocks, at the full batch of
+    32768 rows, and at the full 4096 iterations on 1000 rows; then the port's kernel microbenchmark at full size
+    (``mirbft_tpu_torch.bench.kernel_microbench``: 32768 rows x 4096
+    chained compressions x 4 reps): compressions/s, the kernel's time
+    beside its bound, hashlib's rate;
+11. the live rung (``mirbft_tpu_torch.bench.live_cluster_rate``, the JAX
+    package's bench.py:122-131 settings unchanged: 4 nodes over loopback
+    TCP, 16 clients x 110 requests, BatchSize 10, real fsyncs plus a 40 ms
+    floor, to the 1600th commit) under each processor kind: serial, cuda,
+    pool, cuda-pool, pipelined, cuda-pipelined.  Each must reach the
+    target, commit no request twice and keep the nodes' chains agreeing;
+    each cuda kind must launch every hash request and none on the host.
+    Each node runs in a process of its own and counts its launches there
+    from 0.  Every launch of the cuda kinds records its packed shape, and
+    the first launches of each shape keep their preimages and the digests
+    they read back: those digests must equal hashlib's, and each kept
+    launch, replayed through the kernel at its shape, must equal the plain
+    version and hashlib.  Committed req/s and p95 commit latency per kind.
 
 It then prints the kernels as one JSON line, the card's name and power
 limit, and, last, the result line the chip check reads.  Without a CUDA
@@ -88,6 +108,13 @@ FORGED_REQ_NO = 99
 RUNG3_EVENTS = 43280
 RUNG3_CHAIN = "12951e5407835b23b58650b2b28549b9404f5ecd6bafca472ff60a59b1f0e2cc"
 ED25519_SHAPES = (512, 1024, 4096)  # signatures per launch, timed
+# Phase 10: (rows, iterations) held against the plain version (on the
+# host: its launches are all overhead), the last at the microbenchmark's
+# full 4096 iterations; and the iterations the plain version is timed at
+# on the full batch on the card (its 4096 would take about a minute of
+# small launches).
+CHAIN_COMPARED = ((1024, 16), (1000, 16), (32768, 8), (1000, 4096))
+CHAIN_PLAIN_ITERS = 64
 # Launch shapes held against the plain versions and the oracle: the timed
 # ones, a small one, and phase 7's wave of 64 clients x 4 requests.
 ED25519_COMPARED = (8, CLIENTS * SIGNED_REQS, *ED25519_SHAPES)
@@ -524,6 +551,9 @@ def main() -> int:
     parser.add_argument("--profile", metavar="PATH",
                         help="write cProfile tables of a host and a kernel "
                         "rung-2 run to PATH")
+    parser.add_argument("--live-rounds", type=int, default=1, metavar="N",
+                        help="run phase 11's six kinds N times (a stall "
+                        "fails the script; the kernels line reads round 1)")
     args = parser.parse_args()
 
     import torch
@@ -555,7 +585,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build_all(["sha256", "ed25519"])
     build_s = time.perf_counter() - t0
-    print(f"phase 1 ok: sha256.cu and ed25519.cu built for sm_90a in "
+    print(f"phase 1 ok: sha256.cu (digest, chain) and ed25519.cu built for "
+          f"sm_90a in "
           f"{build_s:.3f} s (one nvcc each, together)")
     ptxas = {}
     for name, lib in libs.items():
@@ -931,6 +962,171 @@ def main() -> int:
             )
     print(f"phase 9 ok (done at {time.perf_counter() - t0:.1f} s)")
 
+    # -- phase 10: the chain kernel and the kernel microbenchmark -----------
+    from mirbft_tpu_torch import bench as port_bench
+    from mirbft_tpu_torch.ops.sha256 import (
+        chain_int_ops,
+        sha256_chain_checksum,
+        sha256_chain_checksum_plain,
+    )
+
+    generator = torch.Generator().manual_seed(SEED)
+    chain_err = 0
+    for rows, iters in CHAIN_COMPARED:
+        block = torch.randint(
+            -2**31, 2**31 - 1, (rows, 16), dtype=torch.int32,
+            generator=generator,
+        ).to("cuda")
+        got = int(sha256_chain_checksum(block, iters=iters)) & 0xFFFFFFFF
+        want = int(
+            sha256_chain_checksum_plain(block.cpu(), iters=iters)
+        ) & 0xFFFFFFFF
+        err = abs(got - want)
+        chain_err = max(chain_err, err)
+        check(err == 0, f"chain ({rows}, 16) x {iters}: kernel {got} != "
+              f"plain {want}")
+        print(f"  chain ({rows}, 16) x {iters} iterations: kernel == plain "
+              f"({got:#010x})")
+    warm_s = port_bench.sha256_microbench_warmup()
+    sha256_chain_checksum.launches = 0
+    micro = port_bench.kernel_microbench()
+    chain_launches = sha256_chain_checksum.launches
+    check(chain_launches == port_bench.CHAIN_REPS,
+          f"microbench: {chain_launches} chain launches")
+    chain_ms = min(micro["rep_ms"])
+    clock = sm_clock_mhz()
+    chain_ops = chain_int_ops(micro["batch"], micro["iters"])
+    chain_ops_ms = (
+        chain_ops / (sms * INT32_LANES_PER_SM * clock * 1e6) * 1e3
+    )
+    chain_bytes = micro["batch"] * 64 + 4
+    chain_bytes_ms = chain_bytes / HBM_BYTES_PER_S * 1e3
+    chain_bound_ms = max(chain_ops_ms, chain_bytes_ms)
+    chain_bound_by = "operations" if chain_ops_ms >= chain_bytes_ms else "bytes"
+    full = torch.randint(
+        -2**31, 2**31 - 1, (port_bench.CHAIN_BATCH, 16), dtype=torch.int32,
+        generator=generator,
+    ).to("cuda")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    sha256_chain_checksum_plain(full, iters=CHAIN_PLAIN_ITERS)
+    torch.cuda.synchronize()
+    chain_plain_ms = (time.perf_counter() - start) * 1e3
+    print(
+        f"phase 10 ok: chain kernel == plain, max_abs_err {chain_err}; "
+        f"microbench {micro['batch']} rows x {micro['iters']} iterations x "
+        f"{micro['reps']} reps (warm-up {warm_s:.3f} s): rep ms (CUDA "
+        f"events) " + ", ".join(f"{ms:.6f}" for ms in micro["rep_ms"])
+        + "; wall ms " + ", ".join(f"{ms:.6f}" for ms in micro["rep_wall_ms"])
+        + f"; chain_rate {micro['chain_rate']:.6e} compressions/s, "
+        f"kernel_digest_rate {micro['kernel_digest_rate']:.6e} 640-byte "
+        f"digests/s, host_rate {micro['host_rate']:.3f} hashlib digests/s; "
+        f"kernel {chain_ms:.6f} ms, bound {chain_bound_ms:.6f} ms "
+        f"({chain_bound_by}: {chain_ops} int ops / ({sms} SMs x "
+        f"{INT32_LANES_PER_SM} INT32 lanes x {clock:.0f} MHz) = "
+        f"{chain_ops_ms:.6f} ms; {chain_bytes} bytes / 3.35 TB/s = "
+        f"{chain_bytes_ms:.6f} ms), {100 * chain_bound_ms / chain_ms:.2f}% "
+        f"of bound; plain {chain_plain_ms:.3f} ms at {CHAIN_PLAIN_ITERS} "
+        f"iterations of the full batch; library_ms null (no PyTorch call "
+        f"computes SHA-256) (done at {time.perf_counter() - t0:.1f} s)"
+    )
+
+    # -- phase 11: the live rung under every processor kind -----------------
+    # Each node runs in a process of its own; its wrapper's count starts at
+    # 0 with the process and is read when the run stops.
+    live = []
+    for live_round, live_kind in (
+        (r, k) for r in range(args.live_rounds) for k in port_bench.LIVE_KINDS
+    ):
+        gc.collect()
+        result = port_bench.live_cluster_rate(live_kind)
+        result["round"] = live_round
+        live.append(result)
+        line = (
+            f"  live round {live_round + 1} {live_kind}: "
+            f"{port_bench.LIVE.target_commits} commits "
+            f"in {result['elapsed_s']:.6f} s, {result['rate']:.3f} committed "
+            f"req/s, p95 {result['p95_ms']:.3f} ms, per-node commits "
+            f"{result['commits']}, shared chain prefix "
+            f"{result['shared_prefix']}, hash requests "
+            f"{result['hash_requests']}, frames dropped "
+            f"{result['frames_dropped']}"
+        )
+        if live_kind.startswith("cuda"):
+            check(result["wrapper_launches"] == result["launches"] > 0,
+                  f"live {live_kind}: the wrappers counted "
+                  f"{result['wrapper_launches']} launches, the processors "
+                  f"{result['launches']}")
+            idle = 100 * (1 - result["kernel_ms"] / 1e3 / result["elapsed_s"])
+            line += (
+                f", digests device {result['device_digests']} host "
+                f"{result['host_digests']}, launches {result['launches']}, "
+                f"kernel spans {result['kernel_ms']:.6f} ms (CUDA events "
+                "around each launch; they hold whatever host time passes "
+                "between the events, so the card is idle at least "
+                f"{idle:.4f}% of the run)"
+            )
+        print(line)
+    live_cuda = [r for r in live if r["kind"].startswith("cuda")]
+    live_launches = sum(
+        r["wrapper_launches"] for r in live_cuda if r["round"] == 0
+    )
+
+    # The launch audit: every shape the live launches had, each kept
+    # launch's read-back digests against hashlib, and its replay through
+    # the kernel (outside the counted runs) against plain and hashlib.
+    from mirbft_tpu_torch.ops.sha256 import (
+        sha256_digest_words_plain,
+        words_to_digests,
+    )
+
+    iv_bytes = b"".join(word.to_bytes(4, "big") for word in IV)
+    live_shapes: dict = {}
+    live_err, replayed = 0, 0
+    for result in live_cuda:
+        for shape, (launches, kept) in result["samples"].items():
+            check(kept, f"live {result['kind']}: {launches} launches of "
+                  f"shape {shape}, none kept for the audit")
+            live_shapes[shape] = live_shapes.get(shape, 0) + launches
+            for preimages, raw in kept:
+                want = b"".join(hashlib.sha256(m).digest() for m in preimages)
+                pad_rows = shape[0] - len(preimages)
+                check(raw == want + iv_bytes * pad_rows,
+                      f"live {result['kind']}: a launch of shape {shape} "
+                      "read back digests that are not hashlib's")
+                packed = pack_preimages(preimages)
+                check(packed.blocks.shape[:2] == shape,
+                      f"replay packs {packed.blocks.shape[:2]}, not {shape}")
+                blocks, n_blocks = to_tensors(packed, "cuda")
+                kernel = sha256_digest_words(blocks, n_blocks).cpu()
+                plain = sha256_digest_words_plain(blocks.cpu(), n_blocks.cpu())
+                err = int((as_uint32(kernel) - as_uint32(plain)).abs().max())
+                live_err = max(live_err, err)
+                check(err == 0, f"live shape {shape}: kernel != plain")
+                check(words_to_digests(kernel) == raw,
+                      f"live shape {shape}: replay != the live launch")
+                replayed += 1
+    check(sum(live_shapes.values()) == sum(
+        r["wrapper_launches"] for r in live_cuda
+    ), "live rung: launches whose shape the audit did not see")
+    max_err = max(max_err, live_err)
+    print(
+        "phase 11 ok: the live rung reached "
+        f"{port_bench.LIVE.target_commits} commits under every kind in "
+        f"{args.live_rounds} round(s), no "
+        "request committed twice, the chains agree; committed req/s "
+        + ", ".join(f"{r['kind']} {r['rate']:.3f}" for r in live)
+        + "; p95 ms "
+        + ", ".join(f"{r['kind']} {r['p95_ms']:.3f}" for r in live)
+        + " (in round order)"
+        + f"; {sum(live_shapes.values())} SHA-256 launches in "
+        f"{len(live_shapes)} packed shapes (rows, blocks): "
+        + ", ".join(f"{shape} x{n}" for shape, n in sorted(live_shapes.items()))
+        + f"; {replayed} of them kept: read-back digests == hashlib, "
+        f"replay kernel == plain == hashlib, max_abs_err {live_err} (done "
+        f"at {time.perf_counter() - t0:.1f} s)"
+    )
+
     head = per_shape[0]
     kernels = [{
         "name": "sha256_digest",
@@ -939,6 +1135,10 @@ def main() -> int:
         "replaces": "mirbft_tpu/ops/sha256_pallas.py:102",
         "launches": rung2_launches,
         "launches_rung3": rung3_launches["sha256_digest"],
+        "launches_live": live_launches,
+        "live_shapes": [
+            [*shape, n] for shape, n in sorted(live_shapes.items())
+        ],
         "matched_plain": max_err == 0,
         "max_abs_err": max_err,
         "ms": head["ms"],
@@ -973,6 +1173,30 @@ def main() -> int:
             "per_shape": shapes,
             "ptxas": ptxas.get(f"mirbft_{name}_kernel"),
         })
+    kernels.insert(1, {
+        "name": "sha256_chain",
+        "route": "cuda",
+        "source": "mirbft_tpu_torch/csrc/sha256.cu",
+        "replaces": "mirbft_tpu/ops/sha256_pallas.py:121",
+        "launches": chain_launches,
+        "launches_note": "the kernel microbenchmark's; no system path "
+                         "launches it",
+        "matched_plain": chain_err == 0,
+        "max_abs_err": chain_err,
+        "ms": chain_ms,
+        "plain_ms": chain_plain_ms,
+        "plain_iters": CHAIN_PLAIN_ITERS,
+        "bound_ms": chain_bound_ms,
+        "bound_by": chain_bound_by,
+        "library_ms": None,
+        "shape": [micro["batch"], 16],
+        "iters": micro["iters"],
+        "rep_ms": micro["rep_ms"],
+        "chain_rate": micro["chain_rate"],
+        "int_ops": chain_ops,
+        "sm_clock_mhz": clock,
+        "ptxas": ptxas.get("mirbft_sha256_chain_kernel"),
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

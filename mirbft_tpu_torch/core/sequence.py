@@ -176,7 +176,14 @@ class Sequence:
 
     def apply_batch_hash_result(self, digest: bytes | None) -> Actions:
         self.digest = digest
-        return self.apply_prepare_msg(self.owner, digest)
+        # The digest alone can complete READY -> PREPREPARED.  The JAX
+        # package relies on apply_prepare_msg to advance, but its duplicate
+        # guard returns before advancing when the owner's vote is already
+        # in (the owner's Commit can arrive before a slow node's digest), so
+        # such a node sits in READY for good on a live cluster.  Advancing
+        # here is a no-op whenever the guarded call already advanced.
+        actions = self.apply_prepare_msg(self.owner, digest)
+        return actions.concat(self.advance_state())
 
     def _prepare(self) -> Actions:
         self.q_entry = pb.QEntry(

@@ -1,9 +1,14 @@
-// Batched multi-block SHA-256 (FIPS 180-4) for Hopper (sm_90a).
+// Batched multi-block SHA-256 (FIPS 180-4) for Hopper (sm_90a), and the
+// chained-compression checksum of the kernel microbenchmark.
 //
-// Replaces the Pallas TPU kernel mirbft_tpu/ops/sha256_pallas.py::_kernel
-// (launched by _digest_device at :147) and its XLA twin
-// mirbft_tpu/ops/sha256.py::_sha256_blocks: one kernel serves every block
-// bucket, the 128-block bucket included.
+// The digest kernel replaces the Pallas TPU kernel
+// mirbft_tpu/ops/sha256_pallas.py::_kernel (launched by _digest_device at
+// :147) and its XLA twin mirbft_tpu/ops/sha256.py::_sha256_blocks: one
+// kernel serves every block bucket, the 128-block bucket included.  The
+// chain kernel replaces sha256_pallas.py::_chain_kernel (:121, launched by
+// sha256_chain_checksum_pallas at :174) and its XLA twin
+// sha256.py::sha256_chain_checksum; both kernels call the same compress(),
+// so they cannot drift apart.
 //
 // Layout (the JAX layout, unchanged): blocks is (batch, max_blocks, 16)
 // big-endian message words already padded on the host, carried as int32
@@ -126,6 +131,60 @@ mirbft_sha256_digest_kernel(const uint4* __restrict__ blocks,
   o[1] = make_uint4(s[4], s[5], s[6], s[7]);
 }
 
+// Benchmark kernel: each row starts from the IV and makes `iters` chained
+// compressions of its own 16-word block (each with the feed-forward add),
+// then the 8 state words of every row are summed into *out, wrapping mod
+// 2^32.  The sum is reduced in the kernel: each thread sums its 8 words, a
+// warp sums by shuffles, the block's warps through shared memory, and one
+// thread a block adds the block's sum with one atomicAdd.  Unsigned
+// wrap-around addition is associative and commutative, so the result does
+// not depend on the order the blocks land in: it is exact and
+// deterministic.  *out must be 0 on entry (the launcher clears it on the
+// stream).  Any batch works: threads past the ragged edge add 0.
+__global__ void __launch_bounds__(kThreads)
+mirbft_sha256_chain_kernel(const uint4* __restrict__ block,
+                           uint32_t* __restrict__ out, int batch, int iters) {
+  const int row = blockIdx.x * kThreads + threadIdx.x;
+  uint32_t sum = 0;
+  if (row < batch) {
+    uint32_t w0[16];
+    const uint4* p = block + static_cast<size_t>(row) * 4;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint4 v = p[q];
+      w0[4 * q + 0] = v.x;
+      w0[4 * q + 1] = v.y;
+      w0[4 * q + 2] = v.z;
+      w0[4 * q + 3] = v.w;
+    }
+    uint32_t s[8] = {0x6a09e667u, 0xbb67ae85u, 0x3c6ef372u, 0xa54ff53au,
+                     0x510e527fu, 0x9b05688cu, 0x1f83d9abu, 0x5be0cd19u};
+    for (int i = 0; i < iters; ++i) {
+      uint32_t w[16];  // compress() overwrites its window: a fresh copy
+#pragma unroll
+      for (int k = 0; k < 16; ++k) w[k] = w0[k];
+      compress(s, w);
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) sum += s[k];
+  }
+#pragma unroll
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    sum += __shfl_down_sync(0xffffffffu, sum, offset);
+  }
+  __shared__ uint32_t warp_sums[kThreads / 32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    uint32_t total = 0;
+#pragma unroll
+    for (int k = 0; k < kThreads / 32; ++k) total += warp_sums[k];
+    atomicAdd(out, total);
+  }
+}
+
 }  // namespace
 
 // Plain C interface, bound with ctypes.  Pointers are device pointers, 16-byte
@@ -142,6 +201,23 @@ extern "C" int mirbft_sha256_digest(const void* blocks, const void* n_blocks,
       static_cast<const uint4*>(blocks),
       static_cast<const int32_t*>(n_blocks), static_cast<uint4*>(out), batch,
       max_blocks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chain checksum: block is (batch, 16) words, 16-byte aligned and
+// contiguous; out is one uint32 on the card.  Clears *out and launches on
+// the given stream, does not synchronise, and returns the first CUDA error
+// (0 on success).
+extern "C" int mirbft_sha256_chain(const void* block, void* out, int batch,
+                                   int iters, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(out, 0, sizeof(uint32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch <= 0) return 0;
+  const int grid = (batch + kThreads - 1) / kThreads;
+  mirbft_sha256_chain_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const uint4*>(block), static_cast<uint32_t*>(out), batch,
+      iters);
   return static_cast<int>(cudaGetLastError());
 }
 

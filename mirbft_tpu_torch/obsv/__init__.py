@@ -1,9 +1,10 @@
 """Observability plane: metrics registry, trace spans and the hook
 switchboard that core and the test engine call.
 
-Only ``hooks``, ``metrics`` and ``trace`` are carried over; the rest of the
-reference's plane (queues, critical path, diff, exporter, merge, timeline,
-device timing) is not part of this package yet.
+``hooks``, ``metrics``, ``trace`` and ``bqueue`` (the bounded hand-off
+queues of the live node's pipeline and transport) are carried over; the
+rest of the reference's plane (critical path, diff, exporter, merge,
+timeline, shadow oracle, device timing) is not part of this package yet.
 
 Usage:
 

@@ -14,11 +14,21 @@ digest words.
 goes to the kernel in ``csrc/sha256.cu`` (one kernel for every block
 bucket), a CPU tensor to ``sha256_digest_words_plain``.  There is no other
 route: a launch that fails raises.
+
+``sha256_chain_checksum`` is the kernel microbenchmark's function (the
+JAX package's ``sha256_chain_checksum`` and its Pallas twin): ``iters``
+chained compressions of each row's one block, summed into one uint32.  It
+dispatches the same way, to the chain kernel in the same source or to
+``sha256_chain_checksum_plain``.
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches``, under
+one lock: the live node launches from several threads at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -48,45 +58,115 @@ _IV = (
 )
 # fmt: on
 
-#: 32-bit integer instructions one compression needs on Hopper, counting
-#: each rotate as one SHF and folding three-input logic and sums into one
-#: LOP3 or IADD3: 64 rounds x 14 + 48 schedule words x 10 + 8 final adds.
-#: ``chip_smoke.py`` divides it by the INT32 issue rate for the kernel's
-#: bound.
-INT_OPS_PER_COMPRESSION = 64 * 14 + 48 * 10 + 8
+#: 32-bit integer instructions on Hopper, counting each rotate as one SHF
+#: and folding three-input logic and sums into one LOP3 or IADD3: a round
+#: takes 14, a schedule word 10, the feed-forward 8.  ``chip_smoke.py``
+#: divides the counts by the INT32 issue rate for the kernels' bounds.
+INT_OPS_PER_ROUND = 14
+INT_OPS_PER_SCHEDULE_WORD = 10
+INT_OPS_FEED_FORWARD = 8
+#: One compression of a fresh block: 64 rounds, 48 schedule words, the
+#: feed-forward (the digest kernel's unit of work).
+INT_OPS_PER_COMPRESSION = (
+    64 * INT_OPS_PER_ROUND + 48 * INT_OPS_PER_SCHEDULE_WORD
+    + INT_OPS_FEED_FORWARD
+)
+
+
+def chain_int_ops(batch: int, iters: int) -> int:
+    """Integer instructions the chain checksum needs: every iteration of a
+    row compresses the same block, so its message schedule is expanded
+    once a row and each iteration costs only the rounds and the
+    feed-forward."""
+    per_iteration = 64 * INT_OPS_PER_ROUND + INT_OPS_FEED_FORWARD
+    return batch * (48 * INT_OPS_PER_SCHEDULE_WORD + iters * per_iteration)
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``.  Under a lock: four nodes' consumer
+    threads, the pool's lanes and the pipeline's hash workers launch at
+    once, and ``+= 1`` on a function attribute is a read, an add and a
+    write that another thread can interleave, losing a count."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 # -- the plain version --------------------------------------------------------
 #
-# int64 throughout, masked to 32 bits after every add and shift: torch's
-# ``>>`` on int32 is arithmetic, and uint32 right shift has no CPU kernel.
+# int64 throughout, holding uint32 values: torch's ``>>`` on int32 is
+# arithmetic, and uint32 right shift has no CPU kernel.  The message
+# schedule of every block is expanded at once (it does not depend on the
+# state); a rotation shifts one 64-bit copy ``x << 32 | x`` (bits s..s+31
+# of it are rotr(x, s), and no shift reaches the sign) and masks once.
+#
+# The schedule and the rounds are TorchScript functions, scripted on first
+# use.  Run eagerly, each of a block's ~2,000 small torch calls gives up
+# and retakes the interpreter lock, and with other Python threads busy (the
+# live node's serializers, four nodes' consumers in one process) every
+# retake waits for a thread switch: a block that takes 6 ms alone took
+# seconds.  A scripted function runs its ops without returning to Python.
 
 
-def _rotr(x, n: int):
-    return ((x >> n) | (x << (32 - n))) & _MASK
-
-
-def _compress_plain(state: list, w: list) -> list:
-    w = list(w)
+def _schedule_source(words: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(..., 16) int64 words -> (..., 64) int64: the message schedule plus
+    the round constants, W[t] + K[t] (below 2^33), for every block."""
+    w = list(words.unbind(-1))
     for t in range(16, 64):
-        w15, w2 = w[t - 15], w[t - 2]
-        s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
-        s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
-        w.append((w[t - 16] + s0 + w[t - 7] + s1) & _MASK)
-    a, b, c, d, e, f, g, h = state
+        w15 = w[t - 15]
+        w2 = w[t - 2]
+        x = (w15 << 32) | w15
+        s0 = (((x >> 7) ^ (x >> 18)) & 0xFFFFFFFF) ^ (w15 >> 3)
+        x = (w2 << 32) | w2
+        s1 = (((x >> 17) ^ (x >> 19)) & 0xFFFFFFFF) ^ (w2 >> 10)
+        w.append((w[t - 16] + s0 + w[t - 7] + s1) & 0xFFFFFFFF)
+    return torch.stack(w, dim=-1) + k
+
+
+def _rounds_source(state: torch.Tensor, kw: torch.Tensor) -> torch.Tensor:
+    """The 64 rounds and the feed-forward add: state (8, batch), one
+    block's W[t] + K[t] as (64, batch) -> the new state (8, batch)."""
+    a, b, c, d, e, f, g, h = state.unbind(0)
     for t in range(64):
-        big_s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
-        ch = (e & f) ^ (~e & _MASK & g)
-        t1 = (h + big_s1 + ch + _K[t] + w[t]) & _MASK
-        big_s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
-        maj = (a & b) ^ (a & c) ^ (b & c)
-        a, b, c, d, e, f, g, h = (
-            (t1 + big_s0 + maj) & _MASK, a, b, c, (d + t1) & _MASK, e, f, g,
-        )
-    return [
-        (old + new) & _MASK
-        for old, new in zip(state, (a, b, c, d, e, f, g, h))
-    ]
+        x = (e << 32) | e
+        big_s1 = ((x >> 6) ^ (x >> 11) ^ (x >> 25)) & 0xFFFFFFFF
+        t1 = h + big_s1 + (g ^ (e & (f ^ g))) + kw[t]
+        x = (a << 32) | a
+        big_s0 = ((x >> 2) ^ (x >> 13) ^ (x >> 22)) & 0xFFFFFFFF
+        t2 = big_s0 + ((a & b) | (c & (a | b)))
+        h = g
+        g = f
+        f = e
+        e = (d + t1) & 0xFFFFFFFF
+        d = c
+        c = b
+        b = a
+        a = (t1 + t2) & 0xFFFFFFFF
+    return (state + torch.stack([a, b, c, d, e, f, g, h])) & 0xFFFFFFFF
+
+
+_scripted: dict = {}
+
+
+def _script(fn):
+    """The TorchScript of ``fn``, compiled once (the first caller under the
+    lock; compiling takes tens of ms)."""
+    with _LAUNCH_LOCK:
+        compiled = _scripted.get(fn)
+        if compiled is None:
+            compiled = _scripted[fn] = torch.jit.script(fn)
+    return compiled
+
+
+def _schedule_plain(words: torch.Tensor) -> torch.Tensor:
+    k = torch.tensor(_K, dtype=torch.int64, device=words.device)
+    return _script(_schedule_source)(words, k)
+
+
+def _rounds_plain(state: torch.Tensor, kw: torch.Tensor) -> torch.Tensor:
+    return _script(_rounds_source)(state, kw)
 
 
 def sha256_digest_words_plain(blocks: torch.Tensor, n_blocks: torch.Tensor):
@@ -96,18 +176,40 @@ def sha256_digest_words_plain(blocks: torch.Tensor, n_blocks: torch.Tensor):
     changing once its own block count is used; rows with a count of 0
     return the IV."""
     batch, max_blocks, _ = blocks.shape
-    words = blocks.to(torch.int64) & _MASK
     counts = n_blocks.to(torch.int64)
-    state = [
-        torch.full((batch,), v, dtype=torch.int64, device=blocks.device)
-        for v in _IV
-    ]
-    for j in range(max_blocks):
-        new = _compress_plain(state, [words[:, j, i] for i in range(16)])
-        live = counts > j
-        state = [torch.where(live, n, o) for n, o in zip(new, state)]
-    out = torch.stack(state, dim=1)
-    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+    state = torch.tensor(
+        _IV, dtype=torch.int64, device=blocks.device
+    ).unsqueeze(1).expand(8, batch)
+    live_blocks = min(max_blocks, int(counts.max())) if batch else 0
+    if live_blocks > 0:
+        words = blocks[:, :live_blocks].to(torch.int64) & _MASK
+        kw = _schedule_plain(words)  # (batch, live_blocks, 64)
+        for j in range(live_blocks):
+            new = _rounds_plain(state, kw[:, j].t())
+            state = torch.where(counts > j, new, state)
+    return _to_int32(state.t())
+
+
+def _to_int32(values: torch.Tensor) -> torch.Tensor:
+    """int64 tensor of uint32 values -> int32 tensor of the same bits."""
+    return torch.where(
+        values >= 1 << 31, values - (1 << 32), values
+    ).to(torch.int32)
+
+
+def sha256_chain_checksum_plain(block: torch.Tensor, *, iters: int):
+    """The chain kernel's function in plain PyTorch: (batch, 16) int32
+    words -> a 0-d int32 tensor holding the uint32 sum of every row's 8
+    state words after ``iters`` chained compressions of its block from the
+    IV."""
+    batch = block.shape[0]
+    kw = _schedule_plain(block.to(torch.int64) & _MASK).t()  # (64, batch)
+    state = torch.tensor(
+        _IV, dtype=torch.int64, device=block.device
+    ).unsqueeze(1).expand(8, batch)
+    for _ in range(iters):
+        state = _rounds_plain(state, kw)
+    return _to_int32(state.sum() & _MASK)
 
 
 # -- the kernel ---------------------------------------------------------------
@@ -124,6 +226,11 @@ def _kernel_library():
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+        lib.mirbft_sha256_chain.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.mirbft_sha256_chain.restype = ctypes.c_int
         lib.mirbft_cuda_error_string.argtypes = [ctypes.c_int]
         lib.mirbft_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -165,11 +272,15 @@ def _launch_kernel(blocks: torch.Tensor, n_blocks: torch.Tensor):
             blocks.data_ptr(), n_blocks.data_ptr(), out.data_ptr(),
             batch, max_blocks, stream,
         )
+    _raise_on(lib, err, "sha256 kernel")
+    _count_launch(sha256_digest_words)
+    return out
+
+
+def _raise_on(lib, err: int, what: str) -> None:
     if err:
         msg = lib.mirbft_cuda_error_string(err).decode()
-        raise RuntimeError(f"sha256 kernel launch failed: {msg} ({err})")
-    sha256_digest_words.launches += 1
-    return out
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
 
 
 def sha256_digest_words(blocks: torch.Tensor, n_blocks: torch.Tensor):
@@ -187,6 +298,51 @@ def sha256_digest_words(blocks: torch.Tensor, n_blocks: torch.Tensor):
 
 
 sha256_digest_words.launches = 0
+
+
+def _launch_chain(block: torch.Tensor, iters: int):
+    if not block.is_contiguous():
+        raise ValueError("block must be contiguous")
+    if block.data_ptr() % 16:
+        raise ValueError("block must be 16-byte aligned")
+    out = torch.empty((), dtype=torch.int32, device=block.device)
+    lib = _kernel_library()
+    with torch.cuda.device(block.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.mirbft_sha256_chain(
+            block.data_ptr(), out.data_ptr(), block.shape[0], iters, stream
+        )
+    _raise_on(lib, err, "sha256 chain kernel")
+    _count_launch(sha256_chain_checksum)
+    return out
+
+
+def sha256_chain_checksum(block: torch.Tensor, *, iters: int):
+    """``iters`` chained compressions of each row's (batch, 16) int32
+    block from the IV, the 8 state words of every row summed mod 2^32 ->
+    a 0-d int32 tensor holding the uint32 checksum.  A CUDA tensor takes
+    the chain kernel, one launch holding all the work, on the current
+    stream (counted in ``sha256_chain_checksum.launches``); a CPU tensor
+    takes the plain version.  Any batch: unlike the Pallas kernel, no
+    multiple of 1024 is needed."""
+    if block.dim() != 2 or block.shape[1] != 16:
+        raise ValueError(f"block must be (batch, 16), got {tuple(block.shape)}")
+    if block.dtype != torch.int32:
+        raise TypeError(f"block must be int32, got {block.dtype}")
+    if iters < 0:
+        raise ValueError(f"iters must be >= 0, got {iters}")
+    if block.device.type == "cuda":
+        return _launch_chain(block, int(iters))
+    if block.device.type == "cpu":
+        return sha256_chain_checksum_plain(block, iters=int(iters))
+    raise ValueError(f"no sha256 chain path for device {block.device}")
+
+
+sha256_chain_checksum.launches = 0
+
+#: The JAX package's name for its Pallas route (``ops/sha256_pallas.py``):
+#: here the same function, which reaches the same kernel.
+sha256_chain_checksum_pallas = sha256_chain_checksum
 
 
 def words_to_digests(words: torch.Tensor) -> bytes:

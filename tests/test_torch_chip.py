@@ -179,3 +179,52 @@ def test_signed_run_on_the_card_matches_the_host_run(card):
     assert (plane.device_verifies, plane.host_rejects) == (10, 1)
     assert ed25519.ladder.launches - before == plane.launches > 0
     assert plane.kernel_ms > 0
+
+
+@pytest.mark.parametrize(
+    "batch,iters",
+    [(1024, 1), (1024, 16), (1000, 3), (32768, 8)],
+    ids=["tile", "tile-16", "ragged", "full-batch"],
+)
+def test_chain_kernel_matches_plain(card, batch, iters):
+    generator = torch.Generator().manual_seed(batch + iters)
+    block = torch.randint(
+        -2**31, 2**31 - 1, (batch, 16), dtype=torch.int32,
+        generator=generator,
+    ).to(card)
+    before = port.sha256_chain_checksum.launches
+    got = port.sha256_chain_checksum(block, iters=iters)
+    assert port.sha256_chain_checksum.launches == before + 1
+    assert got.device.type == "cuda" and got.shape == ()
+    want = port.sha256_chain_checksum_plain(block, iters=iters)
+    assert int(got) == int(want)
+
+
+def test_cuda_four_node_live_run_on_the_card(card):
+    """The live rung's cluster, cut to 2 clients x 10 requests without the
+    flush floor: 4 nodes, each in a process of its own, over TCP, every
+    digest on the kernel; every launch's shape audited, and the kept
+    launches' read-back digests equal hashlib's."""
+    import dataclasses
+    import hashlib
+
+    from mirbft_tpu_torch.bench import LIVE, live_cluster_rate
+
+    result = live_cluster_rate("cuda", device=card, settings=dataclasses.replace(
+        LIVE, clients=2, reqs_per_client=10, target_commits=20,
+        batch_size=1, tick_s=0.05, fsync_floor_s=0.0, deadline_s=60.0,
+        checkpoint_interval=20, suspect_ticks=100,
+    ))
+    assert result["host_digests"] == 0
+    assert result["device_digests"] == result["hash_requests"] > 0
+    assert result["wrapper_launches"] == result["launches"] > 0
+    assert result["kernel_ms"] > 0
+    samples = result["samples"]
+    assert sum(launches for launches, _kept in samples.values()) == (
+        result["launches"]
+    )
+    for (rows, _blocks), (_launches, kept) in samples.items():
+        assert kept
+        for preimages, raw in kept:
+            want = b"".join(hashlib.sha256(m).digest() for m in preimages)
+            assert raw[: len(want)] == want and len(raw) == 32 * rows

@@ -12,12 +12,15 @@ from pathlib import Path
 import pytest
 import torch
 
+from mirbft_tpu_torch import bench as port_bench
 from mirbft_tpu_torch.core import device_tracker
 from mirbft_tpu_torch.core.state_machine import StateMachine
 from mirbft_tpu_torch.crypto import ed25519_host
 from mirbft_tpu_torch.ops import ed25519 as port_ed25519
 from mirbft_tpu_torch.ops import sha256 as port_sha256
 from mirbft_tpu_torch.ops.batching import pack_preimages, to_tensors
+from mirbft_tpu_torch.runtime import Config as RuntimeConfig
+from mirbft_tpu_torch.runtime import processor as runtime_processor
 from mirbft_tpu_torch.testengine import BasicRecorder
 from mirbft_tpu_torch.testengine import signing
 from mirbft_tpu_torch.testengine.crypto_plane import AsyncKernelHashPlane
@@ -125,6 +128,28 @@ def _rows():
     return [port_ed25519.marshal_light(*t) for t in zip(*SIGNED)]
 
 
+class _StubNode:
+    """Enough of a Node for build_processor: its config."""
+
+    def __init__(self, **config):
+        self.config = RuntimeConfig(id=0, **config)
+
+
+class _NullStore:
+    def uncommitted(self, for_each):
+        pass
+
+
+def _processor(kind=None, **kwargs):
+    return runtime_processor.build_processor(
+        _StubNode(), None, None, None, _NullStore(), kind=kind, **kwargs
+    )
+
+
+def _chain_block():
+    return torch.zeros((4, 16), dtype=torch.int32)
+
+
 @pytest.mark.parametrize(
     "entry",
     [
@@ -140,12 +165,21 @@ def _rows():
         lambda: port_ed25519.verify_batch([], [], []),
         lambda: port_ed25519.launch_rows(_rows()),
         lambda: signing.kernel_verifier([(7, 0, b"x" * 100)]),
+        port_bench.kernel_microbench,
+        port_bench.sha256_microbench_warmup,
+        lambda: port_bench.live_cluster_rate("cuda"),
+        lambda: _processor("cuda"),
+        lambda: _processor("cuda-pool"),
+        lambda: _processor("cuda-pipelined"),
+        lambda: _processor(),
     ],
     ids=[
         "kernel_plane", "sha256_many", "sha256_chunked", "to_tensors",
         "recorder", "async_signature_plane", "speculative_signature_plane",
         "verify_batch", "verify_batch_pallas", "verify_batch_empty",
-        "launch_rows", "kernel_verifier",
+        "launch_rows", "kernel_verifier", "kernel_microbench", "microbench_warmup", "live_cluster_rate",
+        "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
+        "default_config_processor",
     ],
 )
 def test_entry_points_raise_without_a_card(no_card, entry):
@@ -168,15 +202,90 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         lambda: port_ed25519.verify_batch(*SIGNED, device="cpu"),
         lambda: port_ed25519.verify_batch_pallas(*SIGNED, device="cpu"),
         lambda: port_ed25519.launch_rows(_rows(), device="cpu"),
+        lambda: port_sha256.sha256_chain_checksum(_chain_block(), iters=1),
+        lambda: port_bench.kernel_microbench(
+            "cpu", batch=8, iters=1, reps=1, host_messages=8
+        ),
+        lambda: port_bench.sha256_microbench_warmup("cpu"),
+        lambda: _processor("cuda", device="cpu"),
+        lambda: _processor("cuda-pool", device="cpu"),
+        lambda: _processor("cuda-pipelined", device="cpu"),
+        lambda: _processor(device="cpu"),
     ],
     ids=[
         "kernel_plane", "sha256_many", "to_tensors", "recorder",
         "async_signature_plane", "speculative_signature_plane",
         "verify_batch", "verify_batch_pallas", "launch_rows",
+        "sha256_chain_checksum", "kernel_microbench", "microbench_warmup",
+        "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
+        "default_config_processor",
     ],
 )
 def test_entry_points_run_on_the_cpu_when_asked(no_card, entry):
-    assert entry() is not None
+    result = entry()
+    assert result is not None
+    close = getattr(result, "close", None)
+    if close is not None:
+        close()
+
+
+def _class_source_names(cls) -> set:
+    import inspect
+
+    tree = ast.parse(textwrap.dedent(inspect.getsource(cls)))
+    return {
+        node.id if isinstance(node, ast.Name) else node.attr
+        for node in ast.walk(tree)
+        if isinstance(node, (ast.Name, ast.Attribute))
+    }
+
+
+@pytest.mark.parametrize(
+    "cls",
+    [
+        runtime_processor._CudaHashMixin,
+        runtime_processor.CudaProcessor,
+        runtime_processor.CudaPoolProcessor,
+        runtime_processor.CudaPipelinedProcessor,
+    ],
+    ids=lambda cls: cls.__name__,
+)
+def test_cuda_processors_have_no_host_route(cls):
+    """No batch-size threshold and no hashlib call in the Cuda* classes;
+    their inherited inline hash phase is the mixin's, which launches."""
+    names = _class_source_names(cls)
+    assert "min_batch_for_device" not in names
+    assert "host_digest" not in names
+    assert "hashlib" not in names
+    assert cls._hash is runtime_processor._CudaHashMixin._hash
+    assert cls.host_digests == 0
+
+
+def test_processor_module_has_no_try_around_a_launch():
+    """A launch that fails raises: the mixin holds no try statement."""
+    import inspect
+
+    tree = ast.parse(textwrap.dedent(
+        inspect.getsource(runtime_processor._CudaHashMixin)
+    ))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+NEW_MODULES = [
+    "bench.py", "resilience.py", "status.py", "crypto/mac.py",
+    "obsv/bqueue.py", "runtime/__init__.py", "runtime/config.py",
+    "runtime/log.py", "runtime/msgfilter.py", "runtime/node.py",
+    "runtime/processor.py", "runtime/reconfig.py", "runtime/storage.py",
+    "runtime/transport.py",
+]
+
+
+@pytest.mark.parametrize("name", NEW_MODULES)
+def test_live_node_modules_import_neither_jax_nor_the_jax_package(name):
+    path = PORT / name
+    assert path.exists(), name
+    bad = [m for m in _imports(path) if m and forbidden(m)]
+    assert not bad, f"{name}: {bad}"
 
 
 def test_signing_has_no_except_around_a_verify():
