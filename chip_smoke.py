@@ -9,12 +9,16 @@ Phases (any failure raises and the script exits nonzero):
 
 1. print the card's name and power limit; build the SHA-256 (digest and
    chain) and Ed25519 kernels from ``mirbft_tpu_torch/csrc/{sha256,ed25519}.cu``
-   (one ``nvcc`` each, started together) and print ptxas's register and
-   spill report;
+   (one ``nvcc`` each, started together) and print ptxas's register,
+   spill and shared-memory report (the ladder's dynamic shared memory
+   beside it);
 2. hold the SHA-256 kernel against its plain PyTorch version and hashlib,
    bit for bit: block-boundary lengths, rows with fewer blocks than the
-   bucket, padding rows, and the main path's two launch shapes,
-   (8192, 1, 16) and (256, 128, 16);
+   bucket, padding rows, the main path's two launch shapes, (8192, 1, 16)
+   and (256, 128, 16), with protocol preimages, and all eight bucket
+   shapes (8192, 1) ... (256, 128) with ragged rows, through the entry
+   point (which takes the one-thread body for 1-block buckets and the
+   warp-specialised body above);
 3. the determinism anchor: 16 nodes x 64 clients x 25 requests, BatchSize
    200, every digest from the kernel: 2320 events, one app chain, 1600
    commits per node;
@@ -25,16 +29,20 @@ Phases (any failure raises and the script exits nonzero):
    kernel must have launched, and no digest may come from the host.  Each
    run starts after a full collection of the earlier runs' garbage and
    prints its wall, the CPU seconds of the process and of its main thread,
-   the seconds in the cyclic collector, and the plane's host seconds at
-   submit, at launch and blocked at flush; with ``--profile PATH`` one more host run and one more kernel
+   the seconds in the cyclic collector, the plane's host seconds at
+   submit, at launch and blocked at flush, and the kernel's launches by
+   packed (rows, blocks) shape; with ``--profile PATH`` one more host run and one more kernel
    run go under cProfile and their top functions are written to PATH;
-5. the SHA-256 kernel's time at both launch shapes (CUDA events over many
-   launches after a warm-up) beside its bound and the plain version's time;
+5. the SHA-256 kernel's time at all eight bucket shapes (CUDA events over
+   many launches after a warm-up), through the entry point, beside its
+   throughput bound, its chain floor (the longest row's rounds at 3
+   dependent instructions of 4 cycles each) and the plain version's time;
 6. the rung-3 clients sign their requests (a process pool, before any
    clock); then both Ed25519 kernels against their plain versions and the
-   RFC 8032 oracle on one corpus, launched at exactly n = 8, 256, 512, 1024
-   and 4096 rows (256 and 512 are the main path's launches in phases 7 and
-   8): valid signatures, corrupted R, corrupted S, wrong messages, keys
+   RFC 8032 oracle on one corpus, launched at exactly n = 1, 3, 7, 8, 256,
+   512, 513, 1024 and 4096 rows (256 and 512 are the main path's launches
+   in phases 7 and 8; 1, 3, 7 and 513 leave the quad ladder's warps or
+   blocks part empty): valid signatures, corrupted R, corrupted S, wrong messages, keys
    with no square root, x = 0 with the sign bit set, small-order keys (the
    identity, a point of order 8), R with no root; host-rejected rows (y >=
    p, S >= L, bad lengths) come on top of the n and must not reach a
@@ -49,10 +57,12 @@ Phases (any failure raises and the script exits nonzero):
    plane and the kernel hash plane: the event count and app chain head of
    the JAX package's own run, 8192 commits on every node, every verify and
    every digest on the card; committed req/s, the verify p99, the kernels'
-   device time and the card's idle share;
+   device time and the card's idle share; the SHA-256 launches by packed
+   shape at rungs 2 and 3, each times its gap to the larger of bound and
+   chain floor;
 9. both Ed25519 kernels' times at n = 512, 1024 and 4096 (CUDA events over
-   launches queued behind a spin kernel) beside their bounds, and the plain
-   versions' times at n = 512;
+   launches queued behind a spin kernel) beside their bounds and chain
+   floors, and the plain versions' times at n = 512;
 10. the SHA-256 chain kernel against its plain version, exactly, at
     (1024, 16) and the ragged (1000, 16) blocks, at the full batch of
     32768 rows, and at the full 4096 iterations on 1000 rows; then the port's kernel microbenchmark at full size
@@ -71,7 +81,9 @@ Phases (any failure raises and the script exits nonzero):
     the first launches of each shape keep their preimages and the digests
     they read back: those digests must equal hashlib's, and each kept
     launch, replayed through the kernel at its shape, must equal the plain
-    version and hashlib.  Committed req/s and p95 commit latency per kind.
+    version and hashlib.  Each live shape is timed on its first kept
+    launch's preimages beside its floors, with round 1's launches x gap.
+    Committed req/s and p95 commit latency per kind.
 
 It then prints the kernels as one JSON line, the card's name and power
 limit, and, last, the result line the chip check reads.  Without a CUDA
@@ -108,6 +120,13 @@ FORGED_REQ_NO = 99
 RUNG3_EVENTS = 43280
 RUNG3_CHAIN = "12951e5407835b23b58650b2b28549b9404f5ecd6bafca472ff60a59b1f0e2cc"
 ED25519_SHAPES = (512, 1024, 4096)  # signatures per launch, timed
+# The packed (rows, blocks) shapes of the engine's eight block buckets
+# (AsyncKernelHashPlane.rows_for): phase 2 holds each, with ragged rows,
+# against plain and hashlib; phase 5 times each with full rows.
+SHA256_SHAPES = (
+    (8192, 1), (8192, 2), (8192, 4), (4096, 8), (2048, 16), (1024, 32),
+    (512, 64), (256, 128),
+)
 # Phase 10: (rows, iterations) held against the plain version (on the
 # host: its launches are all overhead), the last at the microbenchmark's
 # full 4096 iterations; and the iterations the plain version is timed at
@@ -116,8 +135,11 @@ ED25519_SHAPES = (512, 1024, 4096)  # signatures per launch, timed
 CHAIN_COMPARED = ((1024, 16), (1000, 16), (32768, 8), (1000, 4096))
 CHAIN_PLAIN_ITERS = 64
 # Launch shapes held against the plain versions and the oracle: the timed
-# ones, a small one, and phase 7's wave of 64 clients x 4 requests.
-ED25519_COMPARED = (8, CLIENTS * SIGNED_REQS, *ED25519_SHAPES)
+# ones, small and ragged ones (a quad ladder's warp or block part empty),
+# and phase 7's wave of 64 clients x 4 requests.
+ED25519_COMPARED = tuple(sorted(
+    (1, 3, 7, 8, CLIENTS * SIGNED_REQS, 513, *ED25519_SHAPES)
+))
 POOL_PROCESSES = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
@@ -216,6 +238,20 @@ def main_path_batches(rng) -> dict:
         for _ in range(256)
     ]
     return {(8192, 1, 16): (requests, 1, 8192), (256, 128, 16): (batches, 128, 256)}
+
+
+def bucket_lengths(rng, rows: int, bucket: int, ragged: bool) -> list:
+    """Message lengths for one bucket's launch.  Full: every row pads to
+    the bucket (from bucket/2 + 1 blocks up to bucket blocks; 0-55 bytes
+    for the 1-block bucket), as the engine's full chunks are.  Ragged: 40
+    padding rows, one row of the bucket's longest length, and the rest
+    anywhere from 0 bytes up, so most rows have fewer live blocks than the
+    bucket."""
+    top = bucket * 64 - 9  # the longest message that pads to the bucket
+    if ragged:
+        return [rng.randrange(0, top + 1) for _ in range(rows - 41)] + [top]
+    low = 0 if bucket == 1 else 32 * bucket - 8
+    return [rng.randrange(low, top + 1) for _ in range(rows)]
 
 
 class GcTimer:
@@ -332,9 +368,64 @@ def time_plain(blocks, n_blocks):
     return (time.perf_counter() - start) * 1e3
 
 
+def digest_cost(packed, ms: float, sms: int) -> dict:
+    """The digest kernel's floors on one packed batch, at the SM clock read
+    now: the throughput bound (integer instructions over the INT32 rate,
+    bytes over 3.35 TB/s) and the chain floor (the longest row's rounds,
+    ``ops/sha256.py::chain_floor_cycles``); which binds, and ``ms``'s gap
+    to it."""
+    from mirbft_tpu_torch.ops.sha256 import (
+        INT_OPS_PER_COMPRESSION,
+        chain_floor_cycles,
+    )
+
+    clock = sm_clock_mhz()
+    compressions = int(packed.n_blocks.sum())
+    rows = packed.blocks.shape[0]
+    ops_ms = (
+        compressions * INT_OPS_PER_COMPRESSION
+        / (sms * INT32_LANES_PER_SM * clock * 1e6) * 1e3
+    )
+    moved = compressions * 64 + rows * (4 + 32)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    longest = int(packed.n_blocks.max())
+    chain_ms = chain_floor_cycles(longest) / (clock * 1e3)
+    return dict(
+        compressions=compressions, bytes=moved, sms=sms, sm_clock_mhz=clock,
+        ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms, bound_ms=bound_ms,
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        longest_row_blocks=longest, chain_floor_ms=chain_ms,
+        binds="chain floor" if chain_ms >= bound_ms else "throughput bound",
+        gap_ms=ms - max(bound_ms, chain_ms),
+    )
+
+
+def describe_cost(cost: dict, ms: float) -> str:
+    from mirbft_tpu_torch.ops.sha256 import (
+        DEPENDENT_ISSUE_CYCLES,
+        INT_OPS_PER_COMPRESSION,
+        ROUND_CHAIN,
+    )
+
+    binding = max(cost["bound_ms"], cost["chain_floor_ms"])
+    return (
+        f"throughput bound {cost['bound_ms']:.6f} ms ({cost['bound_by']}: "
+        f"{cost['compressions']} compressions x {INT_OPS_PER_COMPRESSION} "
+        f"int ops / ({cost['sms']} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
+        f"{cost['sm_clock_mhz']:.0f} MHz) = {cost['ops_bound_ms']:.6f} ms; "
+        f"{cost['bytes']} bytes / 3.35 TB/s = {cost['bytes_bound_ms']:.6f} "
+        f"ms); chain floor {cost['chain_floor_ms']:.6f} ms (the longest "
+        f"row's {cost['longest_row_blocks']} blocks x 64 rounds x "
+        f"{ROUND_CHAIN} dependent instructions x {DEPENDENT_ISSUE_CYCLES} "
+        f"cycles); the {cost['binds']} binds: {100 * binding / ms:.2f}% of it"
+    )
+
+
 def ptxas_report(text: str) -> dict:
     """{kernel name: (registers, stack bytes, spill store bytes, spill load
-    bytes)} from nvcc's ``-Xptxas -v`` output."""
+    bytes, static shared memory bytes)} from nvcc's ``-Xptxas -v``
+    output."""
     report = {}
     for block in text.split("Compiling entry function ")[1:]:
         mangled = block.split("'")[1]
@@ -343,7 +434,9 @@ def ptxas_report(text: str) -> dict:
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
             r"(\d+) bytes spill loads", block).groups())
         registers = int(re.search(r"Used (\d+) registers", block).group(1))
-        report[name] = (registers, stack, stores, loads)
+        smem = re.search(r"(\d+) bytes smem", block)
+        report[name] = (registers, stack, stores, loads,
+                        int(smem.group(1)) if smem else 0)
     return report
 
 
@@ -521,7 +614,9 @@ def p99_ms(seconds: list) -> float:
 
 def ed25519_bounds(n: int, sms: int, clock: float) -> dict:
     """Each Ed25519 kernel's bound at n signatures: integer instructions
-    over the INT32 instruction rate, and bytes over 3.35 TB/s."""
+    over the INT32 instruction rate, and bytes over 3.35 TB/s; and its
+    chain floor, one row's chain of dependent instructions at 4 cycles each
+    (``ops/ed25519.py::chain_floor_cycles``)."""
     from mirbft_tpu_torch.ops import ed25519
 
     rate = sms * INT32_LANES_PER_SM * clock * 1e6
@@ -538,10 +633,14 @@ def ed25519_bounds(n: int, sms: int, clock: float) -> dict:
     for name, (ops, moved) in shapes.items():
         ops_ms = ops / rate * 1e3
         bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        chain_ms = ed25519.chain_floor_cycles(name) / (clock * 1e3)
         out[name] = dict(
             int_ops=ops, bytes=moved, ops_bound_ms=ops_ms,
-            bytes_bound_ms=bytes_ms, bound_ms=max(ops_ms, bytes_ms),
+            bytes_bound_ms=bytes_ms, bound_ms=bound_ms,
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            chain_floor_ms=chain_ms,
+            binds="chain floor" if chain_ms >= bound_ms else "throughput bound",
         )
     return out
 
@@ -564,9 +663,11 @@ def main() -> int:
 
     from mirbft_tpu_torch import _build
     from mirbft_tpu_torch.ops.batching import pack_preimages, to_tensors
+    from mirbft_tpu_torch.ops.sha256 import sha256_digest_words
     from mirbft_tpu_torch.ops.sha256 import (
-        INT_OPS_PER_COMPRESSION,
-        sha256_digest_words,
+        DEPENDENT_ISSUE_CYCLES as SHA256_ISSUE_CYCLES,
+        ROUND_CHAIN as SHA256_ROUND_CHAIN,
+        chain_floor_cycles as sha256_chain_floor_cycles,
     )
     from mirbft_tpu_torch.testengine import BasicRecorder
     from mirbft_tpu_torch.testengine.crypto_plane import (
@@ -594,9 +695,14 @@ def main() -> int:
         for line in text.splitlines():
             print(f"  {line.strip()}")
         ptxas.update(ptxas_report(text))
-    for kernel, (regs, stack, stores, loads) in sorted(ptxas.items()):
+    from mirbft_tpu_torch.ops import ed25519 as ed25519_ops
+
+    dynamic = {"mirbft_ed25519_ladder_kernel": ed25519_ops.ladder_smem_bytes()}
+    for kernel, (regs, stack, stores, loads, smem) in sorted(ptxas.items()):
         print(f"  {kernel}: {regs} registers, {stack} bytes stack frame, "
-              f"{stores} bytes spill stores, {loads} bytes spill loads")
+              f"{stores} bytes spill stores, {loads} bytes spill loads, "
+              f"{smem} bytes static shared memory, "
+              f"{dynamic.get(kernel, 0)} bytes dynamic shared memory")
 
     # -- phase 2: kernel == plain == hashlib ---------------------------------
     rng = random.Random(SEED)
@@ -614,7 +720,17 @@ def main() -> int:
         check(packed.blocks.shape == shape, f"packed {packed.blocks.shape}")
         packed_by_shape[shape] = packed
         max_err = max(max_err, err)
-    print(f"phase 2 ok: kernel == plain == hashlib, max_abs_err {max_err}")
+    for rows, bucket in SHA256_SHAPES:
+        lengths = bucket_lengths(rng, rows, bucket, ragged=True)
+        err, packed = compare_case(
+            f"ragged ({rows}, {bucket}, 16)",
+            [rng.randbytes(n) for n in lengths], bucket, rows,
+        )
+        check(packed.blocks.shape == (rows, bucket, 16),
+              f"ragged: packed {packed.blocks.shape}")
+        max_err = max(max_err, err)
+    print(f"phase 2 ok: kernel == plain == hashlib at every bucket shape, "
+          f"max_abs_err {max_err}")
 
     # -- phase 3: the 16x64x25 anchor on the kernel plane --------------------
     plane = AsyncKernelHashPlane()
@@ -673,12 +789,17 @@ def main() -> int:
                 f"{100 * (1 - kernel_ms / 1e3 / wall):.4f}% of wall), digests "
                 f"device {plane.device_digests} host {plane.host_digests}, "
                 f"by bucket {dict(sorted(plane.bucket_digests.items()))}, "
+                f"launches by packed shape (rows, blocks) "
+                f"{dict(sorted(plane.shape_launches.items()))}, "
                 f"demand flushes {plane.demand_flushes}"
             )
+            check(sum(plane.shape_launches.values()) == launches,
+                  "rung 2: launches by shape do not add up")
         else:
             line += f", digests host {plane.host_digests}"
         print(line)
         runs.append(dict(
+            shape_launches=getattr(plane, "shape_launches", {}),
             label=label, events=events, wall=wall, cpu=cpu, chains=chains,
             # Host seconds in the plane: submit, plus launches and waits
             # (flush_wall_s holds both on the kernel plane).
@@ -696,6 +817,9 @@ def main() -> int:
         check(run["digests"] == first["digests"], "rung 2: digest counts differ")
     check(len(set(first["chains"].values())) == 1, "rung 2: nodes diverged")
     main_launches = next(r["launches"] for r in runs if r["label"] == "kernel")
+    rung2_shapes = next(
+        r["shape_launches"] for r in runs if r["label"] == "kernel"
+    )
     medians = {}
     for label in ("host", "kernel"):
         mine = [r for r in runs if r["label"] == label]
@@ -729,40 +853,37 @@ def main() -> int:
             profile_rung2(AsyncKernelHashPlane, "kernel", out)
         print(f"  cProfile tables of a host and a kernel run: {args.profile}")
 
-    # -- phase 5: kernel time, bound, plain time -----------------------------
+    # -- phase 5: kernel time, bound, chain floor, plain time ---------------
+    # Every bucket shape: the main path's two with protocol preimages (as
+    # phase 2 packed them), the other six with rows that fill the bucket.
     per_shape = []
-    for shape, packed in packed_by_shape.items():
+    for rows, bucket in SHA256_SHAPES:
+        packed = packed_by_shape.get((rows, bucket, 16))
+        data = "protocol preimages"
+        if packed is None:
+            lengths = bucket_lengths(rng, rows, bucket, ragged=False)
+            packed = pack_preimages([rng.randbytes(n) for n in lengths],
+                                    block_floor=bucket, batch_floor=rows)
+            data = "rows that fill the bucket"
+        check(packed.blocks.shape == (rows, bucket, 16),
+              f"phase 5: packed {packed.blocks.shape}")
         blocks, n_blocks = to_tensors(packed, "cuda")
-        reps = 400 if shape[1] == 1 else 100
+        reps = 400 if bucket == 1 else 100
         ms, call_ms = time_device(
             lambda: sha256_digest_words(blocks, n_blocks), reps
         )
-        clock = sm_clock_mhz()
-        compressions = int(packed.n_blocks.sum())
-        ops_ms = (
-            compressions * INT_OPS_PER_COMPRESSION
-            / (sms * INT32_LANES_PER_SM * clock * 1e6) * 1e3
-        )
-        moved = compressions * 64 + blocks.shape[0] * (4 + 32)
-        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
-        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        cost = digest_cost(packed, ms, sms)
         plain_ms = time_plain(blocks, n_blocks)
         per_shape.append(dict(
-            shape=list(shape), compressions=compressions, ms=ms,
-            call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms, sm_clock_mhz=clock,
-            library_ms=None,
+            shape=[rows, bucket, 16], data=data, ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, **cost, library_ms=None,
+            launches_rung2=rung2_shapes.get((rows, bucket), 0),
         ))
         print(
-            f"  kernel time {shape}: {ms:.6f} ms over {reps} launches "
-            f"({call_ms:.6f} ms a call on the host clock); bound "
-            f"{bound_ms:.6f} ms ({bound_by}: {compressions} compressions x "
-            f"{INT_OPS_PER_COMPRESSION} int ops / ({sms} SMs x "
-            f"{INT32_LANES_PER_SM} INT32 lanes x {clock:.0f} MHz) = "
-            f"{ops_ms:.6f} ms; {moved} bytes / 3.35 TB/s = {bytes_ms:.6f} "
-            f"ms), {100 * bound_ms / ms:.2f}% of bound; plain {plain_ms:.3f} "
-            "ms; library_ms null (no PyTorch call computes SHA-256)"
+            f"  kernel time ({rows}, {bucket}, 16), {data}: {ms:.6f} ms over "
+            f"{reps} launches ({call_ms:.6f} ms a call on the host clock); "
+            + describe_cost(cost, ms) + f"; plain {plain_ms:.3f} ms; "
+            "library_ms null (no PyTorch call computes SHA-256)"
         )
     print("phase 5 ok")
 
@@ -888,6 +1009,31 @@ def main() -> int:
     check(all(count > 0 for count in rung3_launches.values()),
           f"rung 3: a kernel never launched: {rung3_launches}")
     device_ms = plane.kernel_ms + hash_plane.kernel_ms
+    check(sum(hash_plane.shape_launches.values()) == hash_plane.launches
+          == rung3_launches["sha256_digest"],
+          "rung 3: launches by shape do not add up")
+    for entry in per_shape:
+        shape = tuple(entry["shape"][:2])
+        entry["launches_rung3"] = hash_plane.shape_launches.get(shape, 0)
+        gap = entry["gap_ms"]
+        entry["launches_x_gap_ms"] = {
+            "rung2": entry["launches_rung2"] * gap,
+            "rung3": entry["launches_rung3"] * gap,
+        }
+    unknown = set(hash_plane.shape_launches) | set(rung2_shapes)
+    unknown -= {tuple(e["shape"][:2]) for e in per_shape}
+    check(not unknown, f"SHA-256 launches at shapes phase 5 did not time: "
+          f"{sorted(unknown)}")
+    print(
+        "  sha256 launches by packed shape (rows, blocks), rung 2 / rung 3, "
+        "and launches x (ms - the larger of bound and chain floor): "
+        + "; ".join(
+            f"{tuple(e['shape'][:2])}: {e['launches_rung2']} / "
+            f"{e['launches_rung3']}, {e['launches_x_gap_ms']['rung2']:.6f} / "
+            f"{e['launches_x_gap_ms']['rung3']:.6f} ms"
+            for e in per_shape
+        )
+    )
     print(
         f"phase 8 ok: rung 3 {rung3.NODES} nodes x {rung3.CLIENTS} clients x "
         f"{rung3.REQS} BatchSize {rung3.BATCH_SIZE}: {events} events, chain "
@@ -899,7 +1045,9 @@ def main() -> int:
         f"{plane.device_verifies} host rejects {plane.host_rejects}, evictions "
         f"{plane.speculative_evictions}, forced joins {plane.forced_joins}; "
         f"digests device {hash_plane.device_digests} host "
-        f"{hash_plane.host_digests}; launches {rung3_launches}; device time "
+        f"{hash_plane.host_digests}; launches {rung3_launches}, sha256 by "
+        f"packed shape {dict(sorted(hash_plane.shape_launches.items()))}; "
+        "device time "
         f"ed25519 {plane.kernel_ms:.6f} ms + sha256 "
         f"{hash_plane.kernel_ms:.6f} ms, card idle "
         f"{100 * (1 - device_ms / 1e3 / wall):.4f}% of wall; cpu process "
@@ -955,8 +1103,12 @@ def main() -> int:
                 f"({bound['bound_by']}: {bound['int_ops']} int ops / ({sms} "
                 f"SMs x {INT32_LANES_PER_SM} INT32 lanes x {clock:.0f} MHz) "
                 f"= {bound['ops_bound_ms']:.6f} ms; {bound['bytes']} bytes / "
-                f"3.35 TB/s = {bound['bytes_bound_ms']:.6f} ms), "
-                f"{100 * bound['bound_ms'] / ms:.2f}% of bound"
+                f"3.35 TB/s = {bound['bytes_bound_ms']:.6f} ms); chain floor "
+                f"{bound['chain_floor_ms']:.6f} ms (one row's dependent "
+                f"chain, 4 cycles an instruction); the {bound['binds']} "
+                f"binds: "
+                f"{100 * max(bound['bound_ms'], bound['chain_floor_ms']) / ms:.2f}"
+                "% of it"
                 + (f"; plain {plain[name]:.3f} ms" if plain else "")
                 + "; library_ms null (no PyTorch call verifies Ed25519)"
             )
@@ -1003,6 +1155,10 @@ def main() -> int:
     chain_bytes_ms = chain_bytes / HBM_BYTES_PER_S * 1e3
     chain_bound_ms = max(chain_ops_ms, chain_bytes_ms)
     chain_bound_by = "operations" if chain_ops_ms >= chain_bytes_ms else "bytes"
+    # One row's chain: its iterations are serial compressions of one block.
+    chain_floor_ms = (
+        sha256_chain_floor_cycles(micro["iters"]) / (clock * 1e3)
+    )
     full = torch.randint(
         -2**31, 2**31 - 1, (port_bench.CHAIN_BATCH, 16), dtype=torch.int32,
         generator=generator,
@@ -1025,7 +1181,13 @@ def main() -> int:
         f"({chain_bound_by}: {chain_ops} int ops / ({sms} SMs x "
         f"{INT32_LANES_PER_SM} INT32 lanes x {clock:.0f} MHz) = "
         f"{chain_ops_ms:.6f} ms; {chain_bytes} bytes / 3.35 TB/s = "
-        f"{chain_bytes_ms:.6f} ms), {100 * chain_bound_ms / chain_ms:.2f}% "
+        f"{chain_bytes_ms:.6f} ms); chain floor {chain_floor_ms:.6f} ms (a "
+        f"row's {micro['iters']} serial compressions x 64 rounds x "
+        f"{SHA256_ROUND_CHAIN} x {SHA256_ISSUE_CYCLES} cycles), so the "
+        + ("chain floor" if chain_floor_ms >= chain_bound_ms
+           else "throughput bound")
+        + " binds; "
+        f"{100 * chain_bound_ms / chain_ms:.2f}% "
         f"of bound; plain {chain_plain_ms:.3f} ms at {CHAIN_PLAIN_ITERS} "
         f"iterations of the full batch; library_ms null (no PyTorch call "
         f"computes SHA-256) (done at {time.perf_counter() - t0:.1f} s)"
@@ -1082,12 +1244,17 @@ def main() -> int:
 
     iv_bytes = b"".join(word.to_bytes(4, "big") for word in IV)
     live_shapes: dict = {}
+    round0_shapes: dict = {}
+    first_kept: dict = {}
     live_err, replayed = 0, 0
     for result in live_cuda:
         for shape, (launches, kept) in result["samples"].items():
             check(kept, f"live {result['kind']}: {launches} launches of "
                   f"shape {shape}, none kept for the audit")
             live_shapes[shape] = live_shapes.get(shape, 0) + launches
+            if result["round"] == 0:
+                round0_shapes[shape] = round0_shapes.get(shape, 0) + launches
+            first_kept.setdefault(shape, kept[0][0])
             for preimages, raw in kept:
                 want = b"".join(hashlib.sha256(m).digest() for m in preimages)
                 pad_rows = shape[0] - len(preimages)
@@ -1110,6 +1277,26 @@ def main() -> int:
         r["wrapper_launches"] for r in live_cuda
     ), "live rung: launches whose shape the audit did not see")
     max_err = max(max_err, live_err)
+    # Each live shape timed on its first kept launch's preimages, through
+    # the entry point, beside its floors; launches x gap over round 1.
+    live_per_shape = []
+    for shape in sorted(first_kept):
+        packed = pack_preimages(first_kept[shape])
+        blocks, n_blocks = to_tensors(packed, "cuda")
+        ms, call_ms = time_device(
+            lambda: sha256_digest_words(blocks, n_blocks), 200
+        )
+        cost = digest_cost(packed, ms, sms)
+        launches = round0_shapes.get(shape, 0)
+        live_per_shape.append(dict(
+            shape=[*shape, 16], ms=ms, call_ms=call_ms, **cost,
+            launches_live=launches, launches_x_gap_ms=launches * cost["gap_ms"],
+        ))
+        print(f"  live shape {shape}: {ms:.6f} ms a launch, "
+              + describe_cost(cost, ms)
+              + f"; {launches} launches in round 1 x gap "
+              f"{launches * cost['gap_ms']:.6f} ms")
+    live_gap_ms = sum(e["launches_x_gap_ms"] for e in live_per_shape)
     print(
         "phase 11 ok: the live rung reached "
         f"{port_bench.LIVE.target_commits} commits under every kind in "
@@ -1123,7 +1310,8 @@ def main() -> int:
         f"{len(live_shapes)} packed shapes (rows, blocks): "
         + ", ".join(f"{shape} x{n}" for shape, n in sorted(live_shapes.items()))
         + f"; {replayed} of them kept: read-back digests == hashlib, "
-        f"replay kernel == plain == hashlib, max_abs_err {live_err} (done "
+        f"replay kernel == plain == hashlib, max_abs_err {live_err}; "
+        f"launches x gap over round 1's shapes {live_gap_ms:.6f} ms (done "
         f"at {time.perf_counter() - t0:.1f} s)"
     )
 
@@ -1139,6 +1327,7 @@ def main() -> int:
         "live_shapes": [
             [*shape, n] for shape, n in sorted(live_shapes.items())
         ],
+        "live_per_shape": live_per_shape,
         "matched_plain": max_err == 0,
         "max_abs_err": max_err,
         "ms": head["ms"],
@@ -1146,9 +1335,11 @@ def main() -> int:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": None,
+        "chain_floor_ms": head["chain_floor_ms"],
         "shape": head["shape"],
         "per_shape": per_shape,
         "ptxas": ptxas.get("mirbft_sha256_digest_kernel"),
+        "ptxas_specialised": ptxas.get("mirbft_sha256_digest_ws_kernel"),
     }]
     for name, replaces in (
         ("ed25519_decompress", "mirbft_tpu/ops/ed25519_pallas.py:410"),
@@ -1169,9 +1360,11 @@ def main() -> int:
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
             "library_ms": None,
+            "chain_floor_ms": head["chain_floor_ms"],
             "shape": [head["rows"]],
             "per_shape": shapes,
             "ptxas": ptxas.get(f"mirbft_{name}_kernel"),
+            "dynamic_smem_bytes": dynamic.get(f"mirbft_{name}_kernel", 0),
         })
     kernels.insert(1, {
         "name": "sha256_chain",
@@ -1188,6 +1381,7 @@ def main() -> int:
         "plain_iters": CHAIN_PLAIN_ITERS,
         "bound_ms": chain_bound_ms,
         "bound_by": chain_bound_by,
+        "chain_floor_ms": chain_floor_ms,
         "library_ms": None,
         "shape": [micro["batch"], 16],
         "iters": micro["iters"],

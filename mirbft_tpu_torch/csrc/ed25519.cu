@@ -1,5 +1,6 @@
-// Batched Ed25519 verification for Hopper (sm_90a): point decompression and
-// the 4-bit windowed Shamir ladder, one thread per row.
+// Batched Ed25519 verification for Hopper (sm_90a): point decompression,
+// one thread per point, and the 4-bit windowed Shamir ladder, four lanes
+// (a quad) per signature.
 //
 // Replaces the Pallas TPU kernels launched by
 // mirbft_tpu/ops/ed25519_pallas.py::_verify_device:
@@ -7,44 +8,68 @@
 //   - mirbft_ed25519_ladder: _ladder_affine_kernel + _ladder_tail (at :559);
 // and their XLA twin mirbft_tpu/ops/ed25519.py::ladder_impl, which the port
 // routes into the same two kernels.  The plain PyTorch versions in
-// mirbft_tpu_torch/ops/ed25519.py repeat this file's arithmetic step for
-// step, so kernel and plain agree limb for limb, not only mod p.
+// mirbft_tpu_torch/ops/ed25519.py compute the same functions serially with
+// their own carries: decompression's output is canonical and the ladder's
+// is one verdict a row, so kernel and plain agree exactly on what they
+// return, not limb for limb on the way.
 //
 // Field representation.  GF(2^255 - 19) as 10 signed int32 limbs of radix
-// 2^25.5 (ref10's layout: widths 26, 25, 26, ..., limb i at bit
+// 2^25.5 (ref10's layout: widths w = 26, 25, 26, ..., limb i at bit
 // 0, 26, 51, 77, 102, 128, 153, 179, 204, 230), products as int64.  The
 // TPU's 20 x 13-bit limbs existed only because the TPU has no 64-bit
-// multiply; Hopper has IMAD.WIDE.  Carry bounds, for "reduced" elements
-// (|limb i| <= 2^w_i):
-//   - mul/sq: the factor 2 (both limbs odd) goes on f, at most 2^26; the
-//     factor 19 (columns past 2^255) on g, at most 19 * 2^26 < 2^30.25; so
-//     both fit int32, and a column of at most 10 terms stays under 2^61 in
-//     int64.  Three rounding carry passes (all limbs at once; the carry out
-//     of limb 9 re-enters limb 0 times 19) give |limb| <= 2^(w-1) + 19.
-//   - add/sub: two reduced limbs sum to under 2^27; one int32 rounding
-//     pass gives |limb| <= 2^(w-1) + 38.
+// multiply; Hopper has IMAD.WIDE.  Write U_w = 2^(w-1) (1 + 2^-9); an
+// element is "carried" when |limb i| <= U_w(i) and "k-term" when it is a
+// sum or difference of k carried elements (|limb| <= k U_w), taken without
+// a carry.  The bounds:
+//   - mul(f, g): the factor 2 (both limbs odd) goes on f, the factor 19
+//     (columns past 2^255) on g, and both must fit int32.  f may be up to
+//     4-term (2 * 4 U_25 = 4 U_26 = 2^27 (1 + 2^-9)) and g up to 3-term
+//     (19 * 3 U_26 = 28.5 * 2^26 (1 + 2^-9) < 2^30.84 < 2^31).  A column is
+//     at most 10 terms of |f'| |g'| < 2^27.01 * 2^30.84, under 2^61.2, so
+//     int64 holds it.  sq(f): f up to 2-term (4 * 2 U_25 and 19 * 2 U_26
+//     fit int32; at most 6 terms a column, under 2^60).
+//   - the product's carry is ref10's chain of 12 rounding steps, in the
+//     order 0 4 1 5 2 6 3 7 4 8 9 0 (limb 9's carry re-enters limb 0 times
+//     19): each step leaves its limb in [-2^(w-1), 2^(w-1)).  From columns
+//     under 2^61.2 the carries are under 2^36.2, so the last two steps add
+//     at most 2^14.5 to limb 1 and 2^10.3 to limb 5: the result is carried.
+//   - decompression's add/sub carry with one int32 rounding pass
+//     (|limb| <= 2^(w-1) + 76, carried); the ladder's adds and subs take no
+//     carry at all, and each product's operands are at most the k-term
+//     sums allowed above (the ladder functions below name k for each).
 //   - canonical: two wrapping floor chains put the value in [0, 2^255); a
 //     quotient chain finds whether it is >= p; a last chain subtracts p.
-// Every product and every sum is carried: no lazy-reduction argument.
 //
-// What bounds it: integer instructions.  A verdict costs about 3,300 field
-// products and a decompressed point about 270 (ops/ed25519.py counts
-// them), against well under 200 bytes of input and output a row, so at
-// 3.35 TB/s the bytes take a small fraction of the time the INT32 pipes
-// need.  The design keeps the work off memory:
-//   - one thread per row (a signature, or a point for decompression); no
-//     row reads another, so there is no reduction across blocks, and the
-//     launch covers exactly the live rows (no padding to a tile);
-//   - the accumulator and all temporaries stay in registers;
-//   - the [j](-A) table, 16 points x 40 limbs = 2,560 bytes a thread, is
-//     indexed by the data and goes to local memory (ptxas reports it as
-//     stack), read once a window;
-//   - the constant [j]B table is copied into shared memory once a block:
-//     threads of a warp index different entries, which __constant__ memory
-//     would serialise, and in shared memory the local-memory traffic of the
-//     [j](-A) table cannot evict it from L1;
-//   - the windows are cut from the 32-byte scalars in the kernel (64 bytes
-//     a row cross to the card instead of 512 bytes of windows).
+// What bounds it.  The bytes are well under 200 a row, so at 3.35 TB/s
+// they take a small fraction of the time the INT32 pipes need; but a burst
+// of 512 signatures cannot fill 132 SMs, so the ladder is bound by one
+// signature: its ~800 product stages are serial, and each is a product
+// (100 or 55 IMAD.WIDE and the carry chain) plus its shuffles and selects,
+// issued by one warp alone on its SM partition.  The design spreads a
+// signature's products over four lanes so that a stage is one product:
+//   - a quad of adjacent lanes per signature (8 signatures a warp), in the
+//     four-processor formulas for a = -1 extended coordinates (Hisil, Wong,
+//     Carter, Dawson, "Twisted Edwards Curves Revisited", ASIACRYPT 2008):
+//     lane c holds coordinate c of the accumulator (X, Y, Z, T), each stage
+//     runs four independent products one a lane, and operands move inside
+//     the quad by __shfl_sync.  A doubling is two product stages (four
+//     squarings, then four products), an addition two (four products, then
+//     four), against 8 and 9 dependent products in one thread.  A 512-row
+//     burst is 2048 threads: 16 blocks of 128, one warp a partition of 16
+//     SMs;
+//   - the [j](-A) table in cached form (Y - X, Y + X, 2Z, 2d T), each lane
+//     holding its own coordinate of the 16 entries in shared memory
+//     (16 x 10 limbs x 128 lanes = 80 KB a block, above the 48 KB of static
+//     shared memory: dynamic, after cudaFuncSetAttribute), laid out limb by
+//     limb with the lanes innermost, so a warp's reads hit 32 banks
+//     whatever entries its quads pick;
+//   - the [j]B table as affine Niels points (y - x, y + x, 2d x y) from the
+//     constants, with the 2Z coordinate (Z = 1) set to 2, in shared memory:
+//     an addition with [j]B or [j](-A) makes no d product and no Z x Z
+//     product at all (the lane of D = 2Z multiplies by the table's 2Z);
+//   - the windows are cut from the 32-byte scalars in the kernel;
+//   - the quad of a row past n repeats row n - 1 (every lane of the warp
+//     takes part in every shuffle) and writes nothing.
 // The verdict is over public data, so the tables are indexed directly:
 // nothing here has to be constant-time.
 
@@ -53,36 +78,33 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // the decompress kernel: one point a thread
+constexpr int kLadderThreads = 128;  // 32 quads: 32 signatures a block
 // Rows of the constants table (ops/ed25519.py::constants()).
 constexpr int kConstD = 0;
 constexpr int kConstD2 = 1;
 constexpr int kConstSqrtM1 = 2;
-constexpr int kConstBTable = 3;
+constexpr int kConstNiels = 3;  // [j]B: (y - x, y + x, 2d x y), j = 0..15
+constexpr int kATableInts = 16 * 10 * kLadderThreads;
 constexpr int kBTableInts = 16 * 4 * 10;
+constexpr int kLadderSmemBytes = (kATableInts + kBTableInts) * 4;
 
 struct Fe {
   int32_t v[10];
 };
 
-struct Point {
-  Fe x, y, z, t;
-};
-
 __host__ __device__ constexpr int width(int i) { return (i & 1) ? 25 : 26; }
 
-__device__ __forceinline__ Fe fe_zero() {
+__device__ __forceinline__ Fe fe_small(int32_t x) {
   Fe r;
 #pragma unroll
   for (int i = 0; i < 10; ++i) r.v[i] = 0;
+  r.v[0] = x;
   return r;
 }
 
-__device__ __forceinline__ Fe fe_one() {
-  Fe r = fe_zero();
-  r.v[0] = 1;
-  return r;
-}
+__device__ __forceinline__ Fe fe_zero() { return fe_small(0); }
+__device__ __forceinline__ Fe fe_one() { return fe_small(1); }
 
 __device__ __forceinline__ Fe fe_load(const int32_t* p) {
   Fe r;
@@ -91,20 +113,8 @@ __device__ __forceinline__ Fe fe_load(const int32_t* p) {
   return r;
 }
 
-// One rounding carry pass over every limb at once, int64.
-__device__ __forceinline__ void carry_pass64(int64_t h[10]) {
-  int64_t c[10];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    c[i] = (h[i] + (int64_t{1} << (width(i) - 1))) >> width(i);
-    h[i] -= c[i] * (int64_t{1} << width(i));
-  }
-  h[0] += 19 * c[9];
-#pragma unroll
-  for (int i = 1; i < 10; ++i) h[i] += c[i - 1];
-}
-
-// The same pass in int32, for sums and differences (under 2^27 a limb).
+// One rounding carry pass over every limb at once, int32, for sums and
+// differences (under 2^28 a limb).
 __device__ __forceinline__ void carry_pass32(int32_t h[10]) {
   int32_t c[10];
 #pragma unroll
@@ -117,6 +127,7 @@ __device__ __forceinline__ void carry_pass32(int32_t h[10]) {
   for (int i = 1; i < 10; ++i) h[i] += c[i - 1];
 }
 
+// Carried sums and differences (decompression and the final comparison).
 __device__ __forceinline__ Fe fe_add(const Fe& f, const Fe& g) {
   Fe r;
 #pragma unroll
@@ -133,10 +144,47 @@ __device__ __forceinline__ Fe fe_sub(const Fe& f, const Fe& g) {
   return r;
 }
 
+// Sums and differences without a carry (the ladder's k-term operands).
+__device__ __forceinline__ Fe fe_add_nc(const Fe& f, const Fe& g) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) r.v[i] = f.v[i] + g.v[i];
+  return r;
+}
+
+__device__ __forceinline__ Fe fe_sub_nc(const Fe& f, const Fe& g) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) r.v[i] = f.v[i] - g.v[i];
+  return r;
+}
+
+// One rounding step of ref10's chain: limb i into [-2^(w-1), 2^(w-1)),
+// its carry into limb i + 1 (limb 9's into limb 0, times 19).
+__device__ __forceinline__ void carry_step(int64_t h[10], int i) {
+  const int w = width(i);
+  const int64_t c = (h[i] + (int64_t{1} << (w - 1))) >> w;
+  h[i] -= c * (int64_t{1} << w);
+  if (i == 9) {
+    h[0] += 19 * c;
+  } else {
+    h[i + 1] += c;
+  }
+}
+
 __device__ __forceinline__ Fe finish_product(int64_t h[10]) {
-  carry_pass64(h);
-  carry_pass64(h);
-  carry_pass64(h);
+  carry_step(h, 0);
+  carry_step(h, 4);
+  carry_step(h, 1);
+  carry_step(h, 5);
+  carry_step(h, 2);
+  carry_step(h, 6);
+  carry_step(h, 3);
+  carry_step(h, 7);
+  carry_step(h, 4);
+  carry_step(h, 8);
+  carry_step(h, 9);
+  carry_step(h, 0);
   Fe r;
 #pragma unroll
   for (int i = 0; i < 10; ++i) r.v[i] = static_cast<int32_t>(h[i]);
@@ -200,7 +248,7 @@ __device__ __forceinline__ void chain(int32_t h[10], bool wrap) {
   if (wrap) h[0] += 19 * c;
 }
 
-// Reduced limbs -> the limbs of the representative in [0, p).
+// Carried limbs -> the limbs of the representative in [0, p).
 __device__ Fe fe_canonical(const Fe& f) {
   Fe r = f;
   chain(r.v, true);
@@ -269,44 +317,6 @@ __device__ Fe pow22523(const Fe& z) {
   return fe_mul(sqn(t0, 2), z);  // 2^252 - 3
 }
 
-// Unified extended twisted-Edwards addition (add-2008-hwcd-3), complete for
-// a = -1.
-__device__ Point point_add(const Point& p, const Point& q, const Fe& d2) {
-  const Fe a = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x));
-  const Fe b = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x));
-  const Fe c = fe_mul(fe_mul(p.t, q.t), d2);
-  Fe d = fe_mul(p.z, q.z);
-  d = fe_add(d, d);
-  const Fe e = fe_sub(b, a);
-  const Fe f = fe_sub(d, c);
-  const Fe g = fe_add(d, c);
-  const Fe h = fe_add(b, a);
-  Point r;
-  r.x = fe_mul(e, f);
-  r.y = fe_mul(g, h);
-  r.z = fe_mul(f, g);
-  r.t = fe_mul(e, h);
-  return r;
-}
-
-// Dedicated doubling (dbl-2008-hwcd, a = -1).
-__device__ Point point_double(const Point& p) {
-  const Fe a = fe_sq(p.x);
-  const Fe b = fe_sq(p.y);
-  const Fe zz = fe_sq(p.z);
-  const Fe c = fe_add(zz, zz);
-  const Fe e = fe_sub(fe_sub(fe_sq(fe_add(p.x, p.y)), a), b);
-  const Fe g = fe_sub(b, a);
-  const Fe f = fe_sub(g, c);
-  const Fe h = fe_sub(fe_zero(), fe_add(a, b));
-  Point r;
-  r.x = fe_mul(e, f);
-  r.y = fe_mul(g, h);
-  r.z = fe_mul(f, g);
-  r.t = fe_mul(e, h);
-  return r;
-}
-
 __device__ __forceinline__ void store_fe(int32_t* p, const Fe& f) {
 #pragma unroll
   for (int i = 0; i < 10; ++i) p[i] = f.v[i];
@@ -353,6 +363,82 @@ mirbft_ed25519_decompress_kernel(const uint4* __restrict__ enc,
   ok[row] = good ? 1 : 0;
 }
 
+// -- the quad ladder ----------------------------------------------------------
+//
+// In each function below, lane is the thread's place in its quad (0-3) and
+// v its coordinate of an extended point: X, Y, Z, T for lanes 0-3.  Every
+// lane of the warp calls every function (the shuffles need the whole warp).
+
+// Coordinate src of this quad's f.
+__device__ __forceinline__ Fe fe_shfl(const Fe& f, int src) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) r.v[i] = __shfl_sync(0xffffffffu, f.v[i], src, 4);
+  return r;
+}
+
+// Lane 0-3's choice of four elements, limb by limb (selects: a choice
+// between whole structs can put them in local memory).
+__device__ __forceinline__ Fe fe_pick(int lane, const Fe& a, const Fe& b,
+                                      const Fe& c, const Fe& d) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const int32_t lo = (lane & 1) ? b.v[i] : a.v[i];
+    const int32_t hi = (lane & 1) ? d.v[i] : c.v[i];
+    r.v[i] = (lane & 2) ? hi : lo;
+  }
+  return r;
+}
+
+// The first product stage of an addition, and the conversion of a point to
+// cached form: lane 0 (Y - X) q, lane 1 (Y + X) q, lane 2 Z q, lane 3 T q,
+// where q is this lane's coordinate of the other operand.  f is 2-term,
+// q at most 2-term (a cached coordinate).
+__device__ __forceinline__ Fe stage_a(const Fe& v, const Fe& q, int lane) {
+  const Fe other = fe_shfl(v, lane ^ 1);
+  return fe_mul(fe_pick(lane, fe_sub_nc(other, v), fe_add_nc(other, v), v, v),
+                q);
+}
+
+// P + Q (add-2008-hwcd-3, a = -1, complete): v is this lane's coordinate of
+// P (extended, carried), q of Q in cached form (Y - X, Y + X, 2Z, 2d T).
+// Stage 1: A = (Y1 - X1)(Y2 - X2), B = (Y1 + X1)(Y2 + X2), D = Z1 2Z2,
+// C = T1 2dT2 in lanes 0-3.  Stage 2: E = B - A, F = D - C, G = D + C,
+// H = B + A (2-term), and X3 = E F, Y3 = G H, Z3 = F G, T3 = E H.
+__device__ Fe point_add(const Fe& v, const Fe& q, int lane) {
+  const Fe p = stage_a(v, q, lane);  // A, B, D, C
+  const Fe partner = fe_shfl(p, lane ^ 1);
+  const bool even = (lane & 1) == 0;
+  const Fe lo = fe_select(even, p, partner);  // A in lanes 0, 1; D in 2, 3
+  const Fe hi = fe_select(even, partner, p);  // B in lanes 0, 1; C in 2, 3
+  const bool ab = lane < 2;
+  const Fe u = fe_select(ab, fe_sub_nc(hi, lo), fe_sub_nc(lo, hi));  // E, F
+  const Fe w = fe_add_nc(lo, hi);                                     // H, G
+  const Fe u2 = fe_shfl(u, lane ^ 2);
+  const Fe w2 = fe_shfl(w, lane ^ 2);
+  const Fe e = fe_select(ab, u, u2), f = fe_select(ab, u2, u);
+  const Fe h = fe_select(ab, w, w2), g = fe_select(ab, w2, w);
+  return fe_mul(fe_pick(lane, e, g, f, e), fe_pick(lane, f, h, g, h));
+}
+
+// 2P (dbl-2008-hwcd, a = -1): T1 is not read.  Stage 1: A = X^2, B = Y^2,
+// Z^2, S = (X + Y)^2 (X + Y 2-term).  Stage 2: E = S - A - B (3-term),
+// G = B - A, H = -A - B (2-term), F = G - 2 Z^2 (4-term), and X3 = F E,
+// Y3 = G H, Z3 = F G, T3 = E H, the many-term operand first (on f).
+__device__ Fe point_double(const Fe& v, int lane) {
+  const Fe x = fe_shfl(v, 0);
+  const Fe y = fe_shfl(v, 1);
+  const Fe s = fe_sq(fe_select(lane == 3, fe_add_nc(x, y), v));
+  const Fe a = fe_shfl(s, 0), b = fe_shfl(s, 1);
+  const Fe zz = fe_shfl(s, 2), ss = fe_shfl(s, 3);
+  const Fe e = fe_sub_nc(fe_sub_nc(ss, a), b);
+  const Fe g = fe_sub_nc(b, a);
+  const Fe f = fe_sub_nc(fe_sub_nc(g, zz), zz);
+  const Fe h = fe_sub_nc(fe_sub_nc(fe_zero(), a), b);
+  return fe_mul(fe_pick(lane, f, g, f, e), fe_pick(lane, e, h, g, h));
+}
+
 // 4-bit window t (0 = bits 255..252) of a scalar's 8 little-endian words.
 __device__ __forceinline__ int window(const uint32_t* __restrict__ words,
                                       int t) {
@@ -363,80 +449,102 @@ __device__ __forceinline__ int window(const uint32_t* __restrict__ words,
 // xy: (2n, 2, 10) affine points from the decompress kernel (A rows, then R
 // rows); ok: (2n,).  s_words, k_words: (n, 8) little-endian words of S and
 // k.  out: (n,) 1 where [S]B + [k](-A) == R projectively, Z != 0 and both
-// points decompressed.
-__global__ void __launch_bounds__(kThreads)
+// points decompressed.  Four lanes a row; dynamic shared memory holds the
+// [j](-A) table (a column per lane) and the [j]B table.
+__global__ void __launch_bounds__(kLadderThreads)
 mirbft_ed25519_ladder_kernel(const int32_t* __restrict__ xy,
                              const int32_t* __restrict__ okf,
                              const uint32_t* __restrict__ s_words,
                              const uint32_t* __restrict__ k_words,
                              int32_t* __restrict__ out, int n,
                              const int32_t* __restrict__ consts) {
-  __shared__ int32_t b_table[kBTableInts];  // [j]B: (x, y, z, t) each
-  for (int i = threadIdx.x; i < kBTableInts; i += kThreads) {
-    b_table[i] = consts[10 * kConstBTable + i];
+  extern __shared__ __align__(16) int32_t ladder_smem[];
+  int32_t* a_table = ladder_smem;  // [16][10][kLadderThreads]
+  int32_t* b_table = ladder_smem + kATableInts;  // [16][4][10]
+  // [j]B in cached form: (y - x, y + x, 2, 2d x y).
+  for (int i = threadIdx.x; i < kBTableInts; i += kLadderThreads) {
+    const int j = i / 40, c = (i / 10) % 4, l = i % 10;
+    b_table[i] = c == 2 ? (l == 0 ? 2 : 0)
+                        : consts[10 * (kConstNiels + 3 * j + (c == 3 ? 2 : c)) + l];
   }
   __syncthreads();
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  if (row >= n) return;  // the ragged edge of the grid
 
+  const int lane = threadIdx.x & 3;
+  const int quad = (blockIdx.x * kLadderThreads + threadIdx.x) >> 2;
+  const int row = quad < n ? quad : n - 1;  // a quad past n repeats row n - 1
   const int32_t* a_xy = xy + 20 * static_cast<size_t>(row);
   const int32_t* r_xy = xy + 20 * (static_cast<size_t>(n) + row);
   const bool valid = okf[row] != 0 && okf[n + row] != 0;
-  const Fe d2 = fe_load(consts + 10 * kConstD2);
+  const Fe one = fe_one();
+  const Fe two = fe_small(2);
+  // Lane c's multiplier taking an extended point to cached form: 1, 1, 2, 2d.
+  const Fe to_cached =
+      fe_pick(lane, one, one, two, fe_load(consts + 10 * kConstD2));
 
+  // -A = (-x, y, 1, -x y), one product stage (lane 3's; the others times 1).
+  const Fe ax = fe_load(a_xy);
   const Fe ay = fe_load(a_xy + 10);
-  const Fe nx = fe_sub(fe_zero(), fe_load(a_xy));
-  Point neg_a;
-  neg_a.x = nx;
-  neg_a.y = ay;
-  neg_a.z = fe_one();
-  neg_a.t = fe_mul(nx, ay);
+  const Fe nx = fe_sub_nc(fe_zero(), ax);
+  const Fe neg_a =
+      fe_mul(fe_pick(lane, nx, ay, one, nx), fe_pick(lane, one, one, one, ay));
 
-  Point table[16];  // [j](-A), indexed by the data: local memory
-  table[0].x = fe_zero();
-  table[0].y = fe_one();
-  table[0].z = fe_one();
-  table[0].t = fe_zero();
-  table[1] = neg_a;
+  int32_t* column = a_table + threadIdx.x;
+  auto store = [&](int j, const Fe& c) {
+#pragma unroll
+    for (int l = 0; l < 10; ++l) column[(10 * j + l) * kLadderThreads] = c.v[l];
+  };
+  store(0, fe_pick(lane, one, one, two, fe_zero()));  // the identity
+  const Fe neg_a_cached = stage_a(neg_a, to_cached, lane);
+  store(1, neg_a_cached);
+  Fe p = neg_a;
 #pragma unroll 1
-  for (int j = 2; j < 16; ++j) table[j] = point_add(table[j - 1], neg_a, d2);
+  for (int j = 2; j < 16; ++j) {
+    p = point_add(p, neg_a_cached, lane);
+    store(j, stage_a(p, to_cached, lane));
+  }
 
   const uint32_t* s = s_words + 8 * static_cast<size_t>(row);
   const uint32_t* k = k_words + 8 * static_cast<size_t>(row);
-  Point acc = table[0];
+  Fe acc = fe_pick(lane, fe_zero(), one, one, fe_zero());  // (0, 1, 1, 0)
 #pragma unroll 1
   for (int t = 0; t < 64; ++t) {
 #pragma unroll 1
-    for (int i = 0; i < 4; ++i) acc = point_double(acc);
-    const int32_t* b = b_table + 40 * window(s, t);
-    Point bp;
-    bp.x = fe_load(b);
-    bp.y = fe_load(b + 10);
-    bp.z = fe_load(b + 20);
-    bp.t = fe_load(b + 30);
-    acc = point_add(acc, bp, d2);
-    acc = point_add(acc, table[window(k, t)], d2);
+    for (int i = 0; i < 4; ++i) acc = point_double(acc, lane);
+    acc = point_add(acc, fe_load(b_table + 40 * window(s, t) + 10 * lane), lane);
+    const int32_t* entry = column + 10 * window(k, t) * kLadderThreads;
+    Fe q;
+#pragma unroll
+    for (int l = 0; l < 10; ++l) q.v[l] = entry[l * kLadderThreads];
+    acc = point_add(acc, q, lane);
   }
 
-  const bool good = fe_eq(acc.x, fe_mul(fe_load(r_xy), acc.z)) &&
-                    fe_eq(acc.y, fe_mul(fe_load(r_xy + 10), acc.z)) &&
-                    !fe_is_zero(acc.z) && valid;
-  out[row] = good ? 1 : 0;
+  // X == x_R Z (lane 0) and Y == y_R Z (lanes 1-3), and Z != 0.
+  const Fe x = fe_shfl(acc, 0);
+  const Fe y = fe_shfl(acc, 1);
+  const Fe z = fe_shfl(acc, 2);
+  const bool eq = fe_eq(fe_select(lane == 0, x, y),
+                        fe_mul(fe_load(r_xy + (lane == 0 ? 0 : 10)), z));
+  const int eq_x = __shfl_sync(0xffffffffu, eq ? 1 : 0, 0, 4);
+  const int eq_y = __shfl_sync(0xffffffffu, eq ? 1 : 0, 1, 4);
+  const bool good = eq_x && eq_y && !fe_is_zero(z) && valid;
+  if (lane == 0 && quad < n) out[quad] = good ? 1 : 0;
 }
 
-int grid_for(int rows) { return (rows + kThreads - 1) / kThreads; }
+int grid_for(long long threads, int block) {
+  return static_cast<int>((threads + block - 1) / block);
+}
 
 }  // namespace
 
 // Plain C interface, bound with ctypes.  Pointers are device pointers,
 // contiguous, enc 16-byte aligned (the Python wrapper checks).  Each
-// launches on the given stream, does not synchronise, and returns
-// cudaGetLastError() after the launch (0 on success).
+// launches on the given stream, does not synchronise, and returns the
+// first CUDA error (0 on success).
 extern "C" int mirbft_ed25519_decompress(const void* enc, void* xy, void* ok,
                                          int rows, const void* consts,
                                          void* stream) {
   if (rows <= 0) return 0;
-  mirbft_ed25519_decompress_kernel<<<grid_for(rows), kThreads, 0,
+  mirbft_ed25519_decompress_kernel<<<grid_for(rows, kThreads), kThreads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(enc), static_cast<int32_t*>(xy),
       static_cast<int32_t*>(ok), rows, static_cast<const int32_t*>(consts));
@@ -448,7 +556,14 @@ extern "C" int mirbft_ed25519_ladder(const void* xy, const void* ok,
                                      void* out, int n, const void* consts,
                                      void* stream) {
   if (n <= 0) return 0;
-  mirbft_ed25519_ladder_kernel<<<grid_for(n), kThreads, 0,
+  // Above 48 KB a block takes dynamic shared memory only when allowed to;
+  // set once (a function-local static is initialised once, thread-safely).
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      mirbft_ed25519_ladder_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kLadderSmemBytes);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  mirbft_ed25519_ladder_kernel<<<grid_for(4LL * n, kLadderThreads),
+                                 kLadderThreads, kLadderSmemBytes,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(xy), static_cast<const int32_t*>(ok),
       static_cast<const uint32_t*>(s_words),
@@ -456,6 +571,9 @@ extern "C" int mirbft_ed25519_ladder(const void* xy, const void* ok,
       static_cast<const int32_t*>(consts));
   return static_cast<int>(cudaGetLastError());
 }
+
+// The ladder's dynamic shared memory a block, in bytes.
+extern "C" int mirbft_ed25519_ladder_smem_bytes() { return kLadderSmemBytes; }
 
 extern "C" const char* mirbft_ed25519_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -17,8 +17,8 @@ parsing, the range checks y < p and S < L, and the SHA-512 challenge k.
 Field elements are 10 signed limbs of radix 2^25.5 (widths 26, 25, 26, ...,
 ref10's layout) in int32, with products in int64.  The 20×13-bit int32
 limbs of the JAX package exist only because a TPU has no 64-bit multiply;
-Hopper has one.  Carry bounds (every value a "reduced" element, |limb i|
-<= 2^w_i):
+Hopper has one.  The plain versions here carry every value (every value a
+"reduced" element, |limb i| <= 2^w_i):
 - a product's column is at most 10 terms of 38·2^26·2^26, under 2^61, so
   int64 holds it exactly; three rounding carry passes bring every limb
   back to |limb| <= 2^(w-1) + 19;
@@ -26,13 +26,18 @@ Hopper has one.  Carry bounds (every value a "reduced" element, |limb i|
   rounding pass brings it back under 2^(w-1) + 38;
 - ``_fe_canonical`` turns a reduced element into the unique limbs of its
   value in [0, p).
-Every product and every sum is carried, so no lazy bound has to be argued.
+The kernels carry less: a product with ref10's 12-step chain, the ladder's
+sums not at all (``csrc/ed25519.cu`` states the bounds that allow it), and
+the ladder runs four lanes a signature in the four-processor formulas.  So
+kernel and plain agree on what they return, exactly: canonical points and
+ok flags from ``decompress``, one verdict a row from ``ladder``.  That is
+the contract, not the limbs on the way.
 
 ``decompress`` and ``ladder`` dispatch on the tensors' device: a CUDA tensor
 launches the kernel (counted in ``.launches``), a CPU tensor takes the plain
-version (``decompress_plain``, ``ladder_plain``: the kernels' own
-arithmetic on int64 tensors, batched over rows), any other device raises.
-A launch that fails raises; there is no other route.
+version (``decompress_plain``, ``ladder_plain``: the kernels' formulas on
+int64 tensors, batched over rows), any other device raises.  A launch that
+fails raises; there is no other route.
 """
 
 from __future__ import annotations
@@ -53,14 +58,24 @@ P, L = host.P, host.L
 SQRT_M1 = pow(2, (P - 1) // 4, P)
 
 #: Row indices of the constants table the kernels read (``constants()``).
-CONST_D, CONST_D2, CONST_SQRT_M1, CONST_BTABLE = 0, 1, 2, 3
-CONST_ROWS = CONST_BTABLE + 16 * 4
+CONST_D, CONST_D2, CONST_SQRT_M1, CONST_NIELS = 0, 1, 2, 3
+CONST_ROWS = CONST_NIELS + 16 * 3
 
-# Field operations each kernel does per row (the ladder per verdict, the
-# decompression per point), counted on the plain versions below, which make
-# the kernels' calls in the kernels' order (tests/test_torch_ed25519.py
+# Field operations each kernel's function needs per row (the ladder per
+# verdict, the decompression per point), counted on the plain versions
+# below, which follow the kernels' formulas (tests/test_torch_ed25519.py
 # counts them again); chip_smoke.py turns them into the kernels' bounds.
-LADDER_OPS = {"mul": 2305, "sqr": 1024, "addsub": 3329, "canonical": 3}
+# The ladder's: a doubling 4 sqr + 4 mul, an addition of a cached [j](-A)
+# 8 mul, of a Niels [j]B 7 mul (2Z is a sum), a conversion to cached form 1
+# mul, each doubling or addition one mul fewer where only a doubling or the
+# comparison reads its output (neither reads T); 14 table additions and 15
+# conversions, then 64 windows of 4 doublings (3 of them without T) and 2
+# additions (the second without T): 27 mul a window.  The kernel's quad
+# makes four products a stage, so it issues the T products all the same,
+# one more a Niels addition (lane 2 multiplies Z by the table's 2Z = 2
+# while the other lanes multiply) and 3 more a conversion; those are left
+# out of the bound.
+LADDER_OPS = {"mul": 1858, "sqr": 1024, "addsub": 3013, "canonical": 3}
 DECOMPRESS_OPS = {"mul": 19, "sqr": 255, "addsub": 6, "canonical": 5}
 
 #: 32-bit integer instructions a carry step of an int64 limb needs: add the
@@ -68,19 +83,63 @@ DECOMPRESS_OPS = {"mul": 19, "sqr": 255, "addsub": 6, "canonical": 5}
 #: into the next limb (two), clear it from this one (one).
 CARRY_STEP = 7
 #: The least 32-bit integer instructions per field operation in this
-#: representation, as ref10 does it (not what csrc/ed25519.cu issues, which
-#: carries more often): mul, 100 IMAD.WIDE (32x32->64 multiply-adds) and one
-#: 12-step carry chain; sqr, 55 and the same chain; add or sub, 10 adds and
-#: no carry; canonical (ref10's fe_tobytes), a 10-step quotient x 2, the
-#: fold of 19q and a 10-step masking chain x 3.  Premultiplications by 2
-#: and 19, loads, selects and the table lookups are left out, so a bound
-#: from these counts is a floor on the function, not on this kernel.
+#: representation, as ref10 does it: mul, 100 IMAD.WIDE (32x32->64
+#: multiply-adds) and one 12-step carry chain; sqr, 55 and the same chain;
+#: add or sub, 10 adds and no carry; canonical (ref10's fe_tobytes), a
+#: 10-step quotient x 2, the fold of 19q and a 10-step masking chain x 3.
+#: Premultiplications by 2 and 19, loads, shuffles, selects and the table
+#: lookups are left out, so a bound from these counts is a floor on the
+#: function, not on a kernel.
 INT_OPS = {
     "mul": 100 + 12 * CARRY_STEP,
     "sqr": 55 + 12 * CARRY_STEP,
     "addsub": 10,
     "canonical": 10 * 2 + 2 + 10 * 3,
 }
+
+#: The chain floor: one row's longest chain of dependent instructions times
+#: an assumed latency of DEPENDENT_ISSUE_CYCLES a dependent integer
+#: instruction.  A product's chain, at its least: the longest column's
+#: terms split over three int64 accumulators (10 terms of a product: at
+#: most 4 dependent multiply-adds; 6 of a squaring: 2), joined by one
+#: three-input int64 add (2 dependent instructions, low and high halves),
+#: then the longest path through ref10's carry chain (limbs 4, 5, 6, 7, 8,
+#: 9, 0: 7 steps), each an int64 add of the rounding constant (2), a shift
+#: (1) and an int64 add into the next limb (2).
+DEPENDENT_ISSUE_CYCLES = 4
+CARRY_CHAIN = 7 * 5
+MUL_CHAIN = 4 + 2 + CARRY_CHAIN
+SQR_CHAIN = 2 + 2 + CARRY_CHAIN
+#: A ladder stage: a shuffle, a select and an add, then one product or
+#: squaring a lane.  Stages on a quad's path: -A (1) and its cached form
+#: (1); 14 table entries, each an addition (2) and a conversion (1); 64
+#: windows of 4 doublings (a squaring stage, then a product stage) and 2
+#: additions (2 product stages); the last product against R (1).
+LADDER_STAGE_OVERHEAD = 3
+LADDER_SQR_STAGES = 64 * 4
+LADDER_STAGES = 2 + 14 * 3 + 64 * 12 + 1
+#: Decompression's longest chain, every squaring and product but u v^3
+#: and x sqrt(-1): y^2, d y^2, v^2, v^3, v^6, v^7, u v^7 (3 squarings, 4
+#: products), pow22523's 251 squarings and 11 products, then x, x^2, v x^2
+#: (1 squaring, 2 products).
+DECOMPRESS_CHAIN_SQR = 3 + 251 + 1
+DECOMPRESS_CHAIN_MUL = 4 + 11 + 2
+
+
+def chain_floor_cycles(kernel: str) -> int:
+    """Cycles on one row's longest dependent chain (see MUL_CHAIN)."""
+    if kernel == "ladder":
+        mul_stages = LADDER_STAGES - LADDER_SQR_STAGES
+        instructions = (
+            mul_stages * (MUL_CHAIN + LADDER_STAGE_OVERHEAD)
+            + LADDER_SQR_STAGES * (SQR_CHAIN + LADDER_STAGE_OVERHEAD)
+        )
+    elif kernel == "decompress":
+        instructions = (DECOMPRESS_CHAIN_MUL * MUL_CHAIN
+                        + DECOMPRESS_CHAIN_SQR * SQR_CHAIN)
+    else:
+        raise ValueError(f"no chain floor for {kernel!r}")
+    return instructions * DEPENDENT_ISSUE_CYCLES
 
 
 def int_ops_per_row(ops: dict) -> int:
@@ -107,24 +166,25 @@ def limbs_to_int(limbs) -> int:
     )
 
 
-def _b_table() -> list:
-    """[j]B for j = 0..15 as affine extended (x, y, 1, xy); j = 0 is the
-    identity."""
-    table = [(0, 1, 1, 0)]
-    for j in range(1, 16):
+def _niels_table() -> list:
+    """[j]B for j = 0..15 as affine Niels points (y - x, y + x, 2d x y)
+    mod p; j = 0 is the identity, (1, 1, 0)."""
+    table = []
+    for j in range(16):
         pt = host.scalar_mult(j, host.to_extended(host.BASE))
         z_inv = pow(pt[2], P - 2, P)
         x, y = pt[0] * z_inv % P, pt[1] * z_inv % P
-        table.append((x, y, 1, x * y % P))
+        table.append(((y - x) % P, (y + x) % P, 2 * host.D * x * y % P))
     return table
 
 
 def constants() -> np.ndarray:
-    """(CONST_ROWS, 10) int32: d, 2d, sqrt(-1), then [j]B for j = 0..15,
-    four rows (x, y, z, t) each.  The kernels read it from device memory;
-    the plain versions use the same values."""
+    """(CONST_ROWS, 10) int32: d, 2d, sqrt(-1), then [j]B for j = 0..15 as
+    affine Niels points, three rows (y - x, y + x, 2d x y) each.  The
+    kernels read it from device memory; the plain versions use the same
+    values."""
     rows = [host.D, 2 * host.D % P, SQRT_M1]
-    for point in _b_table():
+    for point in _niels_table():
         rows.extend(point)
     return np.stack([int_to_limbs(v) for v in rows])
 
@@ -309,26 +369,42 @@ def decompress_plain(enc: torch.Tensor):
     return xy.to(torch.int32), ok.to(torch.int32)
 
 
-def _point_add(p, q, d2):
-    """Unified extended twisted-Edwards addition (add-2008-hwcd-3),
-    complete for a = -1: identity and doubling need no special case."""
+def _point_add(p, q, want_t=True):
+    """P + Q (add-2008-hwcd-3, complete for a = -1) with P extended (X, Y,
+    Z, T) and Q cached (Y - X, Y + X, 2Z, 2d T): 8 products.  A Niels
+    point (y - x, y + x, 2d x y), Z = 1, comes with ``None`` for 2Z, and
+    2 Z1 is a sum: 7 products.  Without ``want_t`` (the sum feeds only a
+    doubling or the comparison, which never read T) T3 is not made and
+    comes back ``None``: one product fewer."""
     x1, y1, z1, t1 = p
-    x2, y2, z2, t2 = q
-    a = _fe_mul(_fe_sub(y1, x1), _fe_sub(y2, x2))
-    b = _fe_mul(_fe_add(y1, x1), _fe_add(y2, x2))
-    c = _fe_mul(_fe_mul(t1, t2), d2)
-    d = _fe_mul(z1, z2)
-    d = _fe_add(d, d)
+    ymx, ypx, z2, t2d = q
+    a = _fe_mul(_fe_sub(y1, x1), ymx)
+    b = _fe_mul(_fe_add(y1, x1), ypx)
+    c = _fe_mul(t1, t2d)
+    d = _fe_add(z1, z1) if z2 is None else _fe_mul(z1, z2)
     e = _fe_sub(b, a)
     f = _fe_sub(d, c)
     g = _fe_add(d, c)
     h = _fe_add(b, a)
-    return (_fe_mul(e, f), _fe_mul(g, h), _fe_mul(f, g), _fe_mul(e, h))
+    return _from_efgh(e, f, g, h, want_t)
 
 
-def _point_double(p):
+def _cached(p, d2):
+    """Extended (X, Y, Z, T) -> cached (Y - X, Y + X, 2Z, 2d T)."""
+    x, y, z, t = p
+    return (_fe_sub(y, x), _fe_add(y, x), _fe_add(z, z), _fe_mul(t, d2))
+
+
+def _from_efgh(e, f, g, h, want_t):
+    """(X3, Y3, Z3, T3) = (E F, G H, F G, E H), T3 only if wanted."""
+    t3 = _fe_mul(e, h) if want_t else None
+    return (_fe_mul(e, f), _fe_mul(g, h), _fe_mul(f, g), t3)
+
+
+def _point_double(p, want_t=True):
     """Dedicated doubling (dbl-2008-hwcd, a = -1): 4 squarings and 4
-    products."""
+    products, 3 without ``want_t`` (see ``_point_add``).  T1 is not
+    read."""
     x1, y1, z1, _t1 = p
     a = _fe_sq(x1)
     b = _fe_sq(y1)
@@ -338,7 +414,7 @@ def _point_double(p):
     g = _fe_sub(b, a)
     f = _fe_sub(g, c)
     h = _fe_sub(torch.zeros_like(a), _fe_add(a, b))
-    return (_fe_mul(e, f), _fe_mul(g, h), _fe_mul(f, g), _fe_mul(e, h))
+    return _from_efgh(e, f, g, h, want_t)
 
 
 def _window(words, t: int):
@@ -352,7 +428,12 @@ def ladder_plain(xy, ok, s_words, k_words):
     device.  xy: (2n, 2, 10) int32 affine points from ``decompress`` (A
     rows, then R rows); ok: (2n,) int32; s_words, k_words: (n, 8) int32
     little-endian words of the scalars S and k.  Returns (n,) int32: 1 where
-    [S]B + [k](-A) == R, Z != 0 and both points decompressed."""
+    [S]B + [k](-A) == R, Z != 0 and both points decompressed.
+
+    The kernel's formulas (the [j](-A) table in cached form, [j]B as Niels
+    points from the constants), serially and batched over rows, with every
+    sum and product carried: the kernel's lane schedule and its lazy sums
+    are not copied, and the verdicts are what the two share."""
     n = s_words.shape[0]
     device = xy.device
     pts = xy.to(torch.int64)
@@ -365,23 +446,29 @@ def ladder_plain(xy, ok, s_words, k_words):
     d2 = _const(device, CONST_D2, (n,))
     nx = _fe_sub(zero, ax)
     neg_a = (nx, ay, one, _fe_mul(nx, ay))
-    identity = (zero, one, one, zero)
-    table = [identity, neg_a]
+    neg_a_cached = _cached(neg_a, d2)
+    table = [(one, one, _fe_add(one, one), zero), neg_a_cached]
+    point = neg_a
     for _ in range(14):
-        table.append(_point_add(table[-1], neg_a, d2))
+        point = _point_add(point, neg_a_cached)
+        table.append(_cached(point, d2))
     a_table = torch.stack([torch.stack(pt, dim=1) for pt in table], dim=1)
-    b_table = (
-        _constants_on(device)[CONST_BTABLE:].to(torch.int64).view(16, 4, NLIMB)
+    niels = (
+        _constants_on(device)[CONST_NIELS:].to(torch.int64).view(16, 3, NLIMB)
     )
     rows = torch.arange(n, device=device)
     s = s_words.to(torch.int64) & 0xFFFFFFFF
     k = k_words.to(torch.int64) & 0xFFFFFFFF
-    acc = identity
+    acc = (zero, one, one, zero)
     for t in range(64):
-        for _ in range(4):
-            acc = _point_double(acc)
-        acc = _point_add(acc, b_table[_window(s, t)].unbind(1), d2)
-        acc = _point_add(acc, a_table[rows, _window(k, t)].unbind(1), d2)
+        # T is made only where an addition reads it: after the fourth
+        # doubling and the [j]B addition.
+        for i in range(4):
+            acc = _point_double(acc, want_t=i == 3)
+        ymx, ypx, t2d = niels[_window(s, t)].unbind(1)
+        acc = _point_add(acc, (ymx, ypx, None, t2d))
+        acc = _point_add(acc, a_table[rows, _window(k, t)].unbind(1),
+                         want_t=False)
     x, y, z, _t = acc
     good = (
         _fe_eq(x, _fe_mul(rx, z))
@@ -407,9 +494,17 @@ def _kernel_library():
             ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr,
         ]
         lib.mirbft_ed25519_ladder.restype = i32
+        lib.mirbft_ed25519_ladder_smem_bytes.argtypes = []
+        lib.mirbft_ed25519_ladder_smem_bytes.restype = i32
         lib.mirbft_ed25519_error_string.argtypes = [i32]
         lib.mirbft_ed25519_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ladder_smem_bytes() -> int:
+    """The ladder kernel's dynamic shared memory a block (its [j](-A)
+    columns and [j]B table), from the built library."""
+    return int(_kernel_library().mirbft_ed25519_ladder_smem_bytes())
 
 
 def _check(name: str, tensor: torch.Tensor, shape: tuple, device) -> None:

@@ -73,6 +73,22 @@ INT_OPS_PER_COMPRESSION = (
 )
 
 
+#: The chain floor of a row: its 64 rounds a block, each at least three
+#: dependent instructions on e's path into the next e (the rotates of
+#: Sigma1, one LOP3 joining them, one IADD3 adding Sigma1 and Ch to a sum
+#: of d + h + K[t] + W[t] that is ready a round early, off the path), at
+#: DEPENDENT_ISSUE_CYCLES each (an assumed latency of a dependent integer
+#: instruction on Hopper).  Merkle-Damgard makes a message's blocks
+#: serial, so no launch beats its longest row.
+ROUND_CHAIN = 3
+DEPENDENT_ISSUE_CYCLES = 4
+
+
+def chain_floor_cycles(longest_row_blocks: int) -> int:
+    """Cycles on the dependent chain of a row of that many blocks."""
+    return longest_row_blocks * 64 * ROUND_CHAIN * DEPENDENT_ISSUE_CYCLES
+
+
 def chain_int_ops(batch: int, iters: int) -> int:
     """Integer instructions the chain checksum needs: every iteration of a
     row compresses the same block, so its message schedule is expanded

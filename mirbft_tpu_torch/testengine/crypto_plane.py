@@ -164,11 +164,12 @@ class AsyncKernelHashPlane(CoalescingHashPlane):
         self.launches = 0
         self.demand_flushes = 0
         self.device_digests = 0
-        # Digests by block bucket; the host seconds spent packing, copying
-        # and launching chunks (submit_s leaves them out); and the kernel's
-        # own time on the card (CUDA events around each launch), summed as
-        # chunks resolve.
+        # Digests by block bucket; launches by packed (rows, blocks) shape;
+        # the host seconds spent packing, copying and launching chunks
+        # (submit_s leaves them out); and the kernel's own time on the card
+        # (CUDA events around each launch), summed as chunks resolve.
         self.bucket_digests: dict[int, int] = {}
+        self.shape_launches: dict[tuple, int] = {}
         self.launch_s = 0.0
         self.kernel_ms = 0.0
 
@@ -246,6 +247,8 @@ class AsyncKernelHashPlane(CoalescingHashPlane):
         self.bucket_digests[bucket] = (
             self.bucket_digests.get(bucket, 0) + len(indices)
         )
+        shape = tuple(packed.blocks.shape[:2])
+        self.shape_launches[shape] = self.shape_launches.get(shape, 0) + 1
         if hooks.enabled:
             hooks.record_flush("hash", "device", len(indices), launch_s)
 

@@ -1,0 +1,438 @@
+"""Rehearse the port's CUDA kernels on the host, with g++, before a card
+runs them.
+
+Where the port is written there may be no ``nvcc``, so a kernel's first
+chance to fail would be the card's.  This script compiles a source of
+``mirbft_tpu_torch/csrc/`` as host C++17: a stub header defines
+``__device__``, ``__global__`` and the other qualifiers away, and models a
+block as host threads, one a CUDA thread.  ``__shfl_sync``,
+``__reduce_max_sync`` and ``__syncwarp`` meet at a barrier of the threads
+of one warp, ``__syncthreads`` at one of the block.  The source's PTX
+helpers (``cp.async``, ``mbarrier``: the functions from ``smem_addr`` up to
+``rotr`` in ``sha256.cu``) are cut out, and the stub's host versions stand
+in for them.  Dynamic shared memory is a buffer a block.  The
+``extern "C"`` launchers are cut off and a driver launches the kernels
+itself.
+
+    python3 tests/rehearse_cuda.py [ladder|sha256] [--rows N]
+
+``ladder`` runs the quad ladder on rows it builds with the host oracle
+(valid signatures, corrupted ones, the identity and a point of order 8 as
+keys) and checks every verdict against the oracle; ``sha256`` runs both
+digest bodies on ragged batches at several buckets against hashlib.  The
+thread counts of the kernels are cut to keep the host threads few (the
+ladder's block to 2 quads, the one-thread body's block to 16 rows, the
+specialised body's warps to 8 lanes), so the rehearsal runs the card's
+code at a smaller block than the card does.  Exit status 0 when every
+check passes.  ``tests/test_torch_rehearse.py`` runs it under pytest.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import random
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+CSRC = ROOT / "mirbft_tpu_torch" / "csrc"
+IV_BYTES = bytes.fromhex(
+    "6a09e667bb67ae853c6ef372a54ff53a510e527f9b05688c1f83d9ab5be0cd19"
+)
+
+STUB = r"""
+#include <algorithm>
+#include <atomic>
+#include <memory>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <thread>
+#include <vector>
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(...)
+#define __align__(n) __attribute__((aligned(n)))
+#define __shared__ static  // blocks run one after another
+#define __constant__
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return uint4{a, b, c, d};
+}
+struct Dim3 { unsigned x = 0, y = 0, z = 0; };
+typedef int cudaError_t;
+
+// A spinning barrier of a fixed number of threads.
+struct SpinBarrier {
+  explicit SpinBarrier(int n) : count(n), waiting(0), phase(0) {}
+  void wait() {
+    const int my = phase.load();
+    if (waiting.fetch_add(1) + 1 == count) {
+      waiting.store(0);
+      phase.fetch_add(1);
+    } else {
+      while (phase.load() == my) std::this_thread::yield();
+    }
+  }
+  int count;
+  std::atomic<int> waiting, phase;
+};
+
+struct Block {
+  Block(int threads, int warp, size_t smem_bytes)
+      : bar(threads), slots(threads), smem(smem_bytes + 16) {
+    for (int w = 0; w < threads; w += warp) {
+      warps.emplace_back(new SpinBarrier(std::min(warp, threads - w)));
+    }
+  }
+  SpinBarrier bar;
+  std::vector<std::unique_ptr<SpinBarrier>> warps;
+  std::vector<int64_t> slots;
+  std::vector<unsigned char> smem;
+};
+
+inline Dim3 blockDim;
+inline int g_warp = 32;  // lanes a warp in this rehearsal
+inline thread_local Dim3 threadIdx;
+inline thread_local Dim3 blockIdx;
+inline thread_local Block* g_block;
+
+inline void __syncthreads() { g_block->bar.wait(); }
+inline SpinBarrier& warp_bar() { return *g_block->warps[threadIdx.x / g_warp]; }
+inline void __syncwarp(unsigned = 0xffffffffu) { warp_bar().wait(); }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline int32_t __shfl_sync(unsigned, int32_t v, int src, int width = 32) {
+  const int t = threadIdx.x, base = t - t % g_warp;
+  g_block->slots[t] = v;
+  warp_bar().wait();
+  const int lane = t - base;
+  const int got = static_cast<int32_t>(
+      g_block->slots[base + (lane & ~(width - 1)) + (src & (width - 1))]);
+  warp_bar().wait();
+  return got;
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  const int t = threadIdx.x, base = t - t % g_warp;
+  g_block->slots[t] = v;
+  warp_bar().wait();
+  unsigned m = 0;
+  for (int i = base; i < base + g_warp && i < (int)blockDim.x; ++i) {
+    m = std::max(m, static_cast<unsigned>(g_block->slots[i]));
+  }
+  warp_bar().wait();
+  return m;
+}
+inline uint32_t __shfl_down_sync(unsigned, uint32_t v, int delta) {
+  const int t = threadIdx.x, base = t - t % g_warp;
+  g_block->slots[t] = v;
+  warp_bar().wait();
+  const int src = t + delta < base + g_warp ? t + delta : t;
+  const uint32_t got = static_cast<uint32_t>(g_block->slots[src]);
+  warp_bar().wait();
+  return got;
+}
+inline uint32_t atomicAdd(uint32_t* p, uint32_t v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, int n) {
+  n &= 31;
+  return n ? (lo >> n) | (hi << (32 - n)) : lo;
+}
+
+// The PTX helpers of sha256.cu on the host: a copy lands at once, and a
+// barrier word holds (phase << 32 | pending << 16 | count).
+inline void cp_async16(void* dst, const void* src) { std::memcpy(dst, src, 16); }
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
+inline void mbar_init(uint64_t* bar, int count) {
+  __atomic_store_n(bar, static_cast<uint64_t>(count), __ATOMIC_SEQ_CST);
+}
+inline void mbar_init_fence() {}
+inline void mbar_arrive(uint64_t* bar) {
+  uint64_t old = __atomic_load_n(bar, __ATOMIC_SEQ_CST), next;
+  do {
+    const uint64_t count = old & 0xffff, pending = ((old >> 16) & 0xffff) + 1;
+    next = pending == count ? ((old >> 32) + 1) << 32 | count
+                            : (old & ~0xffff0000ull) | pending << 16;
+  } while (!__atomic_compare_exchange_n(bar, &old, next, false,
+                                        __ATOMIC_SEQ_CST, __ATOMIC_SEQ_CST));
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  while (((__atomic_load_n(bar, __ATOMIC_SEQ_CST) >> 32) & 1) == parity) {
+    std::this_thread::yield();
+  }
+}
+
+// Run body() once a thread, blocks one after another.
+template <class F>
+void launch(int grid, int threads, size_t smem, F body) {
+  blockDim.x = threads;
+  for (int b = 0; b < grid; ++b) {
+    Block block(threads, g_warp, smem);
+    std::vector<std::thread> pool;
+    for (int t = 0; t < threads; ++t) {
+      pool.emplace_back([&, t, b] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        g_block = &block;
+        body();
+      });
+    }
+    for (auto& th : pool) th.join();
+  }
+}
+
+inline std::vector<char> read_all(const char* path) {
+  FILE* f = std::fopen(path, "rb");
+  if (!f) { std::perror(path); std::exit(2); }
+  std::vector<char> out;
+  char buf[65536];
+  size_t n;
+  while ((n = std::fread(buf, 1, sizeof buf, f)) > 0) out.insert(out.end(), buf, buf + n);
+  std::fclose(f);
+  return out;
+}
+
+inline void write_all(const char* path, const void* p, size_t n) {
+  FILE* f = std::fopen(path, "wb");
+  std::fwrite(p, 1, n, f);
+  std::fclose(f);
+}
+"""
+
+LADDER_DRIVER = r"""
+// argv: input file (n, then xy, ok, s_words, k_words, consts), output file.
+int main(int argc, char** argv) {
+  g_warp = 8;
+  std::vector<char> in = read_all(argv[1]);
+  const int32_t* p = reinterpret_cast<const int32_t*>(in.data());
+  const int n = p[0];
+  const int32_t* xy = p + 1;
+  const int32_t* ok = xy + 2 * n * 20;
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(ok + 2 * n);
+  const uint32_t* k = s + 8 * n;
+  const int32_t* consts = reinterpret_cast<const int32_t*>(k + 8 * n);
+  std::vector<int32_t> out(n, -1);
+  const int grid = (4 * n + kLadderThreads - 1) / kLadderThreads;
+  launch(grid, kLadderThreads, kLadderSmemBytes, [&] {
+    mirbft_ed25519_ladder_kernel(xy, ok, s, k, out.data(), n, consts);
+  });
+  write_all(argv[2], out.data(), out.size() * 4);
+  return 0;
+}
+"""
+
+SHA256_DRIVER = r"""
+// argv: input file (batch, max_blocks, blocks, n_blocks), output files of
+// the one-thread body and the warp-specialised body.
+int main(int argc, char** argv) {
+  std::vector<char> in = read_all(argv[1]);
+  const int32_t* p = reinterpret_cast<const int32_t*>(in.data());
+  const int batch = p[0], max_blocks = p[1];
+  const uint4* blocks = reinterpret_cast<const uint4*>(p + 4);
+  const int32_t* n_blocks = p + 4 + batch * max_blocks * 16;
+  std::vector<uint4> out(2 * batch);
+  launch((batch + kThreads - 1) / kThreads, kThreads, 0, [&] {
+    mirbft_sha256_digest_kernel(blocks, n_blocks, out.data(), batch, max_blocks);
+  });
+  write_all(argv[2], out.data(), out.size() * 16);
+  std::fill(out.begin(), out.end(), uint4{0, 0, 0, 0});
+  g_warp = kWsLanes;
+  launch((batch + kWsLanes - 1) / kWsLanes, 2 * kWsLanes, 0, [&] {
+    mirbft_sha256_digest_ws_kernel(blocks, n_blocks, out.data(), batch, max_blocks);
+  });
+  write_all(argv[3], out.data(), out.size() * 16);
+  return 0;
+}
+"""
+
+# Host thread counts: the ladder's block cut to 2 quads, the digest
+# kernel's one-thread body to 16 rows a block and its warps to 8 lanes.
+CUTS = {
+    "ed25519": {r"constexpr int kLadderThreads = \d+;": "constexpr int kLadderThreads = 8;"},
+    "sha256": {
+        r"constexpr int kThreads = \d+;": "constexpr int kThreads = 16;",
+        r"constexpr int kWsLanes = \d+;": "constexpr int kWsLanes = 8;",
+    },
+}
+
+
+# The span of PTX helpers a source defines, cut for the stub's host
+# versions: from its first line up to (not including) its end marker.
+PTX_HELPERS = {
+    "sha256": ("__device__ __forceinline__ uint32_t smem_addr(",
+               "__device__ __forceinline__ uint32_t rotr("),
+}
+
+
+def host_source(name: str) -> str:
+    """csrc/<name>.cu as host C++: the stub first, the PTX helpers and the
+    launchers cut, the block sizes cut, dynamic shared memory taken from
+    the block."""
+    src = (CSRC / f"{name}.cu").read_text()
+    src = src.replace("#include <cuda_runtime.h>", "")
+    src = src[: src.index("}  // namespace")] + "}  // namespace\n"
+    if name in PTX_HELPERS:
+        first, end = PTX_HELPERS[name]
+        if src.count(first) != 1 or src.count(end) != 1:
+            raise RuntimeError(f"{name}.cu: the PTX helpers are not where "
+                               "the rehearsal cuts them")
+        src = src[: src.index(first)] + src[src.index(end):]
+    for pattern, repl in CUTS[name].items():
+        src, count = re.subn(pattern, repl, src)
+        if count != 1:
+            raise RuntimeError(f"{name}.cu: no single match for {pattern}")
+    src = re.sub(
+        r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
+        r"\1* \2 = reinterpret_cast<\1*>(g_block->smem.data());",
+        src,
+    )
+    return STUB + src
+
+
+def compile_driver(name: str, driver: str, workdir: Path) -> Path:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the rehearsal compiles host C++")
+    source = workdir / f"{name}_host.cpp"
+    source.write_text(host_source(name) + driver)
+    binary = workdir / f"{name}_host"
+    proc = subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-pthread", "-Wall", "-Wno-unused-function",
+         "-o", str(binary), str(source)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {name}.cu:\n{proc.stdout}")
+    return binary
+
+
+def ladder_rows(n: int, seed: int) -> tuple:
+    """n (pk, msg, sig) rows: valid, corrupted R, corrupted S and wrong
+    message in turn, then the identity and a point of order 8 as keys with
+    a signature the identity satisfies."""
+    from mirbft_tpu_torch.crypto import ed25519_host as host
+
+    rng = random.Random(seed)
+    rows = []
+    r = 77
+    r_sig = host.compress(
+        host.scalar_mult(r, host.to_extended(host.BASE))
+    ) + r.to_bytes(32, "little")
+    order8 = None
+    for y in range(2, 100):
+        point = host.decompress(int.to_bytes(y, 32, "little"))
+        if point is None:
+            continue
+        torsion = host.scalar_mult(host.L, point)
+        if not host.point_equal(host.scalar_mult(4, torsion), host.IDENTITY):
+            order8 = host.compress(torsion)
+            break
+    edge = [(int.to_bytes(1, 32, "little"), b"m", r_sig), (order8, b"m", r_sig)]
+    for i in range(max(0, n - len(edge))):
+        seed_bytes = rng.randbytes(32)
+        msg = rng.randbytes(20)
+        pk, sig = host.public_key(seed_bytes), host.sign(seed_bytes, msg)
+        if i % 4 == 1:
+            sig = bytes([sig[0] ^ 2]) + sig[1:]
+        elif i % 4 == 2:
+            sig = sig[:40] + bytes([sig[40] ^ 8]) + sig[41:]
+        elif i % 4 == 3:
+            msg += b"?"
+        rows.append((pk, msg, sig))
+    return (rows + edge)[:n]
+
+
+def rehearse_ladder(n: int, workdir: Path) -> int:
+    import torch
+
+    from mirbft_tpu_torch.crypto import ed25519_host as host
+    from mirbft_tpu_torch.ops import ed25519
+
+    binary = compile_driver("ed25519", LADDER_DRIVER, workdir)
+    rows = ladder_rows(n, seed=n)
+    marshalled = [ed25519.marshal_light(*row) for row in rows]
+    enc, s_words, k_words = ed25519.pack_rows(marshalled)
+    xy, ok = ed25519.decompress_plain(torch.from_numpy(enc))
+    blob = b"".join([
+        np.int32(n).tobytes(), xy.numpy().tobytes(), ok.numpy().tobytes(),
+        s_words.tobytes(), k_words.tobytes(), ed25519.constants().tobytes(),
+    ])
+    (workdir / "ladder.in").write_bytes(blob)
+    subprocess.run([str(binary), str(workdir / "ladder.in"),
+                    str(workdir / "ladder.out")], check=True)
+    got = np.frombuffer((workdir / "ladder.out").read_bytes(), dtype=np.int32)
+    want = [int(host.verify(*row)) for row in rows]
+    bad = [i for i in range(n) if got[i] != want[i]]
+    print(f"ladder, {n} rows on the host: verdicts {got.tolist()}, oracle "
+          f"{want}: {'equal' if not bad else f'rows {bad} differ'}")
+    return 1 if bad else 0
+
+
+def rehearse_sha256(workdir: Path) -> int:
+    from mirbft_tpu_torch.ops.batching import pack_preimages
+
+    binary = compile_driver("sha256", SHA256_DRIVER, workdir)
+    rng = random.Random(5)
+    failures = 0
+    for bucket, rows in ((1, 24), (2, 20), (8, 19), (32, 9), (128, 9)):
+        # Ragged: lengths from 0 up to the bucket's last block, and a
+        # padding row or more (count 0).
+        top = bucket * 64 - 9
+        lengths = [rng.randrange(0, top + 1) for _ in range(rows - 2)] + [top, 0]
+        messages = [rng.randbytes(n) for n in lengths]
+        packed = pack_preimages(messages, block_floor=bucket, batch_floor=rows + 3)
+        batch, max_blocks, _ = packed.blocks.shape
+        blob = (np.array([batch, max_blocks, 0, 0], dtype=np.int32).tobytes()
+                + packed.blocks.astype(np.uint32).tobytes()
+                + packed.n_blocks.astype(np.int32).tobytes())
+        (workdir / "sha.in").write_bytes(blob)
+        subprocess.run([str(binary), str(workdir / "sha.in"),
+                        str(workdir / "one.out"), str(workdir / "ws.out")],
+                       check=True)
+        want = b"".join(hashlib.sha256(m).digest() for m in messages)
+        want += IV_BYTES * (batch - len(messages))  # padding rows: the IV
+        for body in ("one", "ws"):
+            raw = np.frombuffer((workdir / f"{body}.out").read_bytes(),
+                                dtype=np.uint32).astype(">u4").tobytes()
+            ok = raw == want
+            failures += not ok
+            print(f"sha256 {body} body, shape ({batch}, {max_blocks}, 16), "
+                  f"{len(messages)} live rows and the padding rows: "
+                  f"{'== hashlib' if ok else 'DIFFERS from hashlib'}")
+    return 1 if failures else 0
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("what", nargs="*", default=["ladder", "sha256"],
+                        choices=["ladder", "sha256"])
+    parser.add_argument("--rows", type=int, default=6,
+                        help="ladder rows (default 6: two ragged blocks)")
+    args = parser.parse_args(argv)
+    status = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        if "ladder" in args.what:
+            status |= rehearse_ladder(args.rows, workdir)
+        if "sha256" in args.what:
+            status |= rehearse_sha256(workdir)
+    return status
+
+
+if __name__ == "__main__":
+    sys.exit(main())

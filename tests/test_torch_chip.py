@@ -64,6 +64,38 @@ def test_kernel_matches_plain_and_hashlib(card, lengths, block_floor, batch_floo
         assert raw[32 * i : 32 * i + 32] == hashlib.sha256(msg).digest()
 
 
+# The shapes AsyncKernelHashPlane.rows_for gives the engine's buckets.
+BUCKET_SHAPES = [(8192, 1), (8192, 2), (8192, 4), (4096, 8), (2048, 16),
+                 (1024, 32), (512, 64), (256, 128)]
+
+
+@pytest.mark.parametrize("rows,bucket", BUCKET_SHAPES,
+                         ids=[f"{r}x{b}" for r, b in BUCKET_SHAPES])
+def test_every_bucket_shape_matches_plain_and_hashlib(card, rows, bucket):
+    """Ragged rows (1 block up to the bucket's last) and padding rows, at
+    each shape the engine launches (the 1-block bucket takes the
+    one-thread body, the others the warp-specialised one): the entry
+    point, counted once, the plain version and hashlib agree."""
+    rng = random.Random(rows * bucket)
+    top = bucket * 64 - 9  # the longest message the bucket holds
+    lengths = [rng.randrange(0, top + 1) for _ in range(rows - 40)] + [top]
+    messages = [rng.randbytes(n) for n in lengths]
+    packed = pack_preimages(messages, block_floor=bucket, batch_floor=rows)
+    assert packed.blocks.shape == (rows, bucket, 16)
+    blocks, n_blocks = to_tensors(packed, card)
+    before = port.sha256_digest_words.launches
+    words = port.sha256_digest_words(blocks, n_blocks)
+    torch.cuda.synchronize()
+    assert port.sha256_digest_words.launches == before + 1
+    plain = port.sha256_digest_words_plain(blocks, n_blocks)
+    assert torch.equal(words, plain)
+    raw = port.words_to_digests(words)
+    want = b"".join(hashlib.sha256(m).digest() for m in messages)
+    assert raw[: len(want)] == want
+    iv = port.words_to_digests(port._to_int32(torch.tensor([port._IV])))
+    assert raw[len(want):] == iv * (rows - len(messages))
+
+
 def test_kernel_plane_run_matches_host_plane(card):
     host = BasicRecorder(4, 2, 10, batch_size=2, hash_plane=CoalescingHashPlane())
     host_count = host.drain_clients(max_steps=100000)
@@ -93,13 +125,13 @@ def test_engine_default_plane_is_the_kernel_on_the_card(card):
 
 
 def signature_corpus(n: int) -> tuple:
-    """n rows that all reach the kernels: n - 3 signatures (valid,
-    corrupted R, corrupted S, wrong message in turn), then a key with no
-    square root, the identity as key with a signature it satisfies, and
-    x = 0 with the sign bit set."""
+    """n rows that all reach the kernels: signatures (valid, corrupted R,
+    corrupted S, wrong message in turn), then a key with no square root,
+    the identity as key with a signature it satisfies, and x = 0 with the
+    sign bit set; the first n of them (at least one signature)."""
     rng = random.Random(n)
     pks, msgs, sigs = [], [], []
-    for i in range(n - 3):
+    for i in range(max(n - 3, 1)):
         seed = rng.randbytes(32)
         msg = rng.randbytes(20)
         pk, sig = ed25519_host.public_key(seed), ed25519_host.sign(seed, msg)
@@ -119,10 +151,12 @@ def signature_corpus(n: int) -> tuple:
         pks.append(y_enc.to_bytes(32, "little"))
         msgs.append(b"m")
         sigs.append(r_sig)
-    return pks, msgs, sigs
+    return pks[:n], msgs[:n], sigs[:n]
 
 
-@pytest.mark.parametrize("n", [8, 256, 512])  # 256, 512: the main path's
+# 256, 512: the main path's launches; 1, 3, 7, 513: quads that leave a
+# warp or a block ragged; 4096: 128 blocks of 32 signatures.
+@pytest.mark.parametrize("n", [1, 3, 7, 8, 256, 512, 513, 4096])
 def test_ed25519_kernels_match_plain_and_oracle(card, n):
     pks, msgs, sigs = signature_corpus(n)
     rows = [ed25519.marshal_light(*t) for t in zip(pks, msgs, sigs)]
@@ -149,6 +183,8 @@ def test_ed25519_kernels_match_plain_and_oracle(card, n):
             assert ed25519.limbs_to_int(xy[i, 1].cpu()) == point[1]
     expect = [ed25519_host.verify(*t) for t in zip(pks, msgs, sigs)]
     assert verdicts.cpu().tolist() == [int(v) for v in expect]
+    if n >= 4:
+        assert any(expect) and not all(expect)  # forgeries among them
     assert ed25519.verify_batch(pks, msgs, sigs, device=card).tolist() == expect
 
 

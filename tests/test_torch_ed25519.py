@@ -163,15 +163,33 @@ def test_constants_table():
     table = port.constants()
     assert table.shape == (port.CONST_ROWS, port.NLIMB)
     assert port.limbs_to_int(table[port.CONST_D]) == host.D
-    assert port.limbs_to_int(table[port.CONST_D2]) == 2 * host.D % P
     sqrt_m1 = port.limbs_to_int(table[port.CONST_SQRT_M1])
     assert sqrt_m1 * sqrt_m1 % P == P - 1
-    for j in range(16):
-        row = port.CONST_BTABLE + 4 * j
-        x, y, z, t = (port.limbs_to_int(table[row + c]) for c in range(4))
-        expect = host.scalar_mult(j, host.to_extended(host.BASE))
-        assert host.point_equal((x, y, z, t), expect)
-        assert z == 1 and t == x * y % P
+
+
+def test_constant_2d_is_the_oracles():
+    table = port.constants()
+    assert port.limbs_to_int(table[port.CONST_D2]) == 2 * host.D % P
+    assert port.limbs_to_int(table[port.CONST_D2]) == 2 * ref_host.D % P
+
+
+@pytest.mark.parametrize("j", range(16))
+def test_niels_rows_are_the_oracles_multiples_of_b(j):
+    """Row j of the [j]B table: (y - x, y + x, 2d x y) of the affine point
+    [j]B from the host oracle (the identity for j = 0)."""
+    table = port.constants()
+    row = port.CONST_NIELS + 3 * j
+    ymx, ypx, t2d = (port.limbs_to_int(table[row + c]) for c in range(3))
+    expect = ref_host.scalar_mult(j, ref_host.to_extended(ref_host.BASE))
+    z_inv = pow(expect[2], P - 2, P)
+    x, y = expect[0] * z_inv % P, expect[1] * z_inv % P
+    assert (ymx, ypx, t2d) == ((y - x) % P, (y + x) % P, 2 * host.D * x * y % P)
+    # Back to the point: x = (ypx - ymx) / 2, y = (ypx + ymx) / 2.
+    half = pow(2, P - 2, P)
+    point = ((ypx - ymx) * half % P, (ypx + ymx) * half % P)
+    assert host.point_equal((*point, 1, point[0] * point[1] % P), expect)
+    if j == 0:
+        assert (ymx, ypx, t2d) == (1, 1, 0)
 
 
 # -- decompression --------------------------------------------------------
@@ -370,8 +388,8 @@ def test_pack_rows_launches_exactly_n_rows():
 
 
 def test_field_op_counts_per_row(monkeypatch):
-    """The bounds' op counts are the plain versions' calls, which are the
-    kernels' calls."""
+    """The bounds' op counts are the plain versions' calls, which follow
+    the kernels' formulas."""
     counts = collections.Counter()
     mul = port._fe_mul
 
@@ -405,7 +423,98 @@ def test_field_op_counts_per_row(monkeypatch):
     )
 
 
+def test_ladder_products_per_row_in_the_new_formulas():
+    """The ladder's products a row, from the formulas and the windows: a
+    doubling 4 squarings and 4 products, an addition of a cached [j](-A) 8
+    products, of a Niels [j]B 7 (no d product, and 2 Z1 a sum), a
+    conversion to cached form 1; each doubling or addition one product
+    fewer where only a doubling or the comparison reads it, since neither
+    reads T.  -A's T (1), 15 conversions, 14 table additions (each read by
+    a conversion, so with T), 64 windows, 2 products against R."""
+    doubling = {"sqr": 4, "mul": 4}
+    cached_add, niels_add = 8, 7
+    # A window: doublings 1-3 feed a doubling, doubling 4 the [j]B
+    # addition, which feeds the [j](-A) addition, which feeds the next
+    # window's first doubling or, in the last window, the comparison.
+    reads_t = [False, False, False, True]
+    window = sum(doubling["mul"] - (not t) for t in reads_t)
+    window += niels_add + (cached_add - 1)
+    assert window == 27
+    products = 1 + 15 * 1 + 14 * cached_add + 64 * window + 2
+    assert port.LADDER_OPS["mul"] == products == 1858
+    assert port.LADDER_OPS["sqr"] == 64 * 4 * doubling["sqr"] == 1024
+    # Against the one-thread ladder of extended [j]B points (2305: 9
+    # products an addition, T made by every doubling and addition): 3 a
+    # window from the cached and Niels forms, 4 a window from T, 1 less a
+    # row for -A's T computed once.
+    assert 2305 - port.LADDER_OPS["mul"] == 64 * 3 - 1 + 64 * 4
+
+
+def test_ladder_stage_count_and_chain_floor():
+    """The quad ladder's product stages on one row's path, and the chain
+    floor they give: each stage a product's or squaring's least chain
+    (three accumulators a column, ref10's carry path) plus a shuffle, a
+    select and an add, 4 cycles a dependent instruction."""
+    assert port.LADDER_STAGES == 2 + 14 * 3 + 64 * (4 * 2 + 2 * 2) + 1 == 813
+    assert port.MUL_CHAIN == 4 + 2 + 35 == 41
+    assert port.SQR_CHAIN == 2 + 2 + 35 == 39
+    assert port.LADDER_SQR_STAGES == 64 * 4
+    assert port.chain_floor_cycles("ladder") == (
+        (813 - 256) * (41 + 3) + 256 * (39 + 3)
+    ) * 4
+    assert port.chain_floor_cycles("decompress") == (17 * 41 + 255 * 39) * 4
+    # Decompression's chain is all of its squarings and all of its
+    # products but the two off the path (u v^3 and x sqrt(-1)).
+    assert port.DECOMPRESS_CHAIN_SQR == port.DECOMPRESS_OPS["sqr"]
+    assert port.DECOMPRESS_CHAIN_MUL == port.DECOMPRESS_OPS["mul"] - 2
+
+
 def test_other_devices_raise():
     enc = torch.zeros((2, 8), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no ed25519 path"):
         port.decompress(enc)
+
+
+def test_ladder_carry_bounds_hold():
+    """The bounds csrc/ed25519.cu states for its lazy sums, checked by
+    interval arithmetic: a carried element's limbs are within
+    U_w = 2^(w-1) (1 + 2^-9); a product of a 4-term f and a 3-term g (the
+    widest the ladder makes) keeps its premultiplied limbs in int32 and its
+    columns in int64; ref10's 12-step carry chain brings such columns back
+    within U_w; and so does a squaring of a 2-term element."""
+    widths = port.WIDTHS
+    carried = [(1 << (w - 1)) * (1 + 2**-9) for w in widths]
+
+    def columns(f, g, square=False):
+        col = [0.0] * 10
+        for i in range(10):
+            for j in range(i if square else 0, 10):
+                a = f[i] * (2 if i % 2 and j % 2 else 1)
+                if square and i != j:
+                    a *= 2
+                b = g[j] * (19 if i + j >= 10 else 1)
+                assert a < 2**31 and b < 2**31  # int32 operands
+                col[(i + j) % 10] += a * b
+        assert max(col) < 2**63  # int64 columns
+        return col
+
+    def chain(col):
+        h = list(col)
+        for i in (0, 4, 1, 5, 2, 6, 3, 7, 4, 8, 9, 0):
+            w = widths[i]
+            c = (h[i] + (1 << (w - 1))) // (1 << w) + 1  # a carry's size
+            h[i] = 1 << (w - 1)
+            if i == 9:
+                h[0] += 19 * c
+            else:
+                h[i + 1] += c
+        return h
+
+    term = lambda k: [k * u for u in carried]  # noqa: E731
+    for f, g, square in (
+        (term(4), term(3), False),  # doubling: F E
+        (term(2), term(2), False),  # addition: E F, G H; stage A
+        (term(2), term(2), True),   # doubling: (X + Y)^2
+    ):
+        out = chain(columns(f, g, square))
+        assert all(h <= u for h, u in zip(out, carried)), out

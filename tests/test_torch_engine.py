@@ -85,6 +85,11 @@ def test_port_engine_matches_reference(shape, plane):
         assert sum(hash_plane.bucket_digests.values()) == (
             hash_plane.device_digests
         )
+        assert sum(hash_plane.shape_launches.values()) == hash_plane.launches
+        assert all(
+            rows == hash_plane.rows_for(bucket)
+            for rows, bucket in hash_plane.shape_launches
+        )
 
 
 def test_kernel_plane_fixed_chunk_shapes():
@@ -93,6 +98,16 @@ def test_kernel_plane_fixed_chunk_shapes():
     assert plane.rows_for(128) == 256  # full BatchSize-200 batch digests
     small = AsyncKernelHashPlane(device="cpu", chunk_rows=16)
     assert small.rows_for(1) == 16
+
+
+def test_kernel_plane_bucket_shapes():
+    """The eight packed shapes the engine's buckets launch at (chip_smoke
+    times and compares every one)."""
+    plane = AsyncKernelHashPlane(device="cpu")
+    assert [(plane.rows_for(b), b) for b in (1, 2, 4, 8, 16, 32, 64, 128)] == [
+        (8192, 1), (8192, 2), (8192, 4), (4096, 8), (2048, 16), (1024, 32),
+        (512, 64), (256, 128),
+    ]
 
 
 def test_kernel_plane_demand_before_wave_launch():
