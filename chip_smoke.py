@@ -46,7 +46,12 @@ Phases (any failure raises and the script exits nonzero):
    with no square root, x = 0 with the sign bit set, small-order keys (the
    identity, a point of order 8), R with no root; host-rejected rows (y >=
    p, S >= L, bad lengths) come on top of the n and must not reach a
-   kernel.  Verdicts and decompressed points must be equal;
+   kernel.  Verdicts and decompressed points must be equal.  Then the
+   decompress kernel alone on the decompression corpus (every branch of
+   RFC 8032 5.1.3: no square root, x = 0 with the sign bit set, roots that
+   need sqrt(-1), the identity, a point of order 8) repeated to m = 1, 3,
+   7, 8, 1024, 1025 and 8192 rows, against its plain version and the
+   oracle, bit for bit;
 7. a signed engine run, 16 nodes x 64 clients x 4 requests, BatchSize 200,
    with a forged request at every node: the async signature plane on the
    kernels against the host-oracle plane; equal events, app chains,
@@ -62,7 +67,8 @@ Phases (any failure raises and the script exits nonzero):
    chain floor;
 9. both Ed25519 kernels' times at n = 512, 1024 and 4096 (CUDA events over
    launches queued behind a spin kernel) beside their bounds and chain
-   floors, and the plain versions' times at n = 512;
+   floors, rung 3's launches at each n times the gap to the larger of the
+   two, and the plain versions' times at n = 512;
 10. the SHA-256 chain kernel against its plain version, exactly, at
     (1024, 16) and the ragged (1000, 16) blocks, at the full batch of
     32768 rows, and at the full 4096 iterations on 1000 rows; then the port's kernel microbenchmark at full size
@@ -106,6 +112,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 SEED = 20261016
 NODES, CLIENTS, BATCH_SIZE = 16, 64, 200
@@ -140,6 +147,9 @@ CHAIN_PLAIN_ITERS = 64
 ED25519_COMPARED = tuple(sorted(
     (1, 3, 7, 8, CLIENTS * SIGNED_REQS, 513, *ED25519_SHAPES)
 ))
+# The decompression corpus repeated to these rows: ragged warps, a full
+# group, the 512- and 4096-signature launches' points and one past.
+DECOMPRESS_CORPUS_ROWS = (1, 3, 7, 8, 1024, 1025, 8192)
 POOL_PROCESSES = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
@@ -459,19 +469,15 @@ def encode_point(y: int, sign: int = 0) -> bytes:
     return int.to_bytes(y | (sign << 255), 32, "little")
 
 
-def order8_encoding() -> bytes:
-    """A point of order 8: the torsion part of the first small-y point
-    that has one."""
-    from mirbft_tpu_torch.crypto import ed25519_host as host
+def ed25519_corpus():
+    """tests/ed25519_corpus.py: the encodings that take every branch of
+    point decompression, shared with the tests and the host rehearsal."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import ed25519_corpus
 
-    for y in range(2, 100):
-        point = host.decompress(encode_point(y))
-        if point is None:
-            continue
-        torsion = host.scalar_mult(host.L, point)
-        if not host.point_equal(host.scalar_mult(4, torsion), host.IDENTITY):
-            return host.compress(torsion)
-    raise AssertionError("no point of order 8 found")
+    return ed25519_corpus
 
 
 def rung3_row(presigned, key, kind: int):
@@ -507,7 +513,7 @@ def signature_corpus(presigned) -> tuple:
         (encode_point(2), b"m", r_sig),  # A has no square root
         (encode_point(1), b"m", r_sig),  # A = identity (small order)
         (encode_point(1, 1), b"m", r_sig),  # x = 0 with the sign bit set
-        (order8_encoding(), b"m", r_sig),  # A of order 8
+        (ed25519_corpus().order8_encoding(), b"m", r_sig),  # A of order 8
         (pk, msg, encode_point(2) + sig[32:]),  # R has no square root
     ]
     fill = max(ED25519_COMPARED) - len(rows)
@@ -569,6 +575,38 @@ def compare_ed25519(n, rows, oracle) -> int:
     print(f"  ed25519 n={n}: {m} rows reach the kernels ({2 * m} points), "
           f"{len(rows) - m} rejected on the host, {accepted} accepted, "
           f"{sum(ok)} points decode: kernel == plain == oracle")
+    return err
+
+
+def compare_decompress_corpus(m: int) -> int:
+    """The decompress kernel on the decompression corpus (every branch of
+    RFC 8032 5.1.3) repeated to m rows, against its plain version and the
+    oracle, bit for bit; returns the max absolute difference from plain
+    (0)."""
+    import torch
+
+    from mirbft_tpu_torch.crypto import ed25519_host as host
+    from mirbft_tpu_torch.ops import ed25519
+
+    corpus = ed25519_corpus().decompression_corpus()
+    oracle = [host.decompress(e) for e in corpus]
+    encodings = (corpus * (m // len(corpus) + 1))[:m]
+    enc = torch.from_numpy(ed25519._words(encodings)).to("cuda")
+    xy, ok = ed25519.decompress(enc)
+    torch.cuda.synchronize()
+    plain_xy, plain_ok = ed25519.decompress_plain(enc)
+    err = max(int((xy - plain_xy).abs().max()),
+              int((ok - plain_ok).abs().max()))
+    check(err == 0, f"decompress corpus m={m}: kernel != plain ({err})")
+    xy, ok = xy.cpu(), ok.cpu().tolist()
+    for i in range(m):
+        point = oracle[i % len(corpus)]
+        check(ok[i] == (point is not None),
+              f"decompress corpus m={m}: row {i} ok flag")
+        if point is not None:
+            got = tuple(ed25519.limbs_to_int(xy[i, c]) for c in (0, 1))
+            check(got == tuple(point[:2]),
+                  f"decompress corpus m={m}: row {i} point")
     return err
 
 
@@ -917,9 +955,13 @@ def main() -> int:
         ed_err = max(ed_err, compare_ed25519(
             n, rows[:n] + rejects, oracle[:n] + reject_oracle
         ))
+    for m in DECOMPRESS_CORPUS_ROWS:
+        ed_err = max(ed_err, compare_decompress_corpus(m))
     print(f"phase 6 ok: ed25519 kernels == plain == oracle at n = "
-          f"{', '.join(map(str, ED25519_COMPARED))}; max_abs_err {ed_err} "
-          f"(done at {time.perf_counter() - t0:.1f} s)")
+          f"{', '.join(map(str, ED25519_COMPARED))}; decompress == plain == "
+          f"oracle on the decompression corpus repeated to m = "
+          f"{', '.join(map(str, DECOMPRESS_CORPUS_ROWS))} rows; "
+          f"max_abs_err {ed_err} (done at {time.perf_counter() - t0:.1f} s)")
 
     # -- phase 7: signed engine run, kernels against the host oracle ---------
     signatures: dict = {}
@@ -974,6 +1016,8 @@ def main() -> int:
     gc.collect()
     sha256_digest_words.launches = 0
     ed25519.decompress.launches = ed25519.ladder.launches = 0
+    ed25519.decompress.launches_by_rows.clear()
+    ed25519.ladder.launches_by_rows.clear()
     GC_TIMER.seconds, GC_TIMER.timing = 0.0, True
     cpu = (time.process_time(), time.thread_time())
     start = time.perf_counter()
@@ -988,6 +1032,13 @@ def main() -> int:
     wall = time.perf_counter() - start
     cpu = (time.process_time() - cpu[0], time.thread_time() - cpu[1])
     GC_TIMER.timing = False
+    # Rung 3's launches of each Ed25519 kernel by the signatures they
+    # verified (decompression's rows are two points a signature).
+    rung3_ed_launches = {
+        "decompress": {rows // 2: count for rows, count in
+                       ed25519.decompress.launches_by_rows.items()},
+        "ladder": dict(ed25519.ladder.launches_by_rows),
+    }
     rung3_launches = {
         "sha256_digest": sha256_digest_words.launches,
         "ed25519_decompress": ed25519.decompress.launches,
@@ -1008,6 +1059,12 @@ def main() -> int:
     check(hash_plane.host_digests == 0, "rung 3: a digest on the host")
     check(all(count > 0 for count in rung3_launches.values()),
           f"rung 3: a kernel never launched: {rung3_launches}")
+    for name, by_n in rung3_ed_launches.items():
+        check(sum(by_n.values()) == rung3_launches["ed25519_" + name],
+              f"rung 3: {name} launches by rows do not add up")
+        check(set(by_n) <= set(ED25519_SHAPES),
+              f"rung 3: {name} launches at n phase 9 does not time: "
+              f"{sorted(set(by_n) - set(ED25519_SHAPES))}")
     device_ms = plane.kernel_ms + hash_plane.kernel_ms
     check(sum(hash_plane.shape_launches.values()) == hash_plane.launches
           == rung3_launches["sha256_digest"],
@@ -1092,10 +1149,14 @@ def main() -> int:
         for name, ms, call_ms in (("decompress", dec_ms, dec_call),
                                   ("ladder", lad_ms, lad_call)):
             bound = bounds[name]
+            floor = max(bound["bound_ms"], bound["chain_floor_ms"])
+            launches = rung3_ed_launches[name].get(n, 0)
             ed_shapes["ed25519_" + name].append(dict(
                 n=n, rows=2 * n if name == "decompress" else n, ms=ms,
                 call_ms=call_ms, plain_ms=plain.get(name), library_ms=None,
-                sm_clock_mhz=clock, **bound,
+                sm_clock_mhz=clock, launches_rung3=launches,
+                gap_ms=ms - floor, launches_x_gap_ms=launches * (ms - floor),
+                **bound,
             ))
             print(
                 f"  {name} n={n}: {ms:.6f} ms a launch ({call_ms:.6f} ms a "
@@ -1106,9 +1167,9 @@ def main() -> int:
                 f"3.35 TB/s = {bound['bytes_bound_ms']:.6f} ms); chain floor "
                 f"{bound['chain_floor_ms']:.6f} ms (one row's dependent "
                 f"chain, 4 cycles an instruction); the {bound['binds']} "
-                f"binds: "
-                f"{100 * max(bound['bound_ms'], bound['chain_floor_ms']) / ms:.2f}"
-                "% of it"
+                f"binds: {100 * floor / ms:.2f}% of it; rung 3 launched it "
+                f"{launches} times at n={n}: launches x gap "
+                f"{launches * (ms - floor):.6f} ms"
                 + (f"; plain {plain[name]:.3f} ms" if plain else "")
                 + "; library_ms null (no PyTorch call verifies Ed25519)"
             )

@@ -1,6 +1,6 @@
 // Batched Ed25519 verification for Hopper (sm_90a): point decompression,
-// one thread per point, and the 4-bit windowed Shamir ladder, four lanes
-// (a quad) per signature.
+// a group of kDecGroup lanes per point, and the 4-bit windowed Shamir
+// ladder, four lanes (a quad) per signature.
 //
 // Replaces the Pallas TPU kernels launched by
 // mirbft_tpu/ops/ed25519_pallas.py::_verify_device:
@@ -33,10 +33,13 @@
 //     19): each step leaves its limb in [-2^(w-1), 2^(w-1)).  From columns
 //     under 2^61.2 the carries are under 2^36.2, so the last two steps add
 //     at most 2^14.5 to limb 1 and 2^10.3 to limb 5: the result is carried.
-//   - decompression's add/sub carry with one int32 rounding pass
-//     (|limb| <= 2^(w-1) + 76, carried); the ladder's adds and subs take no
-//     carry at all, and each product's operands are at most the k-term
-//     sums allowed above (the ladder functions below name k for each).
+//   - decompression splits each element over its lanes and carries every
+//     product and sum with a carry of its own (its section below states
+//     the bounds); the comparisons' differences carry with one int32
+//     rounding pass (|limb| <= 2^(w-1) + 76, carried); the ladder's adds
+//     and subs take no carry at all, and each product's operands are at
+//     most the k-term sums allowed above (the ladder functions below name
+//     k for each).
 //   - canonical: two wrapping floor chains put the value in [0, 2^255); a
 //     quotient chain finds whether it is >= p; a last chain subtracts p.
 //
@@ -78,7 +81,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // the decompress kernel: one point a thread
 constexpr int kLadderThreads = 128;  // 32 quads: 32 signatures a block
 // Rows of the constants table (ops/ed25519.py::constants()).
 constexpr int kConstD = 0;
@@ -127,15 +129,7 @@ __device__ __forceinline__ void carry_pass32(int32_t h[10]) {
   for (int i = 1; i < 10; ++i) h[i] += c[i - 1];
 }
 
-// Carried sums and differences (decompression and the final comparison).
-__device__ __forceinline__ Fe fe_add(const Fe& f, const Fe& g) {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) r.v[i] = f.v[i] + g.v[i];
-  carry_pass32(r.v);
-  return r;
-}
-
+// A carried difference (the comparisons).
 __device__ __forceinline__ Fe fe_sub(const Fe& f, const Fe& g) {
   Fe r;
 #pragma unroll
@@ -295,26 +289,220 @@ __device__ __forceinline__ Fe fe_frombytes(const uint32_t w[8]) {
   return r;
 }
 
-// z^((p-5)/8) = z^(2^252 - 3): ref10's chain of squarings and 11 products.
-__device__ Fe sqn(Fe x, int n) {
+// -- decompression: a group of kDecGroup lanes a point -----------------------
+//
+// What bounds it.  2n points are far from filling the card's INT32 pipes
+// (about 39,000 instructions a point), and each point is one serial chain
+// of 272 products and squarings: pow22523 cannot be split, and
+// Montgomery's trick does not apply to a square root.  One thread a point
+// took about 930 cycles a link (a product's 100 or 55 IMAD.WIDE and
+// ref10's carry, issued by a warp alone on its partition).  The design
+// shortens every link by spreading each product over a group of lanes; a
+// 512-signature burst's 1024 points are 171 warps, 43 blocks of 128, still
+// one warp a partition, so a link's latency, not issue, sets the time up
+// to about 4,000 points.
+//
+// A field element of one point is split over its group by pairs of limbs:
+// pair P is limbs (2P, 2P + 1), of widths 26 and 25.  Lane l of a group
+// owns pair l mod 5 ("pair" below): a group of 5 lanes owns one pair a
+// lane, and a warp holds 6 groups, its last two lanes repeating lanes 0-1
+// of the sixth (lanes that repeat another's work are never read by a
+// shuffle).  A product computes this lane's two columns:
+//   column 2P' = sum over f's pairs P of f_2P g_2R + 2 f_2P+1 g_2R'+1 and
+//   column 2P'+1 = sum of f_2P g_2R+1 + f_2P+1 g_2R, with R = P' - P and
+//   R' = P' - P - 1 (mod 5),
+// so every column of a lane takes the same terms in the same order, and the
+// factor 2 (two odd limbs) falls on f's odd limbs in the even column alone.
+// f comes to every lane whole (a broadcast shuffle a limb); g's pair
+// (P' - q) mod 5 comes from its owner (a shuffle from a lane that depends on
+// the lane, of a register that does not), times 19 when q > P' (its terms
+// pass 2^255).  The owner knows which of its readers that is (pair + q >=
+// 5) and sends 19 g there: the factors come from a per-lane table
+// (DecLane), so no lane branches.  The carry fits the split: each lane
+// rounds its low column, adds the carry into its high column and rounds
+// that; the high column's carry goes to the owner of the next pair (pair
+// 4's, times 19, to pair 0) by one hop of two shuffles, and the low column
+// rounds once more into the high one.  The bounds
+// (tests/test_torch_ed25519.py::test_split_carry_bounds_hold checks them by
+// interval arithmetic):
+//   - operands with |limb i| < 2^w (a carried element or y's raw limbs): f's
+//     doubled odd limbs are under 2^26 and 19 g under 2^30.3, so both fit
+//     int32; a column is 10 terms of at most 2^26 * 19 * 2^26, under 2^59.6,
+//     so int64 holds it;
+//   - the first round leaves the low limb in [-2^25, 2^25) and hands on a
+//     carry under 2^34.6; 19 times it, added to the next low limb, rounds
+//     to a carry under 2^13 into the high limb: the result has |lo| <= 2^25
+//     and |hi| <= 2^24 + 2^13, carried (U_w above);
+//   - sums and differences take the same carry (from int64 columns of two
+//     carried elements), and are carried.
+// pow22523 keeps ref10's chain (11 products, 251 squarings).  The tail
+// (the comparisons, sqrt(-1), canonical form, parity) runs in every lane on
+// the gathered ten limbs, with the helpers above; the group's first lane
+// stores.
+
+// Lanes a point: one a pair of limbs.  On an H100 a group of 8 (three
+// lanes idle) was no faster at 512 and 1024 signatures and a quarter
+// slower at 4096, where 30 of a warp's 32 lanes at work, not 20, leave
+// fewer warps to a partition; a group of 4 was slower at every n (PERF.md).
+constexpr int kDecGroup = 5;
+constexpr int kDecThreads = 128;
+constexpr int kDecGroupsPerWarp = 32 / kDecGroup;
+
+// The grid of a launch over rows points.
+int decompress_grid(int rows) {
+  const long long warps = (rows + kDecGroupsPerWarp - 1) / kDecGroupsPerWarp;
+  return static_cast<int>((32 * warps + kDecThreads - 1) / kDecThreads);
+}
+
+// This lane's pair of limbs of an element.
+struct Sp {
+  int32_t lo, hi;
+};
+
+// This lane's place: its group in the warp, the group's first lane (base)
+// and the pair it owns.  For q = 0..4, src[q] is the lane that owns g's
+// pair (pair - q) mod 5, and send19[q] whether this lane's pair, read at
+// step q, passes 2^255 for its reader (pair + q >= 5).  carry19 is 19 for
+// pair 0, whose carry comes from limb 9, else 1.
+struct DecLane {
+  int group, base, pair;
+  int src[5];
+  bool send19[5];
+  int32_t carry19;
+};
+
+__device__ __forceinline__ DecLane dec_lane(int warp_lane) {
+  DecLane d;
+  d.group = min(warp_lane / kDecGroup, kDecGroupsPerWarp - 1);
+  d.base = d.group * kDecGroup;
+  d.pair = (warp_lane - d.base) % 5;
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    d.src[q] = d.base + (d.pair - q + 5) % 5;
+    d.send19[q] = d.pair + q >= 5;
+  }
+  d.carry19 = d.pair == 0 ? 19 : 1;
+  return d;
+}
+
+__device__ __forceinline__ int32_t grp_shfl(int32_t v, int src) {
+  return __shfl_sync(0xffffffffu, v, src);
+}
+
+__device__ __forceinline__ int64_t grp_shfl64(int64_t v, int src) {
+  const int32_t lo = grp_shfl(static_cast<int32_t>(v), src);
+  const int32_t hi = grp_shfl(static_cast<int32_t>(v >> 32), src);
+  return static_cast<int64_t>(static_cast<uint64_t>(static_cast<uint32_t>(hi)) << 32 |
+                              static_cast<uint32_t>(lo));
+}
+
+// All ten limbs of f, in every lane of the group.
+__device__ __forceinline__ Fe sp_gather(const Sp& f, const DecLane& d) {
+  Fe r;
+#pragma unroll
+  for (int p = 0; p < 5; ++p) {
+    r.v[2 * p] = grp_shfl(f.lo, d.base + p);
+    r.v[2 * p + 1] = grp_shfl(f.hi, d.base + p);
+  }
+  return r;
+}
+
+// This lane's share of a whole element (selects, not an indexed register).
+__device__ __forceinline__ Sp sp_split(const Fe& f, int pair) {
+  Sp r{f.v[0], f.v[1]};
+#pragma unroll
+  for (int p = 1; p < 5; ++p) {
+    r.lo = pair == p ? f.v[2 * p] : r.lo;
+    r.hi = pair == p ? f.v[2 * p + 1] : r.hi;
+  }
+  return r;
+}
+
+__device__ __forceinline__ Sp sp_load(const int32_t* __restrict__ p,
+                                      const DecLane& d) {
+  return Sp{__ldg(p + 2 * d.pair), __ldg(p + 2 * d.pair + 1)};
+}
+
+// Columns (lo, hi) of this lane's pair -> carried: the low one into
+// [-2^25, 2^25), its carry into the high one, that into [-2^24, 2^24) with
+// its carry to the next pair's owner; the carry from the pair below (times
+// 19 into pair 0) into the low one, rounded once more into the high one.
+__device__ __forceinline__ Sp sp_carry(int64_t lo, int64_t hi,
+                                       const DecLane& d) {
+  const int64_t c0 = (lo + (int64_t{1} << 25)) >> 26;
+  lo -= c0 * (int64_t{1} << 26);
+  hi += c0;
+  const int64_t c1 = (hi + (int64_t{1} << 24)) >> 25;
+  hi -= c1 * (int64_t{1} << 25);
+  lo += grp_shfl64(c1, d.src[1]) * d.carry19;  // from pair (pair - 1) mod 5
+  const int64_t c = (lo + (int64_t{1} << 25)) >> 26;
+  return Sp{static_cast<int32_t>(lo - c * (int64_t{1} << 26)),
+            static_cast<int32_t>(hi + c)};
+}
+
+__device__ __forceinline__ Sp sp_add(const Sp& f, const Sp& g,
+                                     const DecLane& d) {
+  return sp_carry(int64_t{f.lo} + g.lo, int64_t{f.hi} + g.hi, d);
+}
+
+__device__ __forceinline__ Sp sp_sub(const Sp& f, const Sp& g,
+                                     const DecLane& d) {
+  return sp_carry(int64_t{f.lo} - g.lo, int64_t{f.hi} - g.hi, d);
+}
+
+// f g, with f's ten limbs fl in every lane.
+__device__ __forceinline__ Sp sp_product(const Fe& fl, const Sp& g,
+                                         const DecLane& d) {
+  const int32_t g19lo = 19 * g.lo, g19hi = 19 * g.hi;
+  int32_t rl[5], rh[5];  // g's pair (pair - q) mod 5, times its factor
+#pragma unroll
+  for (int q = 0; q < 5; ++q) {
+    rl[q] = grp_shfl(d.send19[q] ? g19lo : g.lo, d.src[q]);
+    rh[q] = grp_shfl(d.send19[q] ? g19hi : g.hi, d.src[q]);
+  }
+  const int32_t rh5 = g19hi;  // pair (pair - 5) mod 5 = pair: it wraps
+  // Two accumulators a column: even limbs of f, odd limbs of f.
+  int64_t e0 = 0, o0 = 0, e1 = 0, o1 = 0;
+#pragma unroll
+  for (int p = 0; p < 5; ++p) {
+    const int32_t fe = fl.v[2 * p], fo = fl.v[2 * p + 1];
+    e0 += static_cast<int64_t>(fe) * rl[p];
+    o0 += static_cast<int64_t>(2 * fo) * (p < 4 ? rh[p + 1] : rh5);
+    e1 += static_cast<int64_t>(fe) * rh[p];
+    o1 += static_cast<int64_t>(fo) * rl[p];
+  }
+  return sp_carry(e0 + o0, e1 + o1, d);
+}
+
+__device__ __forceinline__ Sp sp_mul(const Sp& f, const Sp& g,
+                                     const DecLane& d) {
+  return sp_product(sp_gather(f, d), g, d);
+}
+
+__device__ __forceinline__ Sp sp_sq(const Sp& f, const DecLane& d) {
+  return sp_product(sp_gather(f, d), f, d);
+}
+
+__device__ Sp sp_sqn(Sp x, int n, const DecLane& d) {
 #pragma unroll 1
-  for (int i = 0; i < n; ++i) x = fe_sq(x);
+  for (int i = 0; i < n; ++i) x = sp_sq(x, d);
   return x;
 }
 
-__device__ Fe pow22523(const Fe& z) {
-  Fe t0 = fe_sq(z);
-  Fe t1 = fe_mul(z, sqn(t0, 2));
-  t0 = fe_mul(t0, t1);
-  t0 = fe_mul(t1, fe_sq(t0));   // 2^5 - 1
-  t0 = fe_mul(sqn(t0, 5), t0);  // 2^10 - 1
-  t1 = fe_mul(sqn(t0, 10), t0);  // 2^20 - 1
-  t1 = fe_mul(sqn(t1, 20), t1);  // 2^40 - 1
-  t0 = fe_mul(sqn(t1, 10), t0);  // 2^50 - 1
-  t1 = fe_mul(sqn(t0, 50), t0);  // 2^100 - 1
-  t1 = fe_mul(sqn(t1, 100), t1);  // 2^200 - 1
-  t0 = fe_mul(sqn(t1, 50), t0);  // 2^250 - 1
-  return fe_mul(sqn(t0, 2), z);  // 2^252 - 3
+// z^((p-5)/8) = z^(2^252 - 3): ref10's chain of squarings and 11 products.
+__device__ Sp sp_pow22523(const Sp& z, const DecLane& d) {
+  Sp t0 = sp_sq(z, d);
+  Sp t1 = sp_mul(z, sp_sqn(t0, 2, d), d);
+  t0 = sp_mul(t0, t1, d);
+  t0 = sp_mul(t1, sp_sq(t0, d), d);        // 2^5 - 1
+  t0 = sp_mul(sp_sqn(t0, 5, d), t0, d);    // 2^10 - 1
+  t1 = sp_mul(sp_sqn(t0, 10, d), t0, d);   // 2^20 - 1
+  t1 = sp_mul(sp_sqn(t1, 20, d), t1, d);   // 2^40 - 1
+  t0 = sp_mul(sp_sqn(t1, 10, d), t0, d);   // 2^50 - 1
+  t1 = sp_mul(sp_sqn(t0, 50, d), t0, d);   // 2^100 - 1
+  t1 = sp_mul(sp_sqn(t1, 100, d), t1, d);  // 2^200 - 1
+  t0 = sp_mul(sp_sqn(t1, 50, d), t0, d);   // 2^250 - 1
+  return sp_mul(sp_sqn(t0, 2, d), z, d);   // 2^252 - 3
 }
 
 __device__ __forceinline__ void store_fe(int32_t* p, const Fe& f) {
@@ -324,31 +512,43 @@ __device__ __forceinline__ void store_fe(int32_t* p, const Fe& f) {
 
 // enc: (rows, 8) little-endian words of 32-byte encodings.  xy: (rows, 2,
 // 10) canonical affine (x, y).  ok: (rows,) 1 where the encoding is a point.
-__global__ void __launch_bounds__(kThreads)
+// kDecGroup lanes a row, kDecGroupsPerWarp rows a warp; the group of a row
+// past rows repeats row rows - 1 (every lane of the warp takes part in
+// every shuffle) and writes nothing.
+__global__ void __launch_bounds__(kDecThreads)
 mirbft_ed25519_decompress_kernel(const uint4* __restrict__ enc,
                                  int32_t* __restrict__ xy,
                                  int32_t* __restrict__ ok, int rows,
                                  const int32_t* __restrict__ consts) {
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  if (row >= rows) return;  // the ragged edge of the grid
+  const int warp_lane = threadIdx.x & 31;
+  const DecLane d = dec_lane(warp_lane);
+  const int group =
+      (blockIdx.x * kDecThreads + threadIdx.x) / 32 * kDecGroupsPerWarp + d.group;
+  const int row = group < rows ? group : rows - 1;
   const uint4 lo = enc[2 * static_cast<size_t>(row)];
   const uint4 hi = enc[2 * static_cast<size_t>(row) + 1];
   const uint32_t w[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-  const Fe y = fe_frombytes(w);
+  const Fe y_all = fe_frombytes(w);
   const int32_t sign = static_cast<int32_t>(w[7] >> 31);
 
-  const Fe one = fe_one();
-  const Fe yy = fe_sq(y);
-  const Fe u = fe_sub(yy, one);  // y^2 - 1
-  const Fe v = fe_add(fe_mul(fe_load(consts + 10 * kConstD), yy), one);
-  const Fe v3 = fe_mul(fe_sq(v), v);
-  const Fe v7 = fe_mul(fe_sq(v3), v);
-  Fe x = fe_mul(fe_mul(u, v3), pow22523(fe_mul(u, v7)));  // root of u/v?
-  const Fe vxx = fe_mul(v, fe_sq(x));
-  const bool is_root = fe_eq(vxx, u);
-  const bool is_neg_root = fe_eq(vxx, fe_sub(fe_zero(), u));
-  const Fe x_fixed = fe_mul(x, fe_load(consts + 10 * kConstSqrtM1));
-  x = fe_canonical(fe_select(is_neg_root, x_fixed, x));
+  const Sp y = sp_split(y_all, d.pair);
+  const Sp one{d.pair == 0 ? 1 : 0, 0};
+  const Sp yy = sp_sq(y, d);
+  const Sp u = sp_sub(yy, one, d);  // y^2 - 1
+  const Sp v = sp_add(sp_mul(sp_load(consts + 10 * kConstD, d), yy, d), one, d);
+  const Sp v3 = sp_mul(sp_sq(v, d), v, d);
+  const Sp v7 = sp_mul(sp_sq(v3, d), v, d);
+  const Sp xs = sp_mul(sp_mul(u, v3, d), sp_pow22523(sp_mul(u, v7, d), d), d);
+  const Sp vxx = sp_mul(v, sp_sq(xs, d), d);
+  const Sp xf = sp_mul(xs, sp_load(consts + 10 * kConstSqrtM1, d), d);
+
+  // The tail, the same in every lane of the group.
+  const Fe u_all = sp_gather(u, d);
+  const Fe vxx_all = sp_gather(vxx, d);
+  const bool is_root = fe_eq(vxx_all, u_all);
+  const bool is_neg_root = fe_eq(vxx_all, fe_sub(fe_zero(), u_all));
+  const Fe x_fixed = sp_gather(xf, d);
+  Fe x = fe_canonical(fe_select(is_neg_root, x_fixed, sp_gather(xs, d)));
   int32_t any = 0;
 #pragma unroll
   for (int i = 0; i < 10; ++i) any |= x.v[i];
@@ -357,10 +557,12 @@ mirbft_ed25519_decompress_kernel(const uint4* __restrict__ enc,
   const Fe x_neg = fe_canonical(fe_sub(fe_zero(), x));
   x = fe_select((x.v[0] & 1) != sign, x_neg, x);
 
-  int32_t* out = xy + 20 * static_cast<size_t>(row);
-  store_fe(out, x);
-  store_fe(out + 10, fe_canonical(y));
-  ok[row] = good ? 1 : 0;
+  if (warp_lane == d.base && group < rows) {
+    int32_t* out = xy + 20 * static_cast<size_t>(row);
+    store_fe(out, x);
+    store_fe(out + 10, fe_canonical(y_all));
+    ok[row] = good ? 1 : 0;
+  }
 }
 
 // -- the quad ladder ----------------------------------------------------------
@@ -544,7 +746,7 @@ extern "C" int mirbft_ed25519_decompress(const void* enc, void* xy, void* ok,
                                          int rows, const void* consts,
                                          void* stream) {
   if (rows <= 0) return 0;
-  mirbft_ed25519_decompress_kernel<<<grid_for(rows, kThreads), kThreads, 0,
+  mirbft_ed25519_decompress_kernel<<<decompress_grid(rows), kDecThreads, 0,
                                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(enc), static_cast<int32_t*>(xy),
       static_cast<int32_t*>(ok), rows, static_cast<const int32_t*>(consts));

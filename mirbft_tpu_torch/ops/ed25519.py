@@ -26,15 +26,18 @@ Hopper has one.  The plain versions here carry every value (every value a
   rounding pass brings it back under 2^(w-1) + 38;
 - ``_fe_canonical`` turns a reduced element into the unique limbs of its
   value in [0, p).
-The kernels carry less: a product with ref10's 12-step chain, the ladder's
-sums not at all (``csrc/ed25519.cu`` states the bounds that allow it), and
-the ladder runs four lanes a signature in the four-processor formulas.  So
-kernel and plain agree on what they return, exactly: canonical points and
-ok flags from ``decompress``, one verdict a row from ``ladder``.  That is
-the contract, not the limbs on the way.
+The kernels carry less: the ladder's products with ref10's 12-step chain
+and its sums not at all, decompression's products and sums with a carry
+of its own that fits its split over a group of lanes (``csrc/ed25519.cu``
+states the bounds that allow each); the ladder runs four lanes a signature
+in the four-processor formulas, decompression a group a point.  So kernel
+and plain agree on what they return, exactly: canonical points and ok
+flags from ``decompress``, one verdict a row from ``ladder``.  That is the
+contract, not the limbs on the way.
 
 ``decompress`` and ``ladder`` dispatch on the tensors' device: a CUDA tensor
-launches the kernel (counted in ``.launches``), a CPU tensor takes the plain
+launches the kernel (counted in ``.launches``, and by its rows in
+``.launches_by_rows``), a CPU tensor takes the plain
 version (``decompress_plain``, ``ladder_plain``: the kernels' formulas on
 int64 tensors, batched over rows), any other device raises.  A launch that
 fails raises; there is no other route.
@@ -42,6 +45,7 @@ fails raises; there is no other route.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 
@@ -103,11 +107,19 @@ INT_OPS = {
 #: terms split over three int64 accumulators (10 terms of a product: at
 #: most 4 dependent multiply-adds; 6 of a squaring: 2), joined by one
 #: three-input int64 add (2 dependent instructions, low and high halves),
-#: then the longest path through ref10's carry chain (limbs 4, 5, 6, 7, 8,
-#: 9, 0: 7 steps), each an int64 add of the rounding constant (2), a shift
-#: (1) and an int64 add into the next limb (2).
+#: then a parallel carry of two rounds, every limb at once: the first adds
+#: its rounding constant (an int64 add, 2), shifts (1) and adds its carry
+#: into the next limb (2; limb 9's times 19 into limb 0 is one wide
+#: multiply-add and the high half's, 2 as well); the second, whose carries
+#: fit 32 bits, adds (2), shifts (1) and adds 32 bits (1).  Two rounds
+#: bring columns under 2^61.2, the widest either kernel makes, back within
+#: the carried bound (tests/test_torch_ed25519.py::
+#: test_split_carry_bounds_hold).  The kernels' own carries are longer:
+#: ref10's 12-step chain (the ladder) is 35 on its longest path (limbs 4,
+#: 5, ..., 9, 0), decompression's split carry 16 and a hop of shuffles
+#: (csrc/ed25519.cu), so the floor is the function's, not a kernel's.
 DEPENDENT_ISSUE_CYCLES = 4
-CARRY_CHAIN = 7 * 5
+CARRY_CHAIN = (2 + 1 + 2) + (2 + 1 + 1)
 MUL_CHAIN = 4 + 2 + CARRY_CHAIN
 SQR_CHAIN = 2 + 2 + CARRY_CHAIN
 #: A ladder stage: a shuffle, a select and an add, then one product or
@@ -550,10 +562,12 @@ def decompress(enc: torch.Tensor):
         )
     _raise_on(lib, err, "decompress")
     decompress.launches += 1
+    decompress.launches_by_rows[rows] += 1
     return xy, ok
 
 
 decompress.launches = 0
+decompress.launches_by_rows = collections.Counter()
 
 
 def ladder(xy, ok, s_words, k_words):
@@ -586,10 +600,12 @@ def ladder(xy, ok, s_words, k_words):
         )
     _raise_on(lib, err, "ladder")
     ladder.launches += 1
+    ladder.launches_by_rows[n] += 1
     return out
 
 
 ladder.launches = 0
+ladder.launches_by_rows = collections.Counter()
 
 
 # -- host marshalling and the verify pipeline ---------------------------------

@@ -14,17 +14,21 @@ in for them.  Dynamic shared memory is a buffer a block.  The
 ``extern "C"`` launchers are cut off and a driver launches the kernels
 itself.
 
-    python3 tests/rehearse_cuda.py [ladder|sha256] [--rows N]
+    python3 tests/rehearse_cuda.py [ladder|sha256|decompress] [--rows N]
 
 ``ladder`` runs the quad ladder on rows it builds with the host oracle
 (valid signatures, corrupted ones, the identity and a point of order 8 as
 keys) and checks every verdict against the oracle; ``sha256`` runs both
-digest bodies on ragged batches at several buckets against hashlib.  The
-thread counts of the kernels are cut to keep the host threads few (the
-ladder's block to 2 quads, the one-thread body's block to 16 rows, the
-specialised body's warps to 8 lanes), so the rehearsal runs the card's
-code at a smaller block than the card does.  Exit status 0 when every
-check passes.  ``tests/test_torch_rehearse.py`` runs it under pytest.
+digest bodies on ragged batches at several buckets against hashlib;
+``decompress`` runs point decompression, a group of lanes a point, on the
+decompression corpus (tests/ed25519_corpus.py) and on ragged row counts,
+and checks (x, y, ok) against the oracle and, bit for bit, against the
+plain version, and that no group past the rows writes.  The thread counts of the kernels are cut to keep the host
+threads few (the ladder's block to 2 quads, the decompress block to one
+warp, the one-thread body's block to 16 rows, the specialised body's warps
+to 8 lanes), so the rehearsal runs the card's code at a smaller block than
+the card does.  Exit status 0 when every check passes.
+``tests/test_torch_rehearse.py`` runs it under pytest.
 """
 
 from __future__ import annotations
@@ -73,6 +77,7 @@ inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return uint4{a, b, c, d};
 }
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
+using std::min;
 typedef int cudaError_t;
 
 // A spinning barrier of a fixed number of threads.
@@ -236,6 +241,29 @@ int main(int argc, char** argv) {
 }
 """
 
+DECOMPRESS_DRIVER = r"""
+// argv: input file (rows, 3 ints of padding, the (rows, 8) encoding words,
+// consts), output file: xy and ok for rows + 1 rows, each set to -1 first,
+// so a write past the rows shows.
+int main(int argc, char** argv) {
+  g_warp = kDecThreads;
+  std::vector<char> in = read_all(argv[1]);
+  const int32_t* p = reinterpret_cast<const int32_t*>(in.data());
+  const int rows = p[0];
+  std::vector<uint4> enc(2 * rows);
+  std::memcpy(enc.data(), p + 4, 32 * static_cast<size_t>(rows));
+  const int32_t* consts = p + 4 + 8 * rows;
+  std::vector<int32_t> xy(20 * (rows + 1), -1), ok(rows + 1, -1);
+  launch(decompress_grid(rows), kDecThreads, 0, [&] {
+    mirbft_ed25519_decompress_kernel(enc.data(), xy.data(), ok.data(), rows,
+                                     consts);
+  });
+  xy.insert(xy.end(), ok.begin(), ok.end());
+  write_all(argv[2], xy.data(), xy.size() * 4);
+  return 0;
+}
+"""
+
 SHA256_DRIVER = r"""
 // argv: input file (batch, max_blocks, blocks, n_blocks), output files of
 // the one-thread body and the warp-specialised body.
@@ -260,15 +288,27 @@ int main(int argc, char** argv) {
 }
 """
 
-# Host thread counts: the ladder's block cut to 2 quads, the digest
-# kernel's one-thread body to 16 rows a block and its warps to 8 lanes.
+DEC_THREADS = 32  # decompression's block in the rehearsal: one warp
+# Host thread counts: the ladder's block cut to 2 quads, decompression's
+# to one warp, the digest kernel's one-thread body to 16 rows a block and
+# its warps to 8 lanes.
 CUTS = {
-    "ed25519": {r"constexpr int kLadderThreads = \d+;": "constexpr int kLadderThreads = 8;"},
+    "ed25519": {
+        r"constexpr int kLadderThreads = \d+;": "constexpr int kLadderThreads = 8;",
+        r"constexpr int kDecThreads = \d+;":
+            f"constexpr int kDecThreads = {DEC_THREADS};",
+    },
     "sha256": {
         r"constexpr int kThreads = \d+;": "constexpr int kThreads = 16;",
         r"constexpr int kWsLanes = \d+;": "constexpr int kWsLanes = 8;",
     },
 }
+
+
+# Ragged decompression launches: a rehearsal block is one warp of six
+# groups of five lanes, so 1 and 3 rows leave groups empty, 7 is one past a
+# block and 13 one past two.
+DEC_RAGGED_ROWS = (1, 3, 7, 13)
 
 
 # The span of PTX helpers a source defines, cut for the stub's host
@@ -325,6 +365,7 @@ def ladder_rows(n: int, seed: int) -> tuple:
     """n (pk, msg, sig) rows: valid, corrupted R, corrupted S and wrong
     message in turn, then the identity and a point of order 8 as keys with
     a signature the identity satisfies."""
+    from ed25519_corpus import order8_encoding
     from mirbft_tpu_torch.crypto import ed25519_host as host
 
     rng = random.Random(seed)
@@ -333,16 +374,8 @@ def ladder_rows(n: int, seed: int) -> tuple:
     r_sig = host.compress(
         host.scalar_mult(r, host.to_extended(host.BASE))
     ) + r.to_bytes(32, "little")
-    order8 = None
-    for y in range(2, 100):
-        point = host.decompress(int.to_bytes(y, 32, "little"))
-        if point is None:
-            continue
-        torsion = host.scalar_mult(host.L, point)
-        if not host.point_equal(host.scalar_mult(4, torsion), host.IDENTITY):
-            order8 = host.compress(torsion)
-            break
-    edge = [(int.to_bytes(1, 32, "little"), b"m", r_sig), (order8, b"m", r_sig)]
+    edge = [(int.to_bytes(1, 32, "little"), b"m", r_sig),
+            (order8_encoding(), b"m", r_sig)]
     for i in range(max(0, n - len(edge))):
         seed_bytes = rng.randbytes(32)
         msg = rng.randbytes(20)
@@ -383,6 +416,58 @@ def rehearse_ladder(n: int, workdir: Path) -> int:
     return 1 if bad else 0
 
 
+def rehearse_decompress(encodings: list, workdir: Path) -> int:
+    """The decompress kernel on the host on ``encodings`` (32-byte strings,
+    y < p): (x, y, ok) against the oracle and, bit for bit, against
+    ``decompress_plain``; nothing written past the rows."""
+    import torch
+
+    from mirbft_tpu_torch.crypto import ed25519_host as host
+    from mirbft_tpu_torch.ops import ed25519
+
+    binary = compile_driver("ed25519", DECOMPRESS_DRIVER, workdir)
+    rows = len(encodings)
+    words = ed25519._words(encodings)
+    blob = (np.array([rows, 0, 0, 0], dtype=np.int32).tobytes()
+            + words.tobytes() + ed25519.constants().tobytes())
+    (workdir / "dec.in").write_bytes(blob)
+    subprocess.run([str(binary), str(workdir / "dec.in"),
+                    str(workdir / "dec.out")], check=True)
+    out = np.frombuffer((workdir / "dec.out").read_bytes(), dtype=np.int32)
+    xy = out[: 20 * (rows + 1)].reshape(rows + 1, 2, 10)
+    ok = out[20 * (rows + 1):]
+    plain_xy, plain_ok = ed25519.decompress_plain(torch.from_numpy(words))
+    bad = []
+    for i, encoded in enumerate(encodings):
+        point = host.decompress(encoded)
+        want = None if point is None else (point[0], point[1])
+        got = (None if ok[i] != 1 else
+               tuple(ed25519.limbs_to_int(xy[i, c]) for c in (0, 1)))
+        if (ok[i] not in (0, 1) or got != want
+                or not np.array_equal(xy[i], plain_xy[i].numpy())
+                or ok[i] != int(plain_ok[i])):
+            bad.append(i)
+    untouched = bool((xy[rows] == -1).all() and ok[rows] == -1)
+    print(f"decompress, {rows} rows on the host: "
+          f"{int((ok[:rows] == 1).sum())} points decode; "
+          + ("(x, y, ok) == oracle == plain" if not bad else f"rows {bad} differ")
+          + ("" if untouched else "; a group past the rows wrote"))
+    return 1 if bad or not untouched else 0
+
+
+def decompress_rows(rows: int, seed: int) -> list:
+    """rows encodings: the corpus's first ones, then points of random keys
+    (either sign) when it runs out."""
+    from ed25519_corpus import decompression_corpus
+    from mirbft_tpu_torch.crypto import ed25519_host as host
+
+    rng = random.Random(seed)
+    encs = decompression_corpus()[:rows]
+    while len(encs) < rows:
+        encs.append(host.public_key(rng.randbytes(32)))
+    return encs
+
+
 def rehearse_sha256(workdir: Path) -> int:
     from mirbft_tpu_torch.ops.batching import pack_preimages
 
@@ -420,7 +505,7 @@ def rehearse_sha256(workdir: Path) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("what", nargs="*", default=["ladder", "sha256"],
-                        choices=["ladder", "sha256"])
+                        choices=["ladder", "sha256", "decompress"])
     parser.add_argument("--rows", type=int, default=6,
                         help="ladder rows (default 6: two ragged blocks)")
     args = parser.parse_args(argv)
@@ -431,6 +516,13 @@ def main(argv=None) -> int:
             status |= rehearse_ladder(args.rows, workdir)
         if "sha256" in args.what:
             status |= rehearse_sha256(workdir)
+        if "decompress" in args.what:
+            from ed25519_corpus import decompression_corpus
+
+            status |= rehearse_decompress(decompression_corpus(), workdir)
+            for rows in DEC_RAGGED_ROWS:
+                status |= rehearse_decompress(decompress_rows(rows, rows),
+                                              workdir)
     return status
 
 

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: SHA-256 bit-exact with its plain version
 and hashlib, launched and counted on the engine's commit path; the two
-Ed25519 kernels equal to their plain versions and the RFC 8032 oracle, and
+Ed25519 kernels equal to their plain versions and the RFC 8032 oracle
+(decompression also on the corpus that takes each of its branches), and
 the signed engine run on them equal to the host-oracle run.
 
 Marked ``gpu``: each test skips, with its reason, where no CUDA card is
@@ -15,6 +16,7 @@ import random
 import pytest
 import torch
 
+from ed25519_corpus import decompression_corpus
 from mirbft_tpu_torch import pb
 from mirbft_tpu_torch.crypto import ed25519_host
 from mirbft_tpu_torch.ops import ed25519
@@ -186,6 +188,30 @@ def test_ed25519_kernels_match_plain_and_oracle(card, n):
     if n >= 4:
         assert any(expect) and not all(expect)  # forgeries among them
     assert ed25519.verify_batch(pks, msgs, sigs, device=card).tolist() == expect
+
+
+# The decompression corpus (every branch of RFC 8032 5.1.3), repeated to m
+# rows: 1, 3 and 7 leave a group's warp ragged, 8 fills one, 1024 and 8192
+# are the main path's 512- and 4096-signature launches, 1025 one past.
+@pytest.mark.parametrize("m", [1, 3, 7, 8, 1024, 1025, 8192])
+def test_decompress_matches_plain_and_oracle_on_the_corpus(card, m):
+    corpus = decompression_corpus()
+    oracle = [ed25519_host.decompress(e) for e in corpus]
+    encodings = (corpus * (m // len(corpus) + 1))[:m]
+    enc = torch.from_numpy(ed25519._words(encodings)).to(card)
+    before = ed25519.decompress.launches
+    xy, ok = ed25519.decompress(enc)
+    torch.cuda.synchronize()
+    assert ed25519.decompress.launches == before + 1
+    plain_xy, plain_ok = ed25519.decompress_plain(enc)
+    assert torch.equal(xy, plain_xy) and torch.equal(ok, plain_ok)
+    xy, ok = xy.cpu(), ok.cpu().tolist()
+    for i in range(m):
+        point = oracle[i % len(corpus)]
+        assert ok[i] == (point is not None)
+        if point is not None:
+            assert ed25519.limbs_to_int(xy[i, 0]) == point[0]
+            assert ed25519.limbs_to_int(xy[i, 1]) == point[1]
 
 
 def test_signed_run_on_the_card_matches_the_host_run(card):

@@ -18,6 +18,7 @@ import torch
 from mirbft_tpu.crypto import ed25519_host as ref_host
 from mirbft_tpu.ops import ed25519 as jax_ed25519
 from mirbft_tpu.ops import ed25519_pallas as jax_pallas
+from ed25519_corpus import decompression_corpus, order8_encoding
 from mirbft_tpu_torch.crypto import ed25519_host as host
 from mirbft_tpu_torch.ops import ed25519 as port
 
@@ -211,33 +212,9 @@ def decompress_branch(y: int):
     return None
 
 
-def order8_point() -> bytes:
-    """The encoding of a point of order 8 (found from the torsion part of
-    small-y points)."""
-    for y in range(2, 100):
-        pt = host.decompress(encode(y, 0))
-        if pt is None:
-            continue
-        torsion = host.scalar_mult(L, pt)
-        if not host.point_equal(host.scalar_mult(4, torsion), host.IDENTITY):
-            return host.compress(torsion)
-    raise AssertionError("no point of order 8 found")
-
-
-def edge_encodings() -> list:
-    encs = [encode(y, s) for y in (0, 1, 2, 3, 7, 9, 10, P - 1) for s in (0, 1)]
-    encs.append(order8_point())
-    rng = random.Random(4)
-    for _ in range(24):
-        raw = bytearray(rng.randbytes(32))
-        raw[31] &= 0xBF  # y < 2^254 < p
-        encs.append(bytes(raw))
-    return encs
-
-
 def test_edge_corpus_covers_every_branch():
     branches = collections.Counter()
-    for e in edge_encodings():
+    for e in decompression_corpus():
         raw = int.from_bytes(e, "little")
         y, sign = raw & ((1 << 255) - 1), raw >> 255
         branch = decompress_branch(y)
@@ -253,7 +230,7 @@ def test_edge_corpus_covers_every_branch():
 
 
 def test_decompress_plain_matches_the_host_oracle():
-    encs = edge_encodings()
+    encs = decompression_corpus()
     xy, ok = port.decompress(torch.from_numpy(port._words(encs)))
     assert xy.dtype == ok.dtype == torch.int32
     for i, e in enumerate(encs):
@@ -299,7 +276,7 @@ def edge_signatures() -> tuple:
     rows = [
         (encode(1, 0), b"m", r_enc + s_r),  # A = identity: [S]B == R
         (encode(1, 1), b"m", r_enc + s_r),  # x = 0 with the sign bit set
-        (order8_point(), b"m", r_enc + s_r),  # A of order 8
+        (order8_encoding(), b"m", r_enc + s_r),  # A of order 8
         (encode(2, 0), b"m", r_enc + s_r),  # A has no square root
         (good_pk, b"m", encode(2, 0) + good_sig[32:]),  # R has no root
         (encode(P, 0), b"m", good_sig),  # y_A >= p: host reject
@@ -453,16 +430,17 @@ def test_ladder_products_per_row_in_the_new_formulas():
 def test_ladder_stage_count_and_chain_floor():
     """The quad ladder's product stages on one row's path, and the chain
     floor they give: each stage a product's or squaring's least chain
-    (three accumulators a column, ref10's carry path) plus a shuffle, a
-    select and an add, 4 cycles a dependent instruction."""
+    (three accumulators a column, a parallel carry of two rounds) plus a
+    shuffle, a select and an add, 4 cycles a dependent instruction."""
     assert port.LADDER_STAGES == 2 + 14 * 3 + 64 * (4 * 2 + 2 * 2) + 1 == 813
-    assert port.MUL_CHAIN == 4 + 2 + 35 == 41
-    assert port.SQR_CHAIN == 2 + 2 + 35 == 39
+    assert port.CARRY_CHAIN == (2 + 1 + 2) + (2 + 1 + 1) == 9
+    assert port.MUL_CHAIN == 4 + 2 + 9 == 15
+    assert port.SQR_CHAIN == 2 + 2 + 9 == 13
     assert port.LADDER_SQR_STAGES == 64 * 4
     assert port.chain_floor_cycles("ladder") == (
-        (813 - 256) * (41 + 3) + 256 * (39 + 3)
+        (813 - 256) * (15 + 3) + 256 * (13 + 3)
     ) * 4
-    assert port.chain_floor_cycles("decompress") == (17 * 41 + 255 * 39) * 4
+    assert port.chain_floor_cycles("decompress") == (17 * 15 + 255 * 13) * 4
     # Decompression's chain is all of its squarings and all of its
     # products but the two off the path (u v^3 and x sqrt(-1)).
     assert port.DECOMPRESS_CHAIN_SQR == port.DECOMPRESS_OPS["sqr"]
@@ -518,3 +496,96 @@ def test_ladder_carry_bounds_hold():
     ):
         out = chain(columns(f, g, square))
         assert all(h <= u for h, u in zip(out, carried)), out
+
+
+def split_columns(f, g, pair):
+    """Pair ``pair``'s two columns of f g as decompression's split product
+    forms them (csrc/ed25519.cu::sp_product): f's pair P with g's pair
+    (pair - P) mod 5, and its odd limb with g's pair (pair - P - 1) mod 5
+    in the even column, g times 19 where the pair index wraps, f's odd limb
+    doubled in the even column.  Returns the columns and the premultiplied
+    operands (exact on integers, bounds on magnitudes)."""
+    lo = hi = 0
+    operands = []
+    for p in range(5):
+        r, r1 = (pair - p) % 5, (pair - p - 1) % 5
+        w, w1 = (19 if p > pair else 1), (19 if p + 1 > pair else 1)
+        fe, fo = f[2 * p], f[2 * p + 1]
+        g_lo, g_hi, g1_hi = w * g[2 * r], w * g[2 * r + 1], w1 * g[2 * r1 + 1]
+        operands += [2 * fo, g_lo, g_hi, g1_hi]
+        lo += fe * g_lo + 2 * fo * g1_hi
+        hi += fe * g_hi + fo * g_lo
+    return (lo, hi), operands
+
+
+def test_split_product_forms_the_schoolbook_columns():
+    """Every pair's two columns, as the split product forms them, equal the
+    plain product's columns exactly (the same terms and factors)."""
+    rng = random.Random(6)
+    for _ in range(20):
+        f = [rng.randrange(-(1 << w), 1 << w) for w in port.WIDTHS]
+        g = [rng.randrange(-(1 << w), 1 << w) for w in port.WIDTHS]
+        want = (torch.tensor(f)[port._IDX] * torch.tensor(g) * port._COEF).sum(-1)
+        got = [c for pair in range(5) for c in split_columns(f, g, pair)[0]]
+        assert got == want.tolist()
+
+
+def test_split_carry_bounds_hold():
+    """The bounds csrc/ed25519.cu states for decompression's split
+    product, checked by interval arithmetic on magnitudes.  Operands with
+    |limb| < 2^w (y's raw limbs, the constants, and every carried element,
+    whose limbs are within U_w = 2^(w-1) (1 + 2^-9)): the doubled odd limbs
+    and 19 g fit int32, the columns int64.  The split carry (each pair
+    rounds its low column into its high one and that; the high column's
+    carry goes to the next pair's owner, pair 4's times 19 to pair 0; the
+    low column rounds once more into the high one) brings a product's or a
+    squaring's columns, and a sum's or difference's of two carried
+    elements, back within U_w, which every product accepts.  And the chain
+    floor's parallel carry (ops/ed25519.py::CARRY_CHAIN): two rounds of
+    every limb at once bring the ladder's widest columns (a 4-term times a
+    3-term product, as test_ladder_carry_bounds_hold forms them) back
+    within U_w."""
+    widths = port.WIDTHS
+    carried = [(1 << (w - 1)) * (1 + 2**-9) for w in widths]
+    raw = [float(1 << w) for w in widths]
+
+    def carry_size(value, w):  # |round(value / 2^w)| at most
+        return (value + (1 << (w - 1))) / (1 << w) + 1
+
+    def split_carry(cols):
+        out, carries = [], []
+        for pair in range(5):
+            lo, hi = cols[2 * pair], cols[2 * pair + 1]
+            hi += carry_size(lo, 26)
+            carries.append(carry_size(hi, 25))
+        for pair in range(5):
+            lo = (1 << 25) + carries[pair - 1] * (19 if pair == 0 else 1)
+            out += [1 << 25, (1 << 24) + carry_size(lo, 26)]
+        return out
+
+    for f, g in ((raw, raw), (carried, carried)):
+        cols = []
+        for pair in range(5):
+            pair_cols, operands = split_columns(f, g, pair)
+            assert max(operands) < 2**31  # int32 operands
+            cols += pair_cols
+        assert max(cols) < 2**63  # int64 columns
+        out = split_carry(cols)
+        assert all(h <= u for h, u in zip(out, carried)), out
+    sums = split_carry([2 * u for u in carried])
+    assert all(h <= u for h, u in zip(sums, carried)), sums
+
+    def parallel_round(cols):
+        carries = [carry_size(h, w) for h, w in zip(cols, widths)]
+        return [(1 << (w - 1)) + carries[k - 1] * (19 if k == 0 else 1)
+                for k, w in enumerate(widths)]
+
+    widest = [0.0] * 10
+    for i in range(10):
+        for j in range(10):
+            a = 4 * carried[i] * (2 if i % 2 and j % 2 else 1)
+            b = 3 * carried[j] * (19 if i + j >= 10 else 1)
+            widest[(i + j) % 10] += a * b
+    assert max(widest) < 2**61.2
+    out = parallel_round(parallel_round(widest))
+    assert all(h <= u for h, u in zip(out, carried)), out

@@ -1,14 +1,16 @@
 """The CUDA sources of the port rehearsed on the host with g++
 (tests/rehearse_cuda.py): the quad ladder's verdicts against the RFC 8032
-oracle, and both SHA-256 digest bodies against hashlib, with every
-shuffle, warp reduction and mbarrier of the card's code modelled by host
-threads.  The card itself runs them in tests/test_torch_chip.py."""
+oracle, decompression's points against the oracle and its plain version,
+and both SHA-256 digest bodies against hashlib, with every shuffle, warp
+reduction and mbarrier of the card's code modelled by host threads.  The
+card itself runs them in tests/test_torch_chip.py."""
 
 import shutil
 
 import pytest
 
 import rehearse_cuda
+from ed25519_corpus import decompression_corpus
 
 
 @pytest.fixture
@@ -20,6 +22,19 @@ def gxx():
 @pytest.mark.parametrize("rows", [1, 6])
 def test_quad_ladder_verdicts_equal_the_oracle_on_the_host(gxx, tmp_path, rows):
     assert rehearse_cuda.rehearse_ladder(rows, tmp_path) == 0
+
+
+@pytest.mark.parametrize(
+    "rows", [None, *rehearse_cuda.DEC_RAGGED_ROWS],
+    ids=lambda rows: "corpus" if rows is None else f"rows{rows}",
+)
+def test_decompress_equals_the_oracle_on_the_host(gxx, tmp_path, rows):
+    """The decompression corpus (each branch of RFC 8032 5.1.3), and ragged
+    launches: 1 and 3 rows (groups of the warp left empty), one past a
+    block and one past two."""
+    encodings = (decompression_corpus() if rows is None
+                 else rehearse_cuda.decompress_rows(rows, rows))
+    assert rehearse_cuda.rehearse_decompress(encodings, tmp_path) == 0
 
 
 def test_both_digest_bodies_equal_hashlib_on_the_host(gxx, tmp_path):
