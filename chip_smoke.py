@@ -8,10 +8,10 @@ CUDA toolkit:
 Phases (any failure raises and the script exits nonzero):
 
 1. print the card's name and power limit; build the SHA-256 (digest and
-   chain) and Ed25519 kernels from ``mirbft_tpu_torch/csrc/{sha256,ed25519}.cu``
-   (one ``nvcc`` each, started together) and print ptxas's register,
-   spill and shared-memory report (the ladder's dynamic shared memory
-   beside it);
+   chain), Ed25519 and ack-plane kernels from
+   ``mirbft_tpu_torch/csrc/{sha256,ed25519,ack_plane}.cu`` (one ``nvcc``
+   each, started together) and print ptxas's register, spill and
+   shared-memory report (the ladder's dynamic shared memory beside it);
 2. hold the SHA-256 kernel against its plain PyTorch version and hashlib,
    bit for bit: block-boundary lengths, rows with fewer blocks than the
    bucket, padding rows, the main path's two launch shapes, (8192, 1, 16)
@@ -89,7 +89,26 @@ Phases (any failure raises and the script exits nonzero):
     launch, replayed through the kernel at its shape, must equal the plain
     version and hashlib.  Each live shape is timed on its first kept
     launch's preimages beside its floors, with round 1's launches x gap.
-    Committed req/s and p95 commit latency per kind.
+    Committed req/s and p95 commit latency per kind;
+12. the device ack plane's two kernels (``csrc/ack_plane.cu``: the step's
+    three launches and the sweep) against their plain versions on the card,
+    bit for bit, on seeded batches of 1024, 4096 and 65536 rows at limbs
+    1, 2 and 3 (tests/ack_plane_cases.py: duplicates, several candidates
+    for one virgin slot, conflicting digests, committed, slow, foreign and
+    padding rows): every state array, the packed row outputs, the sweep's
+    totals and tick, and the adoption scratch empty after each step; then
+    the 16x64x25 anchor again with every node's ack plane on the card: 2320
+    events and phase 3's chain, every step counted;
+13. the ack-plane rung at the JAX package's size
+    (``mirbft_tpu_torch.bench.ackplane_run``: 100,000 clients, frames of
+    12,500 rows, sources 1-3, seed 0xACC5, 2048 audited slots), its
+    device plane on the card: 0 fallback rows, 0 dropped rows, 0
+    divergences, 0 parity mismatches, every client certified weak and
+    strong; host and device events/s, committed req/s, drain and sweep
+    seconds; then each kernel's CUDA-event time on the rung's own batches
+    (each source's first frame on the state it met) and the anchor's
+    launch shape, beside its byte bound (bytes / 3.35 TB/s) and its plain
+    version's time, and the launches of the rung's run.
 
 It then prints the kernels as one JSON line, the card's name and power
 limit, and, last, the result line the chip check reads.  Without a CUDA
@@ -151,6 +170,7 @@ ED25519_COMPARED = tuple(sorted(
 # group, the 512- and 4096-signature launches' points and one past.
 DECOMPRESS_CORPUS_ROWS = (1, 3, 7, 8, 1024, 1025, 8192)
 POOL_PROCESSES = 8
+ANCHOR_W_PAD = 128  # the anchor's ack plane: windows of 101 slots, padded
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 IV = (
@@ -285,7 +305,7 @@ class GcTimer:
 GC_TIMER = GcTimer()
 
 
-def run_engine(reqs_per_client, plane, ready_latency=None):
+def run_engine(reqs_per_client, plane, ready_latency=None, **recorder_kw):
     """Drive the engine to full commitment; returns events, wall s,
     (process, main thread, collector) CPU s, app chains, committed
     sequences and per-node commit counts.
@@ -307,7 +327,7 @@ def run_engine(reqs_per_client, plane, ready_latency=None):
     start = time.perf_counter()
     rec = BasicRecorder(
         NODES, CLIENTS, reqs_per_client, batch_size=BATCH_SIZE,
-        params=params, hash_plane=plane, record=False,
+        params=params, hash_plane=plane, record=False, **recorder_kw,
     )
     events = rec.drain_clients(max_steps=20_000_000)
     torch.cuda.synchronize()
@@ -467,6 +487,170 @@ def oracle_row(row):
 
 def encode_point(y: int, sign: int = 0) -> bytes:
     return int.to_bytes(y | (sign << 255), 32, "little")
+
+
+def ack_plane_cases():
+    """tests/ack_plane_cases.py: the seeded step and sweep cases, shared
+    with the tests and the host rehearsal."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import ack_plane_cases
+
+    return ack_plane_cases
+
+
+def compare_step(label, state0, batch, kw):
+    """The step's kernel and plain version on two clones of ``state0`` on
+    the card; raises unless the packed row outputs and all seven state
+    arrays are equal and the adoption scratch is empty afterwards.
+    Returns (row outputs, kernel state, plain state)."""
+    import torch
+
+    from mirbft_tpu_torch.ops import ack_plane
+
+    cases = ack_plane_cases()
+    kernel_state = [t.clone() for t in state0]
+    plain_state = [t.clone() for t in state0]
+    c_pad, w_pad, _limbs = state0[0].shape
+    first = ack_plane.new_first(c_pad * w_pad, "cuda")
+    out = ack_plane.ack_step(*kernel_state, batch, first=first, **kw)
+    want = ack_plane.ack_step_plain(*plain_state, batch, **kw)
+    check(torch.equal(out, want), f"{label}: row outputs differ")
+    for name, got, expected in zip(cases.STATE, kernel_state, plain_state):
+        check(torch.equal(got, expected), f"{label}: {name} differs")
+    check(bool((first == ack_plane.FIRST_NONE).all()),
+          f"{label}: the adoption scratch is not empty after the step")
+    return out, kernel_state, plain_state
+
+
+def compare_sweep(label, kernel_state, plain_state, kw) -> list:
+    """The sweep's kernel on ``kernel_state`` and plain version on
+    ``plain_state`` (equal states on the card); raises unless the totals
+    and the rewritten ticks are equal.  Returns the totals."""
+    import torch
+
+    from mirbft_tpu_torch.ops import ack_plane
+
+    totals = ack_plane.quorum_sweep(
+        *(kernel_state[i] for i in (0, 3, 4, 5, 6)), **kw
+    ).tolist()
+    plain_totals = ack_plane.quorum_sweep_plain(
+        *(plain_state[i] for i in (0, 3, 4, 5, 6)), **kw
+    ).tolist()
+    check(totals == plain_totals,
+          f"{label}: sweep totals {totals} != {plain_totals}")
+    check(torch.equal(kernel_state[6], plain_state[6]),
+          f"{label}: sweep tick differs")
+    return totals
+
+
+def compare_ack(rows: int, limbs: int) -> dict:
+    """One seeded case through both kernels and their plain versions on
+    the card (``compare_step``, then ``compare_sweep`` on the states it
+    left).  Returns the case's row classes."""
+    from mirbft_tpu_torch.ops import ack_plane
+
+    cases = ack_plane_cases()
+    case = cases.make_case(SEED + rows * 3 + limbs, rows, limbs)
+    kw = dict(weak_q=case["weak_q"], strong_q=case["strong_q"])
+    label = f"ack step ({rows} rows, {limbs} limbs)"
+    out, kernel_state, plain_state = compare_step(
+        label, cases.torch_state(case, "cuda"),
+        cases.torch_batch(case, "cuda"), kw,
+    )
+    totals = compare_sweep(label, kernel_state, plain_state, kw)
+    classes = {k: int(v.sum()) for k, v in
+               ack_plane.unpack_step(out.cpu()).items() if k != "newcount"}
+    check(all(classes.values()), f"{label}: a row class is empty: {classes}")
+    return {"rows": rows, "limbs": limbs, "classes": classes,
+            "sweep": totals}
+
+
+def time_events(make_args, launch, reps=20):
+    """Device ms of ``launch(*args)``, each on fresh ``make_args()`` (the
+    step changes its state), with CUDA events around the launch queued
+    behind a spin kernel so the host's launch cost is not in it: the
+    median of ``reps``."""
+    import torch
+
+    times = []
+    for rep in range(reps + 3):
+        args = make_args()
+        torch.cuda.synchronize()
+        began = torch.cuda.Event(enable_timing=True)
+        ended = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        began.record()
+        launch(*args)
+        ended.record()
+        ended.synchronize()
+        if rep >= 3:
+            times.append(began.elapsed_time(ended))
+    return statistics.median(times)
+
+
+def time_wall(make_args, launch, reps=5):
+    """Wall ms of ``launch(*args)`` on fresh args, synchronised: the
+    median of ``reps`` (the plain versions, whose many small launches
+    the host queues one by one)."""
+    import torch
+
+    times = []
+    for _ in range(reps + 1):
+        args = make_args()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        launch(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    return statistics.median(times[1:])
+
+
+def rung_step_inputs(n_clients: int, source: int, c_pad: int, w_pad: int):
+    """The ack-plane rung's first frame of ``source`` and the state it
+    meets (the rung's seed and orders): source 1 adopts every slot, 2
+    crosses the weak quorum, 3 the strong.  Returns (state, batch) on the
+    card."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch import bench as port_bench
+    from mirbft_tpu_torch.ops.ack_plane import BATCH_COLS, SLOW
+
+    rng = np.random.default_rng(port_bench.ACKPLANE_SEED)
+    dig_mat = rng.integers(0, 256, size=(n_clients, 32), dtype=np.uint8)
+    orders = {s: rng.permutation(n_clients)
+              for s in port_bench.ACKPLANE_SOURCES}
+    frame = n_clients // 8
+    total = c_pad * w_pad
+    flags = np.full((c_pad, w_pad), SLOW, dtype=np.uint8)
+    flags[:n_clients] = 0  # each client's window: req 0 and req 1
+    flags = flags.reshape(total)
+    words = dig_mat.view(np.int32)
+    canon = np.zeros((total, 8), dtype=np.int32)
+    agree = np.zeros(total, dtype=np.int32)
+    if source > 1:
+        canon[np.arange(n_clients) * w_pad] = words
+        agree[np.arange(n_clients) * w_pad] = (1 << source) - 2
+    canon_ok = canon.any(axis=1)
+    idx = orders[source][:frame]
+    batch = np.zeros((16384, BATCH_COLS), dtype=np.int32)
+    batch[:frame, 0] = idx
+    batch[:frame, 2] = source
+    batch[:frame, 3] = 1
+    batch[:frame, 4:] = words[idx]
+    shape = (c_pad, w_pad)
+    state = [
+        torch.from_numpy(agree.reshape(shape + (1,))),
+        torch.from_numpy(agree.reshape(shape + (1,)).copy()),
+        torch.from_numpy(canon.reshape(shape + (8,))),
+        torch.from_numpy(canon_ok.reshape(shape)),
+        torch.from_numpy(flags.reshape(shape)),
+        torch.zeros(shape, dtype=torch.bool),
+        torch.zeros(shape, dtype=torch.uint8),
+    ]
+    return [t.to("cuda") for t in state], torch.from_numpy(batch).to("cuda")
 
 
 def ed25519_corpus():
@@ -722,10 +906,10 @@ def main() -> int:
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build_all(["sha256", "ed25519"])
+    libs = _build.build_all(["sha256", "ed25519", "ack_plane"])
     build_s = time.perf_counter() - t0
-    print(f"phase 1 ok: sha256.cu (digest, chain) and ed25519.cu built for "
-          f"sm_90a in "
+    print(f"phase 1 ok: sha256.cu (digest, chain), ed25519.cu and "
+          f"ack_plane.cu (step, sweep) built for sm_90a in "
           f"{build_s:.3f} s (one nvcc each, together)")
     ptxas = {}
     for name, lib in libs.items():
@@ -774,6 +958,7 @@ def main() -> int:
     plane = AsyncKernelHashPlane()
     sha256_digest_words.launches = 0
     events, wall, _cpu, chains, _, counts = run_engine(ANCHOR_REQS, plane)
+    anchor_chains = chains
     anchor_launches = sha256_digest_words.launches
     check(events == 2320, f"anchor gave {events} events, not 2320")
     check(len(set(chains.values())) == 1, "anchor: app chains differ")
@@ -1376,6 +1561,186 @@ def main() -> int:
         f"at {time.perf_counter() - t0:.1f} s)"
     )
 
+    # -- phase 12: the ack plane's kernels == plain; the anchor on them -----
+    from mirbft_tpu_torch.obsv import device as obsv_device
+    from mirbft_tpu_torch.obsv.metrics import Registry
+    from mirbft_tpu_torch.ops import ack_plane
+
+    ack_cases = [compare_ack(rows, limbs)
+                 for rows in (1024, 4096, 65536) for limbs in (1, 2, 3)]
+    for c in ack_cases:
+        print(f"  ack plane ({c['rows']} rows, {c['limbs']} limbs): kernel "
+              f"== plain; rows {c['classes']}; sweep {c['sweep']}")
+    ack_step_fn = ack_plane.ack_step
+    ack_step_fn.launches = 0
+    ack_step_fn.launches_by_rows.clear()
+    sha256_digest_words.launches = 0
+    plane = AsyncKernelHashPlane()
+    events, wall, _cpu, chains, _, counts = run_engine(
+        ANCHOR_REQS, plane, ack_plane="device", ack_device="cuda",
+    )
+    anchor_steps = dict(ack_step_fn.launches_by_rows)
+    check(events == 2320, f"device-plane anchor gave {events} events")
+    check(chains == anchor_chains,
+          "device-plane anchor: app chains differ from phase 3's")
+    check(all(count == CLIENTS * ANCHOR_REQS for count in counts),
+          "device-plane anchor: not every node committed 1600 requests")
+    check(ack_step_fn.launches > 0, "device-plane anchor: no ack step launched")
+    check(sha256_digest_words.launches > 0 and plane.host_digests == 0,
+          "device-plane anchor: digests did not all come from the kernel")
+    print(
+        f"phase 12 ok: the ack plane's step and sweep == plain at "
+        f"{len(ack_cases)} cases (1024/4096/65536 rows x limbs 1/2/3), "
+        f"max_abs_err 0; device-plane anchor {NODES}x{CLIENTS}x{ANCHOR_REQS} "
+        f"-> {events} events in {wall:.3f} s, phase 3's chain "
+        f"{next(iter(chains.values())).hex()[:16]}..., "
+        f"{ack_step_fn.launches} ack steps by padded rows {anchor_steps} "
+        f"(done at {time.perf_counter() - t0:.1f} s)"
+    )
+
+    # -- phase 13: the ack-plane rung at 100,000 clients ----------------------
+    registry = Registry()
+    obsv_device.reset()
+    ack_step_fn.launches = 0
+    ack_step_fn.launches_by_rows.clear()
+    ack_plane.quorum_sweep.launches = 0
+    ack_plane.quorum_sweep.launches_by_rows.clear()
+    rung = port_bench.ackplane_run(registry, device="cuda")
+    rung_launches = {"ack_step": ack_step_fn.launches,
+                     "ack_sweep": ack_plane.quorum_sweep.launches}
+    rung_step_rows = dict(ack_step_fn.launches_by_rows)
+    n_clients = rung["clients"]
+    check(rung["fallback_rows"] == 0, f"rung: {rung['fallback_rows']} "
+          "fallback rows")
+    check(rung["dropped_rows"] == 0, f"rung: {rung['dropped_rows']} dropped")
+    check(rung["divergences"] == 0, f"rung: {rung['divergences']} divergences")
+    check(rung["parity_mismatches"] == 0,
+          f"rung: {rung['parity_mismatches']} parity mismatches")
+    # Three agreeing sources certify every single-slot client at f = 1
+    # (weak f + 1 = 2, strong 2f + 1 = 3).
+    check(rung["strong_certs"] == n_clients and rung["weak_certs"] == n_clients,
+          f"rung: {rung['weak_certs']} weak, {rung['strong_certs']} strong "
+          f"certificates of {n_clients} clients")
+    check(rung_launches["ack_step"] == rung["step_launches"] == 24
+          and rung_launches["ack_sweep"] == 1,
+          f"rung: launches {rung_launches}")
+    capture = obsv_device.report(registry)
+    print(
+        f"  rung: {n_clients} clients, {rung['events_total']} ack events; "
+        f"host {rung['host_events_per_sec']:.3f} events/s, device "
+        f"{rung['device_events_per_sec']:.3f} events/s (device/host "
+        f"{rung['device_vs_host']:.6f}); committed "
+        f"{rung['committed_reqs_per_sec']:.3f} req/s; drain "
+        f"{rung['drain_seconds']:.6f} s, sweep {rung['sweep_seconds']:.6f} s;"
+        f" host build {rung['host_build_s']:.6f} s, device build "
+        f"{rung['device_build_s']:.6f} s, first frame "
+        f"{rung['device_compile_s']:.6f} s; plane {rung['plane']}; "
+        f"{rung['strong_certs']} strong, {rung['weak_certs']} weak; launches "
+        f"{rung_launches}, steps by padded rows {rung_step_rows}; programs "
+        f"by CUDA events in the run {capture['kernel_seconds']}, launch "
+        f"shapes {capture['retraces']}"
+    )
+
+    # Each kernel on the rung's own batches and at the anchor's shape, held
+    # against its plain version there first, then timed.
+    c_pad, w_pad = rung["plane"]["c_pad"], rung["plane"]["w_pad"]
+    rung_kw = dict(weak_q=2, strong_q=3)
+    ack_shapes = []
+    for source in port_bench.ACKPLANE_SOURCES:
+        state0, batch = rung_step_inputs(n_clients, source, c_pad, w_pad)
+        _out, _kernel_state, after = compare_step(
+            f"ack step, rung source {source}", state0, batch, rung_kw
+        )
+        step_bytes = ack_plane.step_bytes(batch, state0, after)
+        first = ack_plane.new_first(c_pad * w_pad, "cuda")
+
+        def fresh(state0=state0, batch=batch):
+            return [t.clone() for t in state0] + [batch]
+
+        ms = time_events(fresh, lambda *a, first=first: ack_plane.ack_step(
+            *a, first=first, **rung_kw))
+        plain_ms = time_wall(fresh, lambda *a: ack_plane.ack_step_plain(
+            *a, **rung_kw))
+        ack_shapes.append({
+            "what": f"rung source {source}", "rows": batch.shape[0],
+            "state": [c_pad, w_pad, 1], "ms": ms, "plain_ms": plain_ms,
+            "bytes": step_bytes,
+            "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+        })
+    cases = ack_plane_cases()
+    anchor_rows = max(anchor_steps, key=anchor_steps.get)
+    # The anchor's plane: 64 clients of windows of 101 padded to 128 slots.
+    anchor_case = cases.make_case(SEED, anchor_rows, 1, c_pad=CLIENTS,
+                                  w_pad=ANCHOR_W_PAD)
+    anchor_state = cases.torch_state(anchor_case, "cuda")
+    anchor_batch = cases.torch_batch(anchor_case, "cuda")
+    anchor_first = ack_plane.new_first(CLIENTS * ANCHOR_W_PAD, "cuda")
+
+    def fresh_anchor():
+        return [t.clone() for t in anchor_state] + [anchor_batch]
+
+    kw = dict(weak_q=anchor_case["weak_q"], strong_q=anchor_case["strong_q"])
+    _out, _kernel_state, after = compare_step(
+        f"ack step, anchor shape ({anchor_rows} rows)", anchor_state,
+        anchor_batch, kw,
+    )
+    step_bytes = ack_plane.step_bytes(anchor_batch, anchor_state, after)
+    ack_shapes.append({
+        "what": "anchor shape, a seeded case", "rows": anchor_rows,
+        "state": [CLIENTS, ANCHOR_W_PAD, 1],
+        "ms": time_events(fresh_anchor, lambda *a: ack_plane.ack_step(
+            *a, first=anchor_first, **kw)),
+        "plain_ms": time_wall(fresh_anchor, lambda *a: ack_plane.ack_step_plain(
+            *a, **kw)),
+        "bytes": step_bytes,
+        "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
+    })
+    sweep_state, _batch = rung_step_inputs(n_clients, 3, c_pad, w_pad)
+    sweep_state[0][:] = 0b1110  # every live slot certified, as at the end
+    sweep_totals = compare_sweep(
+        "ack sweep, the rung's final state",
+        [t.clone() for t in sweep_state], [t.clone() for t in sweep_state],
+        rung_kw,
+    )
+    check(sweep_totals == [n_clients, n_clients, 0],
+          f"ack sweep, the rung's final state: totals {sweep_totals}")
+    sweep_args = [sweep_state[i] for i in (0, 3, 4, 5, 6)]
+
+    def fresh_sweep():
+        return [t.clone() for t in sweep_args]
+
+    sweep_ms = time_events(fresh_sweep, lambda *a: ack_plane.quorum_sweep(
+        *a, **rung_kw))
+    sweep_plain_ms = time_wall(fresh_sweep, lambda *a: (
+        ack_plane.quorum_sweep_plain(*a, **rung_kw)))
+    sweep_bytes = ack_plane.sweep_bytes(*(sweep_state[i] for i in (0, 3, 4)))
+    sweep_bound_ms = sweep_bytes / HBM_BYTES_PER_S * 1e3
+    for e in ack_shapes:
+        print(f"  ack step, {e['what']}: ({e['rows']} rows) on state "
+              f"{e['state']}: kernel {e['ms']:.6f} ms (CUDA events, median "
+              f"of 20, three launches), bound {e['bound_ms']:.6f} ms "
+              f"({e['bytes']} bytes / 3.35 TB/s), "
+              f"{100 * e['bound_ms'] / e['ms']:.2f}% of bound; plain "
+              f"{e['plain_ms']:.6f} ms (wall)")
+    print(f"  ack sweep on the rung's final state {[c_pad, w_pad, 1]}: "
+          f"kernel {sweep_ms:.6f} ms, bound {sweep_bound_ms:.6f} ms "
+          f"({sweep_bytes} bytes / 3.35 TB/s), "
+          f"{100 * sweep_bound_ms / sweep_ms:.2f}% of bound; plain "
+          f"{sweep_plain_ms:.6f} ms (wall); library_ms null for both (no "
+          f"PyTorch call computes either function)")
+    rung_step_ms = statistics.mean(e["ms"] for e in ack_shapes[:3])
+    rung_step_bound = statistics.mean(e["bound_ms"] for e in ack_shapes[:3])
+    rung_step_plain = statistics.mean(e["plain_ms"] for e in ack_shapes[:3])
+    print(f"phase 13 ok: the ack-plane rung at {n_clients} clients, 0 "
+          f"fallback, 0 dropped, 0 divergences, 0 parity mismatches, every "
+          f"client weak and strong; step kernel == plain on the rung's three "
+          f"batches and at the anchor's shape, sweep kernel == plain on the "
+          f"rung's final state; step {rung_step_ms:.6f} ms a launch "
+          f"(mean of the rung's three sources) x {rung_launches['ack_step']}"
+          f" launches, sweep {sweep_ms:.6f} ms x "
+          f"{rung_launches['ack_sweep']} (done at "
+          f"{time.perf_counter() - t0:.1f} s)")
+
     head = per_shape[0]
     kernels = [{
         "name": "sha256_digest",
@@ -1451,6 +1816,44 @@ def main() -> int:
         "int_ops": chain_ops,
         "sm_clock_mhz": clock,
         "ptxas": ptxas.get("mirbft_sha256_chain_kernel"),
+    })
+    kernels.append({
+        "name": "ack_step",
+        "route": "cuda",
+        "source": "mirbft_tpu_torch/csrc/ack_plane.cu",
+        "replaces": "mirbft_tpu/core/device_tracker.py:169",
+        "launches": rung_launches["ack_step"],
+        "launches_note": "one count a step (three kernel launches: "
+                         "classify, apply, finish), phase 13's rung",
+        "launches_anchor": sum(anchor_steps.values()),
+        "matched_plain": True,
+        "max_abs_err": 0,
+        "ms": rung_step_ms,
+        "plain_ms": rung_step_plain,
+        "bound_ms": rung_step_bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": [ack_shapes[0]["rows"], 12],
+        "per_shape": ack_shapes,
+        "ptxas": {k: ptxas.get(k) for k in (
+            "mirbft_ack_classify_kernel", "mirbft_ack_apply_kernel",
+            "mirbft_ack_finish_kernel")},
+    })
+    kernels.append({
+        "name": "ack_sweep",
+        "route": "cuda",
+        "source": "mirbft_tpu_torch/csrc/ack_plane.cu",
+        "replaces": "mirbft_tpu/core/device_tracker.py:342",
+        "launches": rung_launches["ack_sweep"],
+        "matched_plain": True,
+        "max_abs_err": 0,
+        "ms": sweep_ms,
+        "plain_ms": sweep_plain_ms,
+        "bound_ms": sweep_bound_ms,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "shape": [c_pad, w_pad, 1],
+        "ptxas": ptxas.get("mirbft_ack_sweep_kernel"),
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,7 @@
-"""The port's benchmarks: the SHA-256 kernel microbenchmark and the live rung.
+"""The port's benchmarks: the SHA-256 kernel microbenchmark, the live rung
+and the ack-plane rung.
 
-Counterparts of two parts of the JAX package's ``bench.py``, with its
+Counterparts of three parts of the JAX package's ``bench.py``, with its
 constants and its measurement protocols:
 
 - ``sha256_microbench_warmup`` and ``kernel_microbench`` (``bench.py:481-569``):
@@ -14,10 +15,13 @@ constants and its measurement protocols:
   emulated 40 ms flush floor, one consumer thread per node driving
   ``build_processor(kind)`` — measured to the 1600th commit.  Each node
   runs in a process of its own, as a deployment's nodes do.
+- ``ackplane_run`` (``bench.py:246-480``): the host ack plane and the
+  device ack plane under one seeded ack storm of 100,000 clients, with the
+  divergence oracle's verdict and a cross-plane parity check.
 
-Both run on ``cuda`` unless the caller passes ``device="cpu"`` (the kernels'
+All run on ``cuda`` unless the caller passes ``device="cpu"`` (the kernels'
 plain versions; the tests' route), and raise without a card.
-``chip_smoke.py`` (phases 10 and 11) runs both on a card.
+``chip_smoke.py`` (phases 10, 11 and 13) runs them on a card.
 """
 
 from __future__ import annotations
@@ -44,6 +48,226 @@ MSG_BLOCKS = 11
 HOST_MESSAGES = 8192
 DIGEST_CHECK_MESSAGES = 64
 
+
+
+# -- ack-plane rung -------------------------------------------------------------
+#
+# Host vs device ack plane under one seeded ack storm (the JAX package's
+# bench.py:246-480, its constants): 3 sources each ack every client's req
+# 0 in a shuffled order, absorbed by a host-plane tracker (step_ack_many:
+# scalar fallbacks and the _FastAcks columnar path) and by the device
+# plane's column-native ingest (submit_columns + flush).  The frame size
+# divides the client count so every device batch pads to one power-of-two
+# bucket.  Each side's first frame is its untimed warm-up; events/s
+# compares steady state only.  The boundary drain (materializing adoptions
+# and crossings back into the host objects) is the device plane's cost
+# alone and is reported on its own.
+ACKPLANE_CLIENTS = 100_000
+ACKPLANE_FRAME = ACKPLANE_CLIENTS // 8
+ACKPLANE_SOURCES = (1, 2, 3)
+ACKPLANE_SEED = 0xACC5
+ACKPLANE_AUDIT_SLOTS = 2048
+
+
+def _ackplane_tracker(n_clients, ack_plane, device):
+    """A standalone ClientTracker at bench scale (no engine): genesis
+    checkpoint with n_clients width-1 windows, 4 nodes f=1."""
+    from . import pb
+    from .core.client_tracker import ClientTracker
+    from .core.msgbuffers import NodeBuffers
+    from .core.persisted import Persisted
+
+    state = pb.NetworkState(
+        config=pb.NetworkConfig(
+            nodes=[0, 1, 2, 3],
+            f=1,
+            number_of_buckets=4,
+            checkpoint_interval=5,
+            max_epoch_length=50,
+        ),
+        clients=[
+            pb.NetworkClient(id=cid, width=1, low_watermark=0)
+            for cid in range(n_clients)
+        ],
+    )
+    persisted = Persisted()
+    persisted.add_c_entry(
+        pb.CEntry(seq_no=0, checkpoint_value=b"genesis", network_state=state)
+    )
+    my = pb.InitialParameters(id=0, buffer_size=1 << 20)
+    ct = ClientTracker(persisted, NodeBuffers(my), my, ack_plane=ack_plane,
+                       ack_device=device)
+    ct.reinitialize()
+    return ct
+
+
+def ackplane_run(registry=None, *, device="cuda", clients=ACKPLANE_CLIENTS):
+    """Host vs device ack plane under the same seeded ack storm.
+
+    Returns the JAX package's ``ackplane_*`` keys: steady-state ack
+    events/s per plane (and the device/host ratio), committed
+    (strong-certified) reqs/s on the device plane, the boundary drain and
+    sweep seconds, the sampled divergence-oracle verdict and a sampled
+    cross-plane object-parity check; numbers unrounded.  ``registry``
+    turns the hooks on for the run (the ack metrics, and the device
+    programs' times and launch shapes through ``obsv.device``).  The device
+    plane runs on ``device``; it raises where it cannot be built."""
+    from . import pb
+    from .core.device_tracker import _combine_limbs
+    from .obsv import hooks, shadow
+    from .ops import ack_plane
+
+    n_clients = clients
+    frame = n_clients // 8
+    rng = np.random.default_rng(ACKPLANE_SEED)
+    dig_mat = rng.integers(0, 256, size=(n_clients, 32), dtype=np.uint8)
+    orders = {s: rng.permutation(n_clients) for s in ACKPLANE_SOURCES}
+
+    if registry is not None:
+        hooks.enable(registry=registry)
+    try:
+        # -- host plane ------------------------------------------------------
+        host = _ackplane_tracker(n_clients, "host", device)
+        host_build_s = host_steady_s = 0.0
+        host_steady_events = 0
+        first = True
+        for s in ACKPLANE_SOURCES:
+            order = orders[s]
+            for lo in range(0, n_clients, frame):
+                idx = order[lo:lo + frame]
+                msgs = [
+                    pb.Msg(
+                        type=pb.RequestAck(
+                            client_id=int(c), req_no=0,
+                            digest=dig_mat[c].tobytes(),
+                        )
+                    )
+                    for c in idx.tolist()
+                ]
+                t0 = time.perf_counter()
+                host.step_ack_many(s, msgs)
+                dt = time.perf_counter() - t0
+                if first:
+                    host_build_s, first = dt, False
+                else:
+                    host_steady_s += dt
+                    host_steady_events += len(msgs)
+
+        # -- device plane ----------------------------------------------------
+        devt = _ackplane_tracker(n_clients, "device", device)
+        t0 = time.perf_counter()
+        plane = devt._build_device()
+        dev_build_s = time.perf_counter() - t0
+        launches = (ack_plane.ack_step.launches,
+                    ack_plane.quorum_sweep.launches)
+        zeros = np.zeros(frame, dtype=np.int64)
+        dev_compile_s = dev_steady_s = 0.0
+        dev_steady_events = 0
+        out_of_window = 0
+        first = True
+        for s in ACKPLANE_SOURCES:
+            order = orders[s]
+            for lo in range(0, n_clients, frame):
+                idx = order[lo:lo + frame].astype(np.int64)
+                t0 = time.perf_counter()
+                out = plane.submit_columns(
+                    s, idx, zeros[:len(idx)], dig_mat[idx]
+                )
+                plane.flush(drain=None)
+                dt = time.perf_counter() - t0
+                out_of_window += len(out)
+                if first:
+                    dev_compile_s, first = dt, False
+                else:
+                    dev_steady_s += dt
+                    dev_steady_events += len(idx)
+
+        # Boundary drain: adoptions, weak/strong crossings and ready marks
+        # materialize into the host objects (column-only ingest, so any
+        # fallback row raises: the zero-fallback gate).
+        t0 = time.perf_counter()
+        plane.drain_events(devt)
+        drain_s = time.perf_counter() - t0
+        # Quorum-certificate tally across every (client, window) bucket in
+        # one device pass.
+        t0 = time.perf_counter()
+        certs = plane.quorum_sweep()
+        sweep_s = time.perf_counter() - t0
+        launches = (ack_plane.ack_step.launches - launches[0],
+                    ack_plane.quorum_sweep.launches - launches[1])
+
+        # Sampled divergence audit; any finding also lands in
+        # mirbft_divergence_total.
+        sample = rng.choice(
+            n_clients, size=min(ACKPLANE_AUDIT_SLOTS, n_clients),
+            replace=False,
+        )
+        slots = [int(c) * plane.w_pad for c in sample.tolist()]
+        divs = shadow.audit_tracker(devt, slots=slots)
+        if registry is not None:
+            for d in divs:
+                registry.counter(
+                    "mirbft_divergence_total", component=d["component"]
+                ).inc()
+
+        # Cross-plane parity on the same sampled clients: the host objects
+        # must match the device plane's authoritative state slot for slot
+        # (the device-side objects hold stale lower bounds by contract, so
+        # voter masks read from the device snapshot).
+        dev_snap = plane.host_snapshot()
+        parity_mismatches = 0
+        for c in sample.tolist():
+            h = host.clients[c].req_no_map[0]
+            d = devt.clients[c].req_no_map[0]
+            slot = int(c) * plane.w_pad
+            if (
+                set(h.strong_requests) != set(d.strong_requests)
+                or set(h.weak_requests) != set(d.weak_requests)
+                or h.non_null_voters
+                != _combine_limbs(dev_snap["nonnull"][slot])
+            ):
+                parity_mismatches += 1
+
+        host_rate = host_steady_events / host_steady_s if host_steady_s else None
+        dev_rate = dev_steady_events / dev_steady_s if dev_steady_s else None
+        device_s = dev_steady_s + dev_compile_s + sweep_s
+        counters = {}
+        if registry is not None:
+            snap = registry.snapshot().get("mirbft_ack_events_total") or {}
+            for series in snap.get("series", ()):
+                counters[dict(series["labels"]).get("plane")] = series["value"]
+        return {
+            "clients": n_clients,
+            "frame": frame,
+            "events_total": len(ACKPLANE_SOURCES) * n_clients,
+            "host_events_per_sec": host_rate,
+            "host_build_s": host_build_s,
+            "device_events_per_sec": dev_rate,
+            "device_build_s": dev_build_s,
+            "device_compile_s": dev_compile_s,
+            "device_vs_host": (
+                dev_rate / host_rate if dev_rate and host_rate else None
+            ),
+            "committed_reqs_per_sec": (
+                certs["strong_certs"] / device_s if device_s > 0 else None
+            ),
+            "strong_certs": certs["strong_certs"],
+            "weak_certs": certs["weak_certs"],
+            "drain_seconds": drain_s,
+            "sweep_seconds": sweep_s,
+            "fallback_rows": plane.acks_fallback,
+            "dropped_rows": plane.acks_dropped + out_of_window,
+            "divergences": len(divs),
+            "parity_mismatches": parity_mismatches,
+            "ack_events_counter": counters,
+            "step_launches": launches[0],
+            "sweep_launches": launches[1],
+            "plane": {"c_pad": plane.c_pad, "w_pad": plane.w_pad,
+                      "limbs": plane.limbs, "device": str(plane.device)},
+        }
+    finally:
+        if registry is not None:
+            hooks.disable()
 
 
 @dataclasses.dataclass(frozen=True)

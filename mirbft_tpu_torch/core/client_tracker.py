@@ -1222,6 +1222,7 @@ class ClientTracker:
         logger=None,
         ack_plane: str | None = None,
         ack_flush_rows: int | None = None,
+        ack_device="cuda",
     ):
         self.persisted = persisted
         self.node_buffers = node_buffers
@@ -1239,14 +1240,45 @@ class ClientTracker:
         self._fast: _FastAcks | None = None
         self._fast_ok = False
         self._mask_limbs = 1
-        # Ack-plane selection (Config.ack_plane / the MIRBFT_ACK_PLANE env
-        # knob): "device" raises, the device ack plane is not ported yet.
-        # The frame-coalescing knob only that plane reads is still
-        # validated, so a bad value fails here as it does upstream.
-        from .device_tracker import resolve_ack_plane, resolve_flush_rows
+        # Device-resident ack plane (core.device_tracker): selected via
+        # Config.ack_plane / the MIRBFT_ACK_PLANE env knob, on the card
+        # ack_device names, built lazily by step_ack_many like the host
+        # mirror, dropped on any window-structure change.  It never falls
+        # back to the host plane: a plane that cannot be built raises, and
+        # a plane on a card that is not there raises here, at once.
+        from .device_tracker import (
+            require_device,
+            resolve_ack_plane,
+            resolve_flush_rows,
+        )
 
-        resolve_ack_plane(ack_plane)
-        resolve_flush_rows(ack_flush_rows)
+        self._ack_plane = resolve_ack_plane(ack_plane)
+        self._ack_device = ack_device
+        if self._ack_plane == "device":
+            require_device(ack_device)
+        # Device-plane frame coalescing (Config.ack_flush_rows /
+        # MIRBFT_ACK_FLUSH_ROWS): steps defer until this many ack rows are
+        # queued; 1 keeps the flush-per-frame default.
+        self._ack_flush_rows = resolve_flush_rows(ack_flush_rows)
+        self._device = None
+        self._device_ok = False
+
+    def _drop_device(self) -> None:
+        """Materialize the device ack plane back into the objects and
+        discard it (window-structure changes invalidate its dense shapes,
+        exactly like the host mirror)."""
+        if self._device is not None:
+            dev, self._device = self._device, None
+            dev.drop(self)
+
+    def _build_device(self):
+        """Build the device plane.  A failure (no card for
+        ``ack_device="cuda"``, a kernel that does not build) raises: the
+        tracker does not carry on with the host plane in its place."""
+        from .device_tracker import DeviceClientPlane
+
+        self._device = DeviceClientPlane(self, device=self._ack_device)
+        return self._device
 
     def _drop_fast(self) -> None:
         """Invalidate the columnar mirror (draining deferred tick activity
@@ -1261,6 +1293,7 @@ class ClientTracker:
     # -- lifecycle -----------------------------------------------------------
 
     def reinitialize(self) -> None:
+        self._drop_device()
         self._drop_fast()
         low_c = high_c = None
 
@@ -1334,8 +1367,28 @@ class ClientTracker:
             and cids
             and (max(cids) - min(cids) + 1) <= 4 * len(cids) + 1024
         )
+        # The device plane shares the mirror's preconditions (dense-ish
+        # ids, bounded node masks).  Its device was checked at
+        # construction: where the JAX package probed here and stayed on
+        # the host path, the port has already raised.
+        self._device_ok = self._ack_plane == "device" and self._fast_ok
 
     def tick(self) -> Actions:
+        dev = self._device
+        if dev is not None:
+            # Tick boundary: run the step over any coalesced frames and
+            # drain the buffered boundary events: the scalar tick logic
+            # below reads _tick_pending and object-side ack state, both of
+            # which deferred flushing leaves behind.
+            dev.flush(drain=self)
+            # The scalar tick logic reads and mutates object-side ack
+            # state (fetch targeting over agreements, rebroadcast
+            # counters): hand every pending slot back to the objects
+            # before it runs.
+            for client_state in self.client_states:
+                client = self.clients[client_state.id]
+                for req_no in client._tick_pending:
+                    dev.sync_slot(client_state.id, req_no)
         fast = self._fast
         if fast is not None:
             fast.drain_tick_dirty()
@@ -1434,6 +1487,11 @@ class ClientTracker:
             # Same late-ack drop as step_ack_many: the two delivery paths
             # must agree so node state never depends on transport framing.
             return _EMPTY_ACTIONS
+        if self._device is not None:
+            # Scalar mutation ahead: pull the device-authoritative masks
+            # into the objects first (the slot stays host-authoritative
+            # until the next device flush re-derives it).
+            self._device.sync_slot(ack.client_id, req_no)
         key = ack.digest or _NULL
         weak = crn.weak_requests
         was_weak = key in weak
@@ -1462,14 +1520,23 @@ class ClientTracker:
         vectorized rows rather than in strict frame-interleaved order;
         both orders are deterministic, and inter-row order within one
         frame was never a protocol guarantee)."""
-        if len(msgs) >= 32 and self._fast_ok:
+        dev = self._device
+        if dev is None and self._device_ok:
+            dev = self._build_device()
+        if dev is not None:
+            # Device-resident plane: every frame (any size) goes through
+            # the step; the scalar loop would mutate objects whose masks
+            # are device-authoritative.  The plane emits its own
+            # {plane="device"} ack metrics at flush.
+            dev.apply_frame(self, source, msgs)
+        elif len(msgs) >= 32 and self._fast_ok:
             fast = self._fast
             if fast is None:
                 fast = self._fast = _FastAcks(self)
             self._step_ack_vector(source, msgs, fast)
         else:
             self._step_ack_loop(source, msgs)
-        if hooks.enabled:
+        if dev is None and hooks.enabled:
             hooks.record_ack_batch("host", len(msgs))
         # Divergence oracle (obsv.shadow): every Nth frame replays the
         # scalar rules against the mirror for the slots this frame touched.
@@ -1731,6 +1798,8 @@ class ClientTracker:
                 hooks.metrics.counter(
                     "mirbft_request_duplicates_total", reason="stored"
                 ).inc()
+        if self._device is not None:
+            self._device.sync_slot(ack.client_id, ack.req_no)
         had_my = len(crn.my_requests)
         actions = crn.apply_request_digest(ack, data, out)
         if self._fast is not None:
@@ -1754,6 +1823,8 @@ class ClientTracker:
         if client is None or not client.in_watermarks(req_no):
             return Actions()
         crn = client.req_no(req_no)
+        if self._device is not None:
+            self._device.sync_slot(client_id, req_no)
         req = crn.requests.get(digest or _NULL)
         if req is None or not req.agreements & (1 << self.my_config.id):
             return Actions()
@@ -1769,6 +1840,10 @@ class ClientTracker:
         if client is None:
             return Actions()
         crn = client.req_no(msg.request_ack.req_no)
+        if self._device is not None:
+            self._device.sync_slot(
+                msg.request_ack.client_id, msg.request_ack.req_no
+            )
         req = crn.requests.get(msg.request_ack.digest or _NULL)
         if req is None:
             # We don't know this digest to be correct yet; drop (the weak
@@ -1821,6 +1896,8 @@ class ClientTracker:
         client = self.clients.get(ack.client_id)
         if client is None:
             raise AssertionError("step filter must delay unknown clients")
+        if self._device is not None:
+            self._device.sync_slot(ack.client_id, ack.req_no)
         cr, crn, newly_correct = client.ack(source, ack, force=force)
         if newly_correct:
             self.available_list.push_back(cr)
@@ -1856,6 +1933,10 @@ class ClientTracker:
                         ci = client.client_state.id - self._fast.cid0
                         if 0 <= ci < self._fast.n_clients:
                             self._fast.nrm_arr[ci] = req_no + 1
+                    if self._device is not None:
+                        ci = client.client_state.id - self._device.cid0
+                        if 0 <= ci < self._device.n_clients:
+                            self._device.nrm_arr[ci] = req_no + 1
                     break
 
     # -- checkpoint interplay ------------------------------------------------
@@ -1924,6 +2005,7 @@ class ClientTracker:
             client.allocate(seq_no, state)
 
         self.client_states = new_states
+        self._drop_device()  # windows advanced: dense shapes are stale
         self._drop_fast()  # windows advanced: mirror shape is stale
         return new_states
 
@@ -1940,6 +2022,10 @@ class ClientTracker:
     def fetch_request(self, cr: ClientRequest) -> Actions:
         """Fetch a known-correct request (epoch-change path); mediated
         here so the fetching-state flip reclassifies the mirror slot."""
+        if self._device is not None:
+            # fetch() targets mask_ids(agreements): the device-held votes
+            # must be in the object before the send list is computed.
+            self._device.sync_slot(cr.ack.client_id, cr.ack.req_no)
         actions = cr.fetch()
         if self._fast is not None:
             self._fast.refresh(cr.ack.client_id, cr.ack.req_no)
@@ -1950,8 +2036,11 @@ class ClientTracker:
         self.clients[client_id].req_no(req_no).committed = seq_no
         if self._fast is not None:
             self._fast.mark_committed(client_id, req_no)
+        if self._device is not None:
+            self._device.mark_committed(client_id, req_no)
 
     def garbage_collect(self, seq_no: int) -> None:
+        self._drop_device()  # windows slide: dense slots remap
         self._drop_fast()  # windows slide: mirror slots remap
         for client_state in self.client_states:
             self.clients[client_state.id].move_low_watermark(seq_no)

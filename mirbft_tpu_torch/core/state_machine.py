@@ -41,7 +41,8 @@ class _SMState(enum.Enum):
 
 
 class StateMachine:
-    def __init__(self, logger=None, ack_plane=None, ack_flush_rows=None):
+    def __init__(self, logger=None, ack_plane=None, ack_flush_rows=None,
+                 ack_device="cuda"):
         self.logger = logger
         # Ack-plane selection is operational (not consensus state), so it
         # rides here rather than in pb.InitialParameters — the serialized
@@ -49,6 +50,9 @@ class StateMachine:
         # mix host- and device-plane nodes.
         self.ack_plane = ack_plane
         self.ack_flush_rows = ack_flush_rows
+        # The device ack plane's card: "cuda" (the kernels) or "cpu" (their
+        # plain versions).  Read only when the device plane is selected.
+        self.ack_device = ack_device
         self._state = _SMState.UNINITIALIZED
 
         self.my_config: pb.InitialParameters | None = None
@@ -88,6 +92,7 @@ class StateMachine:
             self.persisted, self.node_buffers, parameters, self.logger,
             ack_plane=self.ack_plane,
             ack_flush_rows=self.ack_flush_rows,
+            ack_device=self.ack_device,
         )
         self.commit_state = CommitState(
             self.persisted, self.client_tracker, self.logger

@@ -1,10 +1,12 @@
 """Observability plane: metrics registry, trace spans and the hook
 switchboard that core and the test engine call.
 
-``hooks``, ``metrics``, ``trace`` and ``bqueue`` (the bounded hand-off
-queues of the live node's pipeline and transport) are carried over; the
-rest of the reference's plane (critical path, diff, exporter, merge,
-timeline, shadow oracle, device timing) is not part of this package yet.
+``hooks``, ``metrics``, ``trace``, ``bqueue`` (the bounded hand-off
+queues of the live node's pipeline and transport), ``device`` (kernel
+timing by CUDA events, launch shapes, transfers), ``recorder`` (the
+flight recorder) and ``shadow`` (the divergence oracle over the ack
+planes) are carried over; the rest of the reference's plane (critical
+path, diff, exporter, merge, timeline) is not part of this package yet.
 
 Usage:
 

@@ -71,16 +71,19 @@ class Config:
     # cuda | cuda-pool | cuda-pipelined (the SHA-256 kernel).
     processor: str = "cuda"
     # Ack/quorum bookkeeping plane: "host" keeps the numpy _FastAcks
-    # mirror; "device" raises NotImplementedError (the device ack plane
-    # is not ported yet).  None defers to the MIRBFT_ACK_PLANE env knob
-    # (default host).
+    # mirror; "device" keeps the dense bitmask plane on ack_device
+    # (core/device_tracker.py).  None defers to the MIRBFT_ACK_PLANE env
+    # knob (default host).
     ack_plane: str | None = None
+    # The device ack plane's card: "cuda" runs its kernels and raises
+    # without a card; "cpu" runs their plain versions.
+    ack_device: str = "cuda"
     # Device-plane frame coalescing (validated, read only by the device
     # ack plane).  None defers to the MIRBFT_ACK_FLUSH_ROWS env knob.
     ack_flush_rows: int | None = None
-    # Divergence-oracle audit stride.  The shadow oracle (obsv/shadow.py)
-    # is not ported yet: a Node built with a stride set raises
-    # NotImplementedError.
+    # Divergence-oracle audit stride: with hooks enabled, a Node audits
+    # every Nth ack frame (obsv/shadow.py's ShadowSampler) unless a
+    # sampler is already installed.  None leaves the oracle off.
     shadow_stride: int | None = None
     # MAC-authenticated replica channels (docs/CRYPTO.md): when on, every
     # node/hello/transfer transport frame carries a per-link MAC tag
@@ -110,6 +113,10 @@ class Config:
         if self.ack_plane not in (None, "host", "device"):
             raise ValueError(
                 f"ack_plane must be host|device, got {self.ack_plane!r}"
+            )
+        if self.ack_device not in ("cuda", "cpu"):
+            raise ValueError(
+                f"ack_device must be cuda|cpu, got {self.ack_device!r}"
             )
         if self.shadow_stride is not None and self.shadow_stride < 1:
             raise ValueError("shadow_stride must be >= 1")

@@ -9,9 +9,8 @@ through a one-slot outbox; each handoff is marked with an ActionsReceived
 event so recorded logs tie results to the actions that caused them.
 
 Not ported yet, and raising ``NotImplementedError`` where asked for: the
-shadow divergence oracle (``Config.shadow_stride``, ``audit_divergence``;
-ROADMAP queue 1 item 5a), the HTTP exporter (``Config.metrics_port``;
-item 5b) and the app commit stream (``attach_app``; item 5c).
+HTTP exporter (``Config.metrics_port``; ROADMAP queue 1 item 4) and the app
+commit stream (``attach_app``; item 5).
 """
 
 from __future__ import annotations
@@ -133,16 +132,10 @@ class Node:
     """Thread-safe facade over the serializer thread."""
 
     def __init__(self, config: Config, wal_storage, req_storage):
-        if config.shadow_stride is not None:
-            raise NotImplementedError(
-                "Config.shadow_stride: the shadow divergence oracle "
-                "(obsv/shadow.py) is not ported yet (ROADMAP queue 1, "
-                "item 5a)"
-            )
         if config.metrics_port is not None:
             raise NotImplementedError(
                 "Config.metrics_port: the HTTP exporter (obsv/exporter.py) "
-                "is not ported yet (ROADMAP queue 1, item 5b)"
+                "is not ported yet (ROADMAP queue 1, item 4)"
             )
         self.config = config
         self._inbox: queue.Queue = queue.Queue()
@@ -154,7 +147,21 @@ class Node:
         self._machine = StateMachine(
             logger=config.logger, ack_plane=config.ack_plane,
             ack_flush_rows=config.ack_flush_rows,
+            ack_device=config.ack_device,
         )
+        if config.shadow_stride is not None and hooks.enabled and (
+            hooks.shadow is None
+        ):
+            # Config-driven divergence oracle: audit every Nth ack frame
+            # (host mirror or device plane) without the embedder having to
+            # install a sampler by hand.
+            from ..obsv.shadow import ShadowSampler
+
+            hooks.shadow = ShadowSampler(
+                stride=config.shadow_stride,
+                registry=hooks.metrics,
+                recorder=hooks.recorder,
+            )
         self._waiters: list[_Waiter] = []
         self._wal_storage = wal_storage
         self._req_storage = req_storage
@@ -196,7 +203,7 @@ class Node:
         ported yet: this raises."""
         raise NotImplementedError(
             "Node.attach_app: the app commit stream (app/stream.py) is not "
-            "ported yet (ROADMAP queue 1, item 5c)"
+            "ported yet (ROADMAP queue 1, item 5)"
         )
 
     def step(self, source: int, msg: pb.Msg) -> None:
@@ -275,13 +282,16 @@ class Node:
             return None
 
     def audit_divergence(self, timeout: float = 5.0):
-        """The scalar/vector divergence oracle over this node's client
-        tracker.  The oracle (obsv/shadow.py) is not ported yet: this
-        raises."""
-        raise NotImplementedError(
-            "Node.audit_divergence: the shadow divergence oracle "
-            "(obsv/shadow.py) is not ported yet (ROADMAP queue 1, item 5a)"
-        )
+        """Run the scalar/vector divergence oracle (obsv.shadow) over this
+        node's client tracker, on the serializer thread (the tracker is
+        never safe to touch from outside it).  Returns the divergence list,
+        or None when the node is stopped or the audit timed out."""
+        reply: queue.Queue = queue.Queue(maxsize=1)
+        try:
+            self._put(("shadow_audit", reply))
+            return reply.get(timeout=timeout)
+        except (NodeStopped, queue.Empty):
+            return None
 
     def stop(self) -> None:
         """Idempotent, concurrency-safe shutdown: the first caller tears
@@ -456,6 +466,27 @@ class Node:
                     from ..status import state_machine_status
 
                     item[1].put(state_machine_status(self._machine))
+                elif kind == "shadow_audit":
+                    from ..obsv import shadow
+
+                    # An oracle bug must not crash a consensus node: report
+                    # it as a divergence record instead (callers fail the
+                    # audit loudly without losing the serializer).
+                    try:
+                        divs = shadow.audit_tracker(
+                            self._machine.client_tracker
+                        )
+                    except Exception as audit_err:
+                        divs = [
+                            {
+                                "component": "audit_error",
+                                "slot": -1,
+                                "client_id": -1,
+                                "req_no": -1,
+                                "detail": repr(audit_err),
+                            }
+                        ]
+                    item[1].put(divs)
                 else:
                     raise AssertionError(f"unknown inbox item {kind!r}")
         except BaseException as err:  # noqa: BLE001 — surfaced via exit_error

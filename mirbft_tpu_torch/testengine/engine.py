@@ -178,8 +178,16 @@ class Recorder:
         checkpoint_certs=None,
         record=True,
         deferred_nodes=(),
+        ack_plane=None,
+        ack_device="cuda",
     ):
         self.params = params or RuntimeParameters()
+        # The ack plane of every node's state machine: ack_plane "host" or
+        # "device" (None defers to the MIRBFT_ACK_PLANE knob, as in the
+        # JAX package), and the device plane's card, "cuda" (the kernels;
+        # raises without a card) or "cpu" (their plain versions).
+        self.ack_plane = ack_plane
+        self.ack_device = ack_device
         self.rng = random.Random(seed)
         self.node_count = node_count
         self.reqs_per_client = reqs_per_client
@@ -307,7 +315,7 @@ class Recorder:
                 state = NodeState()
                 state.crashed = True
                 self.node_states[node] = state
-                self.machines[node] = StateMachine()
+                self.machines[node] = self._new_machine()
                 continue
             self._start_node(node, at_time=0)
             self._schedule(self.params.tick_interval, node, _tick_event())
@@ -320,11 +328,16 @@ class Recorder:
 
     # -- bootstrap -----------------------------------------------------------
 
+    def _new_machine(self) -> StateMachine:
+        return StateMachine(
+            ack_plane=self.ack_plane, ack_device=self.ack_device
+        )
+
     def _start_node(self, node: int, at_time: int) -> None:
         """(Re)start a node: Initialize, replay its WAL model (or synthesize
         the bootstrap log, reference: mirbft.go:162-190), replay uncommitted
         requests, CompleteInitialization."""
-        self.machines[node] = StateMachine()
+        self.machines[node] = self._new_machine()
         state = self.node_states.get(node)
         if state is None:
             state = NodeState()

@@ -1,0 +1,159 @@
+"""Seeded cases for the device ack plane's step and sweep: a dense slot
+state and one padded ack batch holding every row class.
+
+The state mixes committed, slow, virgin and canonical slots; canonical
+slots carry vote masks near the quorums and extra non-null voters (the
+spam guard's "foreign" votes).  The batch's live rows crowd a few slots
+so that each sees many rows: duplicates of one (slot, source), several
+candidate digests for one virgin slot (the lowest row adopts), digests
+that conflict with the canonical one, rows on committed and slow slots,
+rows whose client lies past the plane, and padding rows (``valid`` 0,
+with junk in the other columns).
+
+``make_case`` returns numpy arrays only, so the JAX package's program,
+the port's plain version (tests/test_torch_ack_plane.py), the host
+rehearsal of the CUDA source (tests/rehearse_cuda.py) and the card
+(chip_smoke.py) all take the same inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+COMMITTED = 1
+SLOW = 2
+
+
+def quorums(limbs: int) -> tuple:
+    """(nodes, weak_q, strong_q) for a network that fills ``limbs`` limbs:
+    n = 32 * limbs nodes, f = (n - 1) // 3, weak f + 1, strong 2f + 1."""
+    n = 32 * limbs
+    f = (n - 1) // 3
+    return n, f + 1, 2 * f + 1
+
+
+def _bits(rng, count: int, nodes: int, limbs: int) -> np.ndarray:
+    """A (limbs,) uint32 mask with ``count`` random voters below ``nodes``."""
+    out = np.zeros(limbs, dtype=np.uint32)
+    for v in rng.choice(nodes, size=min(count, nodes), replace=False):
+        out[v >> 5] |= np.uint32(1) << np.uint32(v & 31)
+    return out
+
+
+def make_case(seed: int, rows: int, limbs: int, *, c_pad: int | None = None,
+              w_pad: int = 4) -> dict:
+    """One state and one batch of ``rows`` rows (a power of two).  The live
+    rows are about 7/8 of the batch; the rest is padding."""
+    rng = np.random.default_rng(seed)
+    nodes, weak_q, strong_q = quorums(limbs)
+    if c_pad is None:
+        c_pad = max(4, rows // (4 * w_pad))
+    total = c_pad * w_pad
+
+    flags = rng.choice(
+        np.array([0, 0, 0, 0, 0, COMMITTED, SLOW], dtype=np.uint8), total
+    )
+    canon_ok = (flags == 0) & (rng.random(total) < 0.6)
+    cand = rng.integers(0, 1 << 32, size=(total, 3, 8), dtype=np.uint32)
+    canon = np.where(canon_ok[:, None], cand[:, 0], 0).astype(np.uint32)
+    agree = np.zeros((total, limbs), dtype=np.uint32)
+    nonnull = np.zeros((total, limbs), dtype=np.uint32)
+    for s in np.flatnonzero(canon_ok):
+        count = int(rng.integers(max(0, weak_q - 4), strong_q + 2))
+        agree[s] = _bits(rng, count, nodes, limbs)
+        nonnull[s] = agree[s] | _bits(rng, 3, nodes, limbs)
+    held = rng.random(total) < 0.3
+    tick = rng.integers(0, 3, size=total).astype(np.uint8)
+
+    live = rows - rows // 8
+    # Crowd the rows into a quarter of the slots so slots see many rows.
+    hot = rng.choice(total, size=max(1, total // 4), replace=False)
+    slot = rng.choice(hot, size=live)
+    src = rng.integers(0, nodes, size=live).astype(np.int32)
+    # Mostly the canonical candidate; the others conflict with it (or, on
+    # a virgin slot, compete to be adopted).
+    which = rng.choice(np.array([0, 0, 0, 0, 1, 2]), size=live)
+    dig = cand[slot, which]
+    # Exact duplicates of earlier rows.
+    dup_rows = rng.choice(live, size=live // 16, replace=False)
+    for r in dup_rows:
+        other = int(rng.integers(0, live))
+        slot[r], src[r], dig[r] = slot[other], src[other], dig[other]
+    ci = (slot // w_pad).astype(np.int32)
+    w = (slot % w_pad).astype(np.int32)
+    # A few rows whose client lies past the plane.
+    far = rng.choice(live, size=max(1, live // 64), replace=False)
+    ci[far] = c_pad + rng.integers(0, 4, size=len(far))
+    valid = np.ones(live, dtype=bool)
+
+    pad = rows - live
+    ci = np.concatenate([ci, rng.integers(0, c_pad, pad).astype(np.int32)])
+    w = np.concatenate([w, rng.integers(0, w_pad, pad).astype(np.int32)])
+    src = np.concatenate([src, rng.integers(0, nodes, pad).astype(np.int32)])
+    dig = np.concatenate(
+        [dig, rng.integers(0, 1 << 32, size=(pad, 8), dtype=np.uint32)]
+    )
+    valid = np.concatenate([valid, np.zeros(pad, dtype=bool)])
+    return {
+        "c_pad": c_pad, "w_pad": w_pad, "limbs": limbs,
+        "weak_q": weak_q, "strong_q": strong_q,
+        "agree": agree.reshape(c_pad, w_pad, limbs),
+        "nonnull": nonnull.reshape(c_pad, w_pad, limbs),
+        "canon": canon.reshape(c_pad, w_pad, 8),
+        "canon_ok": canon_ok.reshape(c_pad, w_pad),
+        "flags": flags.reshape(c_pad, w_pad),
+        "held": held.reshape(c_pad, w_pad),
+        "tick": tick.reshape(c_pad, w_pad),
+        "ci": ci, "w": w, "src": src, "dig": dig, "valid": valid,
+    }
+
+
+STATE = ("agree", "nonnull", "canon", "canon_ok", "flags", "held", "tick")
+OUTPUTS = ("applied", "fallback", "dropped", "adopt", "weak", "strong",
+           "newcount")
+
+
+def torch_state(case: dict, device="cpu") -> list:
+    """The case's state as the port's tensors (masks and words as int32
+    bit patterns)."""
+    import torch
+
+    out = []
+    for name in STATE:
+        a = case[name]
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    return out
+
+
+def torch_batch(case: dict, device="cpu"):
+    """The case's batch as one packed (rows, 12) int32 tensor."""
+    import torch
+
+    from mirbft_tpu_torch.ops.ack_plane import pack_batch
+
+    return pack_batch(
+        torch.from_numpy(case["ci"]), torch.from_numpy(case["w"]),
+        torch.from_numpy(case["src"]),
+        torch.from_numpy(case["dig"].view(np.int32)),
+        torch.from_numpy(case["valid"]),
+    ).to(device)
+
+
+def state_numpy(state) -> dict:
+    """The port's state tensors back to numpy, masks and words as uint32."""
+    out = {}
+    for name, t in zip(STATE, state):
+        a = t.cpu().numpy()
+        if a.dtype == np.int32:
+            a = a.view(np.uint32)
+        out[name] = a
+    return out
+
+
+def row_classes(outputs: dict) -> dict:
+    """How many rows of each class a step's outputs hold (a case must
+    exercise every one)."""
+    return {name: int(np.asarray(outputs[name]).astype(bool).sum())
+            for name in OUTPUTS}

@@ -11,10 +11,10 @@ of one warp, ``__syncthreads`` at one of the block.  The source's PTX
 helpers (``cp.async``, ``mbarrier``: the functions from ``smem_addr`` up to
 ``rotr`` in ``sha256.cu``) are cut out, and the stub's host versions stand
 in for them.  Dynamic shared memory is a buffer a block.  The
-``extern "C"`` launchers are cut off and a driver launches the kernels
+``extern "C"`` launchers are cut off and a host main launches the kernels
 itself.
 
-    python3 tests/rehearse_cuda.py [ladder|sha256|decompress] [--rows N]
+    python3 tests/rehearse_cuda.py [ladder|sha256|decompress|ack] [--rows N]
 
 ``ladder`` runs the quad ladder on rows it builds with the host oracle
 (valid signatures, corrupted ones, the identity and a point of order 8 as
@@ -23,11 +23,16 @@ digest bodies on ragged batches at several buckets against hashlib;
 ``decompress`` runs point decompression, a group of lanes a point, on the
 decompression corpus (tests/ed25519_corpus.py) and on ragged row counts,
 and checks (x, y, ok) against the oracle and, bit for bit, against the
-plain version, and that no group past the rows writes.  The thread counts of the kernels are cut to keep the host
-threads few (the ladder's block to 2 quads, the decompress block to one
-warp, the one-thread body's block to 16 rows, the specialised body's warps
-to 8 lanes), so the rehearsal runs the card's code at a smaller block than
-the card does.  Exit status 0 when every check passes.
+plain version, and that no group past the rows writes; ``ack`` runs the
+ack plane's step (its three kernels, one host thread a row, on the stub's
+host atomics) and sweep on seeded cases (tests/ack_plane_cases.py) and
+checks the state, the row outputs and the sweep bit for bit against the
+plain versions, and that the adoption scratch is empty after the step.
+The thread counts of the kernels are cut to keep the host threads few (the
+ladder's block to 2 quads, the decompress block to one warp, the
+one-thread body's block to 16 rows, the specialised body's warps to 8
+lanes, the ack plane's block to two warps), so the rehearsal runs the
+card's code at a smaller block than the card does.  Exit status 0 when every check passes.
 ``tests/test_torch_rehearse.py`` runs it under pytest.
 """
 
@@ -152,6 +157,18 @@ inline uint32_t __shfl_down_sync(unsigned, uint32_t v, int delta) {
 inline uint32_t atomicAdd(uint32_t* p, uint32_t v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline int32_t atomicMin(int32_t* p, int32_t v) {
+  int32_t old = __atomic_load_n(p, __ATOMIC_SEQ_CST);
+  while (v < old && !__atomic_compare_exchange_n(p, &old, v, false,
+                                                 __ATOMIC_SEQ_CST,
+                                                 __ATOMIC_SEQ_CST)) {
+  }
+  return old;
+}
+inline uint32_t atomicOr(uint32_t* p, uint32_t v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
+inline int __popc(uint32_t v) { return __builtin_popcount(v); }
 inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, int n) {
   n &= 31;
   return n ? (lo >> n) | (hi << (32 - n)) : lo;
@@ -219,7 +236,7 @@ inline void write_all(const char* path, const void* p, size_t n) {
 }
 """
 
-LADDER_DRIVER = r"""
+LADDER_MAIN = r"""
 // argv: input file (n, then xy, ok, s_words, k_words, consts), output file.
 int main(int argc, char** argv) {
   g_warp = 8;
@@ -241,7 +258,7 @@ int main(int argc, char** argv) {
 }
 """
 
-DECOMPRESS_DRIVER = r"""
+DECOMPRESS_MAIN = r"""
 // argv: input file (rows, 3 ints of padding, the (rows, 8) encoding words,
 // consts), output file: xy and ok for rows + 1 rows, each set to -1 first,
 // so a write past the rows shows.
@@ -264,7 +281,7 @@ int main(int argc, char** argv) {
 }
 """
 
-SHA256_DRIVER = r"""
+SHA256_MAIN = r"""
 // argv: input file (batch, max_blocks, blocks, n_blocks), output files of
 // the one-thread body and the warp-specialised body.
 int main(int argc, char** argv) {
@@ -288,6 +305,70 @@ int main(int argc, char** argv) {
 }
 """
 
+ACK_MAIN = r"""
+// argv: input file (8 ints: rows, c_pad, w_pad, limbs, weak_q, strong_q,
+// 0, 0; the (rows, 12) batch; agree, nonnull, canon as uint32; canon_ok,
+// flags, held, tick as bytes), output file: the state after the step
+// (agree, nonnull, canon, canon_ok, tick), the row outputs, the adoption
+// scratch after the step, then the tick after the sweep and its totals.
+int main(int argc, char** argv) {
+  std::vector<char> in = read_all(argv[1]);
+  const int32_t* p = reinterpret_cast<const int32_t*>(in.data());
+  const int rows = p[0], c_pad = p[1], w_pad = p[2], limbs = p[3];
+  const int weak_q = p[4], strong_q = p[5];
+  const int total = c_pad * w_pad;
+  const int32_t* batch = p + 8;
+  const uint32_t* u = reinterpret_cast<const uint32_t*>(batch + 12 * rows);
+  std::vector<uint32_t> agree(u, u + total * limbs);
+  u += total * limbs;
+  std::vector<uint32_t> nonnull(u, u + total * limbs);
+  u += total * limbs;
+  std::vector<uint32_t> canon(u, u + total * 8);
+  u += total * 8;
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(u);
+  std::vector<uint8_t> canon_ok(b, b + total), flags(b + total, b + 2 * total),
+      held(b + 2 * total, b + 3 * total), tick(b + 3 * total, b + 4 * total);
+  std::vector<int32_t> first(total, kFirstNone), scratch(2 * rows, -7),
+      out(rows, -7);
+  const int grid = (rows + kAckThreads - 1) / kAckThreads;
+  launch(grid, kAckThreads, 0, [&] {
+    mirbft_ack_classify_kernel(batch, agree.data(), nonnull.data(),
+                               canon_ok.data(), flags.data(), first.data(),
+                               scratch.data(), rows, c_pad, w_pad, limbs);
+  });
+  launch(grid, kAckThreads, 0, [&] {
+    mirbft_ack_apply_kernel(batch, agree.data(), nonnull.data(), canon.data(),
+                            canon_ok.data(), first.data(), scratch.data(),
+                            out.data(), rows, limbs);
+  });
+  launch(grid, kAckThreads, 0, [&] {
+    mirbft_ack_finish_kernel(agree.data(), held.data(), tick.data(),
+                             first.data(), scratch.data(), out.data(), rows,
+                             limbs, weak_q, strong_q);
+  });
+  std::vector<uint8_t> tick_after_step(tick);
+  std::vector<uint32_t> totals(3, 0);
+  launch((total + kAckThreads - 1) / kAckThreads, kAckThreads, 0, [&] {
+    mirbft_ack_sweep_kernel(agree.data(), canon_ok.data(), flags.data(),
+                            held.data(), tick.data(), totals.data(), total,
+                            limbs, weak_q, strong_q);
+  });
+  FILE* f = std::fopen(argv[2], "wb");
+  std::fwrite(agree.data(), 4, agree.size(), f);
+  std::fwrite(nonnull.data(), 4, nonnull.size(), f);
+  std::fwrite(canon.data(), 4, canon.size(), f);
+  std::fwrite(canon_ok.data(), 1, total, f);
+  std::fwrite(tick_after_step.data(), 1, total, f);
+  std::fwrite(out.data(), 4, rows, f);
+  std::fwrite(first.data(), 4, total, f);
+  std::fwrite(tick.data(), 1, total, f);
+  std::fwrite(totals.data(), 4, 3, f);
+  std::fclose(f);
+  return 0;
+}
+"""
+
+ACK_THREADS = 64  # the ack plane's block in the rehearsal: two warps
 DEC_THREADS = 32  # decompression's block in the rehearsal: one warp
 # Host thread counts: the ladder's block cut to 2 quads, decompression's
 # to one warp, the digest kernel's one-thread body to 16 rows a block and
@@ -297,6 +378,10 @@ CUTS = {
         r"constexpr int kLadderThreads = \d+;": "constexpr int kLadderThreads = 8;",
         r"constexpr int kDecThreads = \d+;":
             f"constexpr int kDecThreads = {DEC_THREADS};",
+    },
+    "ack_plane": {
+        r"constexpr int kAckThreads = \d+;":
+            f"constexpr int kAckThreads = {ACK_THREADS};",
     },
     "sha256": {
         r"constexpr int kThreads = \d+;": "constexpr int kThreads = 16;",
@@ -344,12 +429,12 @@ def host_source(name: str) -> str:
     return STUB + src
 
 
-def compile_driver(name: str, driver: str, workdir: Path) -> Path:
+def compile_host_main(name: str, main: str, workdir: Path) -> Path:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found: the rehearsal compiles host C++")
     source = workdir / f"{name}_host.cpp"
-    source.write_text(host_source(name) + driver)
+    source.write_text(host_source(name) + main)
     binary = workdir / f"{name}_host"
     proc = subprocess.run(
         [gxx, "-std=c++17", "-O2", "-pthread", "-Wall", "-Wno-unused-function",
@@ -396,7 +481,7 @@ def rehearse_ladder(n: int, workdir: Path) -> int:
     from mirbft_tpu_torch.crypto import ed25519_host as host
     from mirbft_tpu_torch.ops import ed25519
 
-    binary = compile_driver("ed25519", LADDER_DRIVER, workdir)
+    binary = compile_host_main("ed25519", LADDER_MAIN, workdir)
     rows = ladder_rows(n, seed=n)
     marshalled = [ed25519.marshal_light(*row) for row in rows]
     enc, s_words, k_words = ed25519.pack_rows(marshalled)
@@ -425,7 +510,7 @@ def rehearse_decompress(encodings: list, workdir: Path) -> int:
     from mirbft_tpu_torch.crypto import ed25519_host as host
     from mirbft_tpu_torch.ops import ed25519
 
-    binary = compile_driver("ed25519", DECOMPRESS_DRIVER, workdir)
+    binary = compile_host_main("ed25519", DECOMPRESS_MAIN, workdir)
     rows = len(encodings)
     words = ed25519._words(encodings)
     blob = (np.array([rows, 0, 0, 0], dtype=np.int32).tobytes()
@@ -471,7 +556,7 @@ def decompress_rows(rows: int, seed: int) -> list:
 def rehearse_sha256(workdir: Path) -> int:
     from mirbft_tpu_torch.ops.batching import pack_preimages
 
-    binary = compile_driver("sha256", SHA256_DRIVER, workdir)
+    binary = compile_host_main("sha256", SHA256_MAIN, workdir)
     rng = random.Random(5)
     failures = 0
     for bucket, rows in ((1, 24), (2, 20), (8, 19), (32, 9), (128, 9)):
@@ -502,10 +587,89 @@ def rehearse_sha256(workdir: Path) -> int:
     return 1 if failures else 0
 
 
+#: (rows, limbs) of the ack plane's rehearsal: the smallest padded batch
+#: at one and two limbs, the next at three.
+ACK_CASES = ((1024, 1), (1024, 2), (2048, 3))
+
+
+def rehearse_ack(rows: int, limbs: int, workdir: Path) -> int:
+    """The step's three kernels and the sweep on the host, on a seeded case
+    (tests/ack_plane_cases.py) holding every row class, against the plain
+    versions bit for bit: the state, the row outputs, the sweep's tick and
+    totals; the adoption scratch must be empty again after the step."""
+    import torch
+    from ack_plane_cases import make_case, torch_batch, torch_state
+
+    from mirbft_tpu_torch.ops import ack_plane
+
+    binary = compile_host_main("ack_plane", ACK_MAIN, workdir)
+    case = make_case(rows * 7 + limbs, rows, limbs)
+    total = case["c_pad"] * case["w_pad"]
+    header = np.array(
+        [rows, case["c_pad"], case["w_pad"], limbs, case["weak_q"],
+         case["strong_q"], 0, 0], dtype=np.int32,
+    )
+    batch = torch_batch(case).numpy()
+    blob = b"".join([
+        header.tobytes(), batch.tobytes(),
+        case["agree"].tobytes(), case["nonnull"].tobytes(),
+        case["canon"].tobytes(),
+        case["canon_ok"].astype(np.uint8).tobytes(),
+        case["flags"].tobytes(), case["held"].astype(np.uint8).tobytes(),
+        case["tick"].tobytes(),
+    ])
+    (workdir / "ack.in").write_bytes(blob)
+    subprocess.run([str(binary), str(workdir / "ack.in"),
+                    str(workdir / "ack.out")], check=True)
+    raw = (workdir / "ack.out").read_bytes()
+    got = {}
+    at = 0
+    for name, dtype, count in (
+        ("agree", np.uint32, total * limbs), ("nonnull", np.uint32, total * limbs),
+        ("canon", np.uint32, total * 8), ("canon_ok", np.uint8, total),
+        ("tick", np.uint8, total), ("out", np.int32, rows),
+        ("first", np.int32, total), ("swept_tick", np.uint8, total),
+        ("totals", np.uint32, 3),
+    ):
+        size = np.dtype(dtype).itemsize * count
+        got[name] = np.frombuffer(raw[at:at + size], dtype=dtype)
+        at += size
+
+    state = torch_state(case)
+    out = ack_plane.ack_step_plain(
+        *state, torch.from_numpy(batch), weak_q=case["weak_q"],
+        strong_q=case["strong_q"],
+    )
+    want = {
+        "agree": state[0].numpy().view(np.uint32).ravel(),
+        "nonnull": state[1].numpy().view(np.uint32).ravel(),
+        "canon": state[2].numpy().view(np.uint32).ravel(),
+        "canon_ok": state[3].numpy().astype(np.uint8).ravel(),
+        "tick": state[6].numpy().ravel().copy(),
+        "out": out.numpy(),
+        "first": np.full(total, ack_plane.FIRST_NONE, dtype=np.int32),
+    }
+    totals = ack_plane.quorum_sweep_plain(
+        state[0], state[3], state[4], state[5], state[6],
+        weak_q=case["weak_q"], strong_q=case["strong_q"],
+    )
+    want["swept_tick"] = state[6].numpy().ravel()
+    want["totals"] = totals.numpy().astype(np.uint32)
+    bad = [name for name in want if not np.array_equal(got[name], want[name])]
+    classes = ack_plane.unpack_step(out)
+    print(f"ack plane, {rows} rows x {limbs} limbs on the host: "
+          + ", ".join(f"{k} {int(v.to(torch.bool).sum())}"
+                      for k, v in classes.items())
+          + f"; sweep {got['totals'].tolist()}: "
+          + ("state, row outputs, sweep == plain" if not bad
+             else f"{bad} differ"))
+    return 1 if bad else 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("what", nargs="*", default=["ladder", "sha256"],
-                        choices=["ladder", "sha256", "decompress"])
+                        choices=["ladder", "sha256", "decompress", "ack"])
     parser.add_argument("--rows", type=int, default=6,
                         help="ladder rows (default 6: two ragged blocks)")
     args = parser.parse_args(argv)
@@ -516,6 +680,9 @@ def main(argv=None) -> int:
             status |= rehearse_ladder(args.rows, workdir)
         if "sha256" in args.what:
             status |= rehearse_sha256(workdir)
+        if "ack" in args.what:
+            for rows, limbs in ACK_CASES:
+                status |= rehearse_ack(rows, limbs, workdir)
         if "decompress" in args.what:
             from ed25519_corpus import decompression_corpus
 

@@ -290,3 +290,89 @@ def test_cuda_four_node_live_run_on_the_card(card):
         for preimages, raw in kept:
             want = b"".join(hashlib.sha256(m).digest() for m in preimages)
             assert raw[: len(want)] == want and len(raw) == 32 * rows
+
+
+# -- the device ack plane -------------------------------------------------------
+
+ACK_CASES = [(1024, 1), (1024, 2), (4096, 3), (65536, 1)]
+
+
+@pytest.mark.parametrize("rows,limbs", ACK_CASES,
+                         ids=[f"rows{r}-limbs{l}" for r, l in ACK_CASES])
+def test_ack_plane_kernels_equal_their_plain_versions(card, rows, limbs):
+    """The step's three launches and the sweep on seeded cases holding
+    every row class (tests/ack_plane_cases.py), against the plain versions
+    on the same card, bit for bit: every state array, the packed row
+    outputs, the sweep's totals and tick; the adoption scratch is empty
+    again after the step; one launch counted each."""
+    from ack_plane_cases import make_case, torch_batch, torch_state
+    from mirbft_tpu_torch.ops import ack_plane
+
+    case = make_case(rows * 13 + limbs, rows, limbs)
+    kw = dict(weak_q=case["weak_q"], strong_q=case["strong_q"])
+    kernel_state = torch_state(case, card)
+    plain_state = torch_state(case, card)
+    batch = torch_batch(case, card)
+    first = ack_plane.new_first(case["c_pad"] * case["w_pad"], card)
+    before = (ack_plane.ack_step.launches, ack_plane.quorum_sweep.launches)
+    out = ack_plane.ack_step(*kernel_state, batch, first=first, **kw)
+    want = ack_plane.ack_step_plain(*plain_state, batch, **kw)
+    assert torch.equal(out, want)
+    for got, expected in zip(kernel_state, plain_state):
+        assert torch.equal(got, expected)
+    assert bool((first == ack_plane.FIRST_NONE).all())
+    totals = ack_plane.quorum_sweep(
+        kernel_state[0], kernel_state[3], kernel_state[4], kernel_state[5],
+        kernel_state[6], **kw,
+    )
+    plain_totals = ack_plane.quorum_sweep_plain(
+        plain_state[0], plain_state[3], plain_state[4], plain_state[5],
+        plain_state[6], **kw,
+    )
+    assert totals.tolist() == plain_totals.tolist()
+    assert torch.equal(kernel_state[6], plain_state[6])
+    assert (ack_plane.ack_step.launches,
+            ack_plane.quorum_sweep.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_device_plane_tracker_on_the_card(card):
+    """A tracker on the device plane on the card: a three-source storm
+    certifies every slot, the oracle finds nothing, and the sweep's totals
+    come from the kernel."""
+    from mirbft_tpu_torch.core.client_tracker import ClientTracker
+    from mirbft_tpu_torch.core.msgbuffers import NodeBuffers
+    from mirbft_tpu_torch.core.persisted import Persisted
+    from mirbft_tpu_torch.core.preimage import host_digest, request_hash_data
+    from mirbft_tpu_torch.obsv import shadow
+    from mirbft_tpu_torch.ops import ack_plane
+
+    state = pb.NetworkState(
+        config=pb.NetworkConfig(nodes=[0, 1, 2, 3], f=1, number_of_buckets=4,
+                                checkpoint_interval=5, max_epoch_length=50),
+        clients=[pb.NetworkClient(id=7, width=100, low_watermark=0)],
+    )
+    persisted = Persisted()
+    persisted.add_c_entry(pb.CEntry(seq_no=0, checkpoint_value=b"genesis",
+                                    network_state=state))
+    my = pb.InitialParameters(id=0, buffer_size=1 << 20)
+    tracker = ClientTracker(persisted, NodeBuffers(my), my,
+                            ack_plane="device")
+    tracker.reinitialize()
+    acks = []
+    for i in range(40):
+        request = pb.Request(client_id=7, req_no=i, data=b"tx")
+        acks.append(pb.RequestAck(
+            client_id=7, req_no=i,
+            digest=host_digest(request_hash_data(request)),
+        ))
+    before = ack_plane.ack_step.launches
+    for source in (1, 2, 3):
+        tracker.step_ack_many(source, [pb.Msg(type=a) for a in acks])
+    plane = tracker._device
+    assert plane.device.type == "cuda"
+    assert ack_plane.ack_step.launches == before + 3
+    assert plane.acks_fallback == 0
+    assert shadow.audit_tracker(tracker) == []
+    assert plane.quorum_sweep() == {
+        "weak_certs": 40, "strong_certs": 40, "committed": 0,
+    }

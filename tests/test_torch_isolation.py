@@ -1,6 +1,6 @@
 """The port stands alone: mirbft_tpu_torch imports neither jax nor the JAX
 package, its entry points refuse to run on a card that is not there, and
-the unported device ack plane raises instead of falling back."""
+the device ack plane raises instead of falling back to the host plane."""
 
 import ast
 import os
@@ -280,6 +280,39 @@ NEW_MODULES = [
 ]
 
 
+#: The device ack plane and its oracle.
+ACK_PLANE_MODULES = [
+    "ops/ack_plane.py", "core/device_tracker.py", "core/client_tracker.py",
+    "obsv/device.py", "obsv/recorder.py", "obsv/shadow.py",
+]
+
+
+@pytest.mark.parametrize("name", ACK_PLANE_MODULES)
+def test_ack_plane_modules_import_neither_jax_nor_the_jax_package(name):
+    """Checked by the source's import statements, including the imports
+    inside functions (the JAX package's plane imported jax lazily)."""
+    path = PORT / name
+    assert path.exists(), name
+    bad = [m for m in _imports(path) if m and forbidden(m)]
+    assert not bad, f"{name}: {bad}"
+    assert "jax" not in path.read_text().replace("JAX", "").split(), name
+
+
+def test_ack_plane_has_no_host_fallback():
+    """The tracker's plane build and the wrapper's launch hold no try
+    statement: a failure raises out of them."""
+    import inspect
+
+    from mirbft_tpu_torch.core.client_tracker import ClientTracker
+    from mirbft_tpu_torch.ops import ack_plane
+
+    for fn in (ClientTracker._build_device, ClientTracker.reinitialize,
+               ack_plane.ack_step, ack_plane.quorum_sweep):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], fn
+    assert not hasattr(device_tracker, "device_plane_available")
+
+
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_live_node_modules_import_neither_jax_nor_the_jax_package(name):
     path = PORT / name
@@ -315,18 +348,27 @@ def test_recorder_has_no_hash_executor_route():
         )
 
 
-def test_device_ack_plane_raises():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        device_tracker.resolve_ack_plane("device")
+def test_device_ack_plane_raises(monkeypatch):
+    """"device" resolves; on its default card, "cuda", with no card the
+    plane's build raises; "gpu" is no plane at all."""
+    assert device_tracker.resolve_ack_plane("device") == "device"
     assert device_tracker.resolve_ack_plane("host") == "host"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        device_tracker.require_device("cuda")
+    assert device_tracker.require_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         device_tracker.resolve_ack_plane("gpu")
 
 
-def test_device_ack_plane_raises_through_the_state_machine():
+def test_device_ack_plane_raises_through_the_state_machine(monkeypatch):
+    """A state machine on the device plane, on its default card, raises
+    when it initialises without a card: it does not run the host plane."""
     from mirbft_tpu_torch import pb
 
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     machine = StateMachine(ack_plane="device")
+    assert machine.ack_device == "cuda"
     init = pb.StateEvent(
         type=pb.EventInitialize(
             initial_parms=pb.InitialParameters(
@@ -335,15 +377,19 @@ def test_device_ack_plane_raises_through_the_state_machine():
             )
         )
     )
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         machine.apply_event(init)
 
 
 def test_device_ack_plane_env_knob_raises_in_the_engine(monkeypatch):
+    """The MIRBFT_ACK_PLANE knob selects the device plane in the engine as
+    in the JAX package; on the default card and with no card, the run
+    raises instead of running on the host plane."""
     monkeypatch.setenv("MIRBFT_ACK_PLANE", "device")
-    recorder = BasicRecorder(
-        node_count=1, client_count=1, reqs_per_client=3,
-        hash_plane=AsyncKernelHashPlane(device="cpu"),
-    )
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        recorder = BasicRecorder(
+            node_count=1, client_count=1, reqs_per_client=3,
+            hash_plane=AsyncKernelHashPlane(device="cpu"),
+        )
         recorder.drain_clients(max_steps=20000)

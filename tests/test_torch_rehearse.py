@@ -1,9 +1,10 @@
 """The CUDA sources of the port rehearsed on the host with g++
 (tests/rehearse_cuda.py): the quad ladder's verdicts against the RFC 8032
 oracle, decompression's points against the oracle and its plain version,
-and both SHA-256 digest bodies against hashlib, with every shuffle, warp
-reduction and mbarrier of the card's code modelled by host threads.  The
-card itself runs them in tests/test_torch_chip.py."""
+both SHA-256 digest bodies against hashlib, and the ack plane's step and
+sweep against their plain versions, with every shuffle, warp reduction,
+atomic and mbarrier of the card's code modelled by host threads.  The card
+itself runs them in tests/test_torch_chip.py."""
 
 import shutil
 
@@ -41,7 +42,20 @@ def test_both_digest_bodies_equal_hashlib_on_the_host(gxx, tmp_path):
     assert rehearse_cuda.rehearse_sha256(tmp_path) == 0
 
 
-@pytest.mark.parametrize("name", ["ed25519", "sha256"])
+@pytest.mark.parametrize(
+    "rows,limbs", rehearse_cuda.ACK_CASES,
+    ids=[f"rows{r}-limbs{l}" for r, l in rehearse_cuda.ACK_CASES],
+)
+def test_ack_plane_equals_its_plain_version_on_the_host(gxx, tmp_path, rows,
+                                                        limbs):
+    """The step's three kernels, one host thread a row, and the sweep, on a
+    seeded case holding every row class: state, row outputs, sweep tick
+    and totals bit for bit against the plain versions, and the adoption
+    scratch empty again after the step."""
+    assert rehearse_cuda.rehearse_ack(rows, limbs, tmp_path) == 0
+
+
+@pytest.mark.parametrize("name", ["ed25519", "sha256", "ack_plane"])
 def test_host_source_cuts_the_launchers_and_the_ptx(name):
     text = rehearse_cuda.host_source(name)
     assert 'extern "C"' not in text and "<<<" not in text
