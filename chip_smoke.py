@@ -8,9 +8,9 @@ CUDA toolkit:
 Phases (any failure raises and the script exits nonzero):
 
 1. print the card's name and power limit; build the SHA-256 (digest and
-   chain), Ed25519 and ack-plane kernels from
-   ``mirbft_tpu_torch/csrc/{sha256,ed25519,ack_plane}.cu`` (one ``nvcc``
-   each, started together) and print ptxas's register, spill and
+   chain), Ed25519, ack-plane and BLS G1 kernels from
+   ``mirbft_tpu_torch/csrc/{sha256,ed25519,ack_plane,bls_g1}.cu`` (one
+   ``nvcc`` each, started together) and print ptxas's register, spill and
    shared-memory report (the ladder's dynamic shared memory beside it);
 2. hold the SHA-256 kernel against its plain PyTorch version and hashlib,
    bit for bit: block-boundary lengths, rows with fewer blocks than the
@@ -108,7 +108,29 @@ Phases (any failure raises and the script exits nonzero):
     seconds; then each kernel's CUDA-event time on the rung's own batches
     (each source's first frame on the state it met) and the anchor's
     launch shape, beside its byte bound (bytes / 3.35 TB/s) and its plain
-    version's time, and the launches of the rung's run.
+    version's time, and the launches of the rung's run;
+14. the BLS G1 aggregation kernel (``csrc/bls_g1.cu``) against its plain
+    version on the card, bit for bit, and its affine points against the
+    host fold (``bls_host.aggregate_g1``), on tests/bls_cases.py's seeded
+    certificates: absent voters in the middle, a certificate with no vote
+    (None), one voter twice, P with -P, the generator, and the launches
+    (4, 4), rung 4's (4, 128), (64, 128) and rung 5's (4, 256); then its
+    time at (4, 128) and (64, 128) (CUDA events over launches queued
+    behind a spin kernel) beside its bound (its integer instructions over
+    the INT32 rate, its bytes over 3.35 TB/s), its chain floor (the
+    longest certificate's chain of additions) and the plain version's
+    time;
+15. ladder rung 4 at full scale (``mirbft_tpu_torch.bench.rung4_run``, the
+    JAX package's bench.py:763-841: 128 nodes, f = 42, 32 clients x 16
+    requests, BatchSize 20, 30 ms link jitter, half of node 120's frames
+    dropped for 2 simulated seconds, checkpoint certificates of 85 BLS
+    votes) on the kernel hash plane and the kernel certificate plane: the
+    JAX package's event count and app chain, 512 commits on every node, a
+    certificate aggregated by the kernel (counted; no host fold) that
+    verifies while a tampered statement fails, equal to
+    ``bls_host.aggregate_g1`` of its votes, every digest on the card;
+    committed req/s, the aggregate's device ms on the rung's votes, and
+    the card's idle share.
 
 It then prints the kernels as one JSON line, the card's name and power
 limit, and, last, the result line the chip check reads.  Without a CUDA
@@ -171,6 +193,13 @@ ED25519_COMPARED = tuple(sorted(
 DECOMPRESS_CORPUS_ROWS = (1, 3, 7, 8, 1024, 1025, 8192)
 POOL_PROCESSES = 8
 ANCHOR_W_PAD = 128  # the anchor's ack plane: windows of 101 slots, padded
+# Phase 14: the BLS kernel timed at rung 4's launch and at a full batch.
+BLS_TIMED = ((4, 128), (64, 128))
+# The JAX package's own rung-4 run on a CPU (bench.py:763-841):
+# tests/test_torch_bls.py::test_rung4_equals_the_jax_rung holds the port's
+# run to it.
+RUNG4_EVENTS = 241543
+RUNG4_CHAIN = "6c355228b675df19bd7b97b1628fb59d5b55a1578529f10b7f74d961c42ea485"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT32_LANES_PER_SM = 64  # Hopper SM: 4 partitions x 16 INT32 lanes
 IV = (
@@ -193,6 +222,11 @@ def nvidia_smi(query: str) -> str:
 
 def sm_clock_mhz() -> float:
     return float(nvidia_smi("clocks.sm").split()[0])
+
+
+def max_sm_clock_mhz() -> float:
+    """The SM clock the card's peak rates assume (its boost clock)."""
+    return float(nvidia_smi("clocks.max.sm").split()[0])
 
 
 def as_uint32(words):
@@ -498,6 +532,65 @@ def ack_plane_cases():
     import ack_plane_cases
 
     return ack_plane_cases
+
+
+def bls_cases():
+    """tests/bls_cases.py: the seeded certificates of the BLS kernel's
+    launches, shared with the tests and the host rehearsal."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import bls_cases
+
+    return bls_cases
+
+
+def compare_bls(label, certs, voters) -> tuple:
+    """The BLS kernel and its plain version on the card, on one launch's
+    inputs: outputs bit for bit equal, affine points equal to the host
+    fold.  Returns the CPU inputs, the kernel's affine points and the
+    plain version's wall ms (one call, synchronised: its hundreds of
+    thousands of small launches make a second call a waste)."""
+    import torch
+
+    from mirbft_tpu_torch.ops import bls_g1
+
+    arrays = [torch.from_numpy(a) for a in
+              bls_g1.pack_certificates(certs, voters)]
+    dev = [a.cuda() for a in arrays]
+    out = bls_g1.aggregate_points(*dev)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    plain = bls_g1.aggregate_plain(*dev)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - start) * 1e3
+    check(torch.equal(out, plain),
+          f"bls {label}: kernel != plain at {tuple(arrays[3].shape)}")
+    points = [bls_g1.to_affine(xyz) for xyz in bls_g1.canonical(out)]
+    check(points[: len(certs)] == bls_cases().host_sums(certs),
+          f"bls {label}: != the host fold")
+    check(all(p is None for p in points[len(certs):]),
+          f"bls {label}: a padding certificate is not the identity")
+    return arrays, points, plain_ms
+
+
+def bls_bounds(mask, sms: int, clock: float) -> dict:
+    """The BLS kernel's bound on one launch's data: its integer
+    instructions over the INT32 rate and its bytes over 3.35 TB/s, and
+    its chain floor (``ops/bls_g1.py``: what this mask needs)."""
+    from mirbft_tpu_torch.ops import bls_g1
+
+    ops = bls_g1.aggregate_ops(mask)
+    moved = bls_g1.aggregate_bytes(mask)
+    ops_ms = ops / (sms * INT32_LANES_PER_SM * clock * 1e6) * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return dict(
+        int_ops=ops, bytes=moved, ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+        bound_ms=max(ops_ms, bytes_ms),
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        chain_floor_ms=bls_g1.chain_floor_cycles(mask) / (clock * 1e3),
+        additions=sum(bls_g1.needed_additions(mask)),
+    )
 
 
 def compare_step(label, state0, batch, kw):
@@ -867,6 +960,122 @@ def ed25519_bounds(n: int, sms: int, clock: float) -> dict:
     return out
 
 
+def bls_phases(sms: int, t0: float) -> dict:
+    """Phases 14 and 15: the BLS G1 kernel against its plain version and
+    timed, then ladder rung 4 at full scale.  Returns what the kernels
+    line reads."""
+    from mirbft_tpu_torch import bench as port_bench
+    from mirbft_tpu_torch.ops import bls_g1
+    from mirbft_tpu_torch.ops.sha256 import sha256_digest_words
+
+    # -- phase 14: the BLS G1 aggregation kernel == plain == host fold -------
+
+    # Bounds and chain floors at the boost clock (the idle card reads far
+    # lower between launches); the clock sampled after each timing beside.
+    bls_clock = max_sm_clock_mhz()
+    bls_timed = {}
+    for label, certs, voters in bls_cases().cases():
+        arrays, points, plain_ms = compare_bls(label, certs, voters)
+        shape = tuple(arrays[3].shape)
+        print(f"  bls {label}: kernel == plain at {shape}, == the host fold"
+              f" ({sum(p is None for p in points[: len(certs)])} "
+              "identities)")
+        if label.startswith("edges (4, 4)"):
+            check(points[1] is None and points[3] is None,
+                  "bls: the empty or the cancelling certificate is not None")
+        if shape in BLS_TIMED and shape not in bls_timed:
+            bls_timed[shape] = arrays, plain_ms
+    bls_shapes = []
+    for shape in BLS_TIMED:
+        arrays, plain_ms = bls_timed[shape]
+        dev = [a.cuda() for a in arrays]
+        ms, call_ms = time_device(lambda dev=dev: bls_g1.aggregate_points(*dev),
+                                  reps=20)
+        sampled = sm_clock_mhz()
+        bound = bls_bounds(arrays[3], sms, bls_clock)
+        bls_shapes.append({"shape": list(shape), "ms": ms, "call_ms": call_ms,
+                           "plain_ms": plain_ms, "sampled_clock_mhz": sampled,
+                           **bound})
+        print(f"  bls kernel at {shape}: {ms:.6f} ms (CUDA events, 20 "
+              f"launches behind a spin kernel; host call {call_ms:.6f} ms), "
+              f"bound {bound['bound_ms']:.6f} ms by {bound['bound_by']} "
+              f"({bound['int_ops']} integer instructions for "
+              f"{bound['additions']} additions / {sms} SMs x 64 lanes at "
+              f"{bls_clock:.0f} MHz (sampled after: {sampled:.0f} MHz) = "
+              f"{bound['ops_bound_ms']:.6f} ms; "
+              f"{bound['bytes']} bytes / 3.35 TB/s = "
+              f"{bound['bytes_bound_ms']:.6f} ms), chain floor "
+              f"{bound['chain_floor_ms']:.6f} ms "
+              f"({100 * bound['chain_floor_ms'] / ms:.2f}% of the kernel's "
+              f"time), plain "
+              f"{plain_ms:.6f} ms (wall, one call on the card); library_ms "
+              "null (no PyTorch call adds G1 points)")
+    print(f"phase 14 ok: the BLS G1 kernel == plain, bit for bit, and == "
+          f"the host fold on {len(bls_cases().cases())} launches (done at "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 15: ladder rung 4 at full scale ---------------------------------
+    bls_g1.aggregate_points.launches = 0
+    bls_g1.aggregate_points.launches_by_shape.clear()
+    sha256_digest_words.launches = 0
+    rung4 = port_bench.rung4_run(device="cuda")
+    rung4_launches = {"bls_aggregate": bls_g1.aggregate_points.launches,
+                      "sha256_digest": sha256_digest_words.launches}
+    rung4_shapes = dict(bls_g1.aggregate_points.launches_by_shape)
+    check(rung4["events"] == RUNG4_EVENTS,
+          f"rung 4: {rung4['events']} events, the JAX package's run "
+          f"{RUNG4_EVENTS}")
+    check(rung4["chain"] == RUNG4_CHAIN, f"rung 4: chain {rung4['chain']}")
+    check(rung4["commits"] == [port_bench.RUNG4_CLIENTS
+                               * port_bench.RUNG4_REQS],
+          f"rung 4: commits per node {rung4['commits']}")
+    check(rung4["certificates"] >= 1 and rung4["device_batches"] >= 1
+          and rung4["host_folds"] == 0,
+          f"rung 4: {rung4['certificates']} certificates, "
+          f"{rung4['device_batches']} launches, {rung4['host_folds']} host "
+          "folds")
+    check(rung4_launches["bls_aggregate"] == rung4["device_batches"],
+          f"rung 4: BLS launches {rung4_launches}")
+    check(rung4["host_digests"] == 0 and rung4["device_digests"] > 0
+          and rung4_launches["sha256_digest"] == rung4["hash_launches"],
+          f"rung 4: digests device {rung4['device_digests']} host "
+          f"{rung4['host_digests']}, launches {rung4_launches}")
+    seq, value, signers, asig = rung4["certificate"]
+    check(len(signers) == rung4["quorum"], f"rung 4: {len(signers)} signers")
+    check(asig == bls_cases().host_sums([rung4["votes"]])[0],
+          "rung 4: the aggregate != bls_host.aggregate_g1 of its votes")
+    rung4_arrays, _, _ = compare_bls("rung 4's votes", [rung4["votes"]],
+                                     None)
+    rung4_dev = [a.cuda() for a in rung4_arrays]
+    rung4_ms = time_events(lambda: rung4_dev, bls_g1.aggregate_points)
+    rung4_bound = bls_bounds(rung4_arrays[3], sms, bls_clock)
+    device_ms = rung4["kernel_ms"] + rung4_ms
+    print(
+        f"phase 15 ok: rung 4 {port_bench.RUNG4_NODES} nodes (f = "
+        f"{(port_bench.RUNG4_NODES - 1) // 3}) x {port_bench.RUNG4_CLIENTS} "
+        f"clients x {port_bench.RUNG4_REQS}, 30 ms link jitter, node "
+        f"{port_bench.RUNG4_DROP_SOURCE}'s drop mangler ({rung4['dropped']} "
+        f"frames dropped): {rung4['events']} events, chain "
+        f"{RUNG4_CHAIN[:16]}..., {rung4['commits'][0]} commits on every "
+        f"node, {rung4['sim_ms']} simulated ms; wall {rung4['wall_s']:.6f} "
+        f"s, {rung4['reqs_per_sec']:.3f} committed req/s; "
+        f"{rung4['certificates']} certificate(s) at seq {seq} from "
+        f"{len(signers)} votes, aggregated by the kernel in "
+        f"{rung4['device_batches']} launch(es) at {sorted(rung4_shapes)} "
+        f"(0 host folds), {rung4['aggregate_ms']:.6f} ms wall for "
+        f"certificates(), the kernel {rung4_ms:.6f} ms on the rung's votes "
+        f"(CUDA events, median of 20; == plain, == the host fold; chain "
+        f"floor {rung4_bound['chain_floor_ms']:.6f} ms); verifies, a tampered"
+        f" statement fails; digests device {rung4['device_digests']} host "
+        f"{rung4['host_digests']} in {rung4['hash_launches']} launches, "
+        f"sha256 {rung4['kernel_ms']:.6f} ms; launches {rung4_launches}; "
+        f"card idle {100 * (1 - device_ms / 1e3 / rung4['wall_s']):.4f}% of "
+        f"wall (done at {time.perf_counter() - t0:.1f} s)"
+    )
+    return dict(shapes=bls_shapes, rung4_ms=rung4_ms, clock=bls_clock,
+                launches=rung4_launches["bls_aggregate"])
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="PATH",
@@ -906,10 +1115,10 @@ def main() -> int:
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build_all(["sha256", "ed25519", "ack_plane"])
+    libs = _build.build_all(["sha256", "ed25519", "ack_plane", "bls_g1"])
     build_s = time.perf_counter() - t0
-    print(f"phase 1 ok: sha256.cu (digest, chain), ed25519.cu and "
-          f"ack_plane.cu (step, sweep) built for sm_90a in "
+    print(f"phase 1 ok: sha256.cu (digest, chain), ed25519.cu, "
+          f"ack_plane.cu (step, sweep) and bls_g1.cu built for sm_90a in "
           f"{build_s:.3f} s (one nvcc each, together)")
     ptxas = {}
     for name, lib in libs.items():
@@ -1741,6 +1950,8 @@ def main() -> int:
           f"{rung_launches['ack_sweep']} (done at "
           f"{time.perf_counter() - t0:.1f} s)")
 
+    bls = bls_phases(sms, t0)
+
     head = per_shape[0]
     kernels = [{
         "name": "sha256_digest",
@@ -1854,6 +2065,29 @@ def main() -> int:
         "library_ms": None,
         "shape": [c_pad, w_pad, 1],
         "ptxas": ptxas.get("mirbft_ack_sweep_kernel"),
+    })
+    bls_head = bls["shapes"][0]
+    kernels.append({
+        "name": "bls_aggregate",
+        "route": "cuda",
+        "source": "mirbft_tpu_torch/csrc/bls_g1.cu",
+        "replaces": "mirbft_tpu/ops/bls_g1.py:182",
+        "launches": bls["launches"],
+        "launches_note": "phase 15's rung 4 (one launch a batch of pending "
+                         "certificates)",
+        "matched_plain": True,
+        "max_abs_err": 0,
+        "ms": bls_head["ms"],
+        "plain_ms": bls_head["plain_ms"],
+        "bound_ms": bls_head["bound_ms"],
+        "bound_by": bls_head["bound_by"],
+        "library_ms": None,
+        "chain_floor_ms": bls_head["chain_floor_ms"],
+        "shape": bls_head["shape"],
+        "per_shape": bls["shapes"],
+        "rung4_ms": bls["rung4_ms"],
+        "sm_clock_mhz": bls["clock"],
+        "ptxas": ptxas.get("mirbft_bls_g1_aggregate_kernel"),
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -834,3 +834,125 @@ def live_cluster_rate(kind: str, *, device="cuda",
                 f"live rung ({kind}): the audit missed launches"
             )
     return result
+
+
+# -- ladder rung 4 --------------------------------------------------------------
+#
+# BASELINE ladder rung 4 (the JAX package's bench.py:763-841, its constants):
+# 128 nodes (f = 42) over a WAN of 30 ms link jitter, 32 clients x 16
+# requests, BatchSize 20, 4 rotating leader buckets, checkpoints every 20
+# sequences, and a targeted fault: half of node 120's frames die in the
+# first two simulated seconds (a seeded drop mangler).  Every Checkpoint a
+# node broadcasts is a BLS vote; 2f + 1 = 85 votes on one statement make a
+# checkpoint quorum certificate, aggregated in one launch of the BLS kernel.
+RUNG4_NODES = 128
+RUNG4_CLIENTS = 32
+RUNG4_REQS = 16
+RUNG4_BATCH_SIZE = 20
+RUNG4_DROP_SOURCE = 120
+
+
+def rung4_run(*, device="cuda") -> dict:
+    """BASELINE ladder rung 4 on the kernel hash plane and the kernel
+    certificate plane (``device="cpu"``: their plain versions).  No route
+    goes to the host: a digest or an aggregate that cannot run raises.
+
+    Runs to full commitment, then on until a checkpoint quorum has formed,
+    as the JAX package's rung does; aggregates the pending certificates
+    (timed: ``aggregate_ms``, host clock around the call, which reads the
+    result back) and checks the first one with one pairing equation, and a
+    tampered statement against it.  Returns committed req/s over the
+    run's wall, engine events, certificates, the aggregate's ms, simulated
+    ms, the app chain, the commit counts, the mangler's casualties, the
+    planes' counters, and the first certificate with its votes."""
+    from . import pb
+    from .testengine.certs import CheckpointCertPlane
+    from .testengine.crypto_plane import AsyncKernelHashPlane
+    from .testengine.engine import BasicRecorder, RuntimeParameters
+    from .testengine.manglers import (
+        from_source,
+        is_step,
+        percent,
+        rule,
+        until_time,
+    )
+
+    f = (RUNG4_NODES - 1) // 3
+    client_ids = [RUNG4_NODES + i for i in range(RUNG4_CLIENTS)]
+    state = pb.NetworkState(
+        config=pb.NetworkConfig(
+            nodes=list(range(RUNG4_NODES)),
+            f=f,
+            number_of_buckets=4,
+            checkpoint_interval=20,
+            max_epoch_length=200,
+        ),
+        clients=[
+            pb.NetworkClient(id=c, width=16, low_watermark=0)
+            for c in client_ids
+        ],
+    )
+    certs = CheckpointCertPlane(quorum=2 * f + 1, use_device=True,
+                                device=device)
+    hash_plane = AsyncKernelHashPlane(device=device)
+    drop = rule(
+        from_source(RUNG4_DROP_SOURCE), is_step(), percent(50),
+        until_time(2000),
+    ).drop()
+    start = time.perf_counter()
+    rec = BasicRecorder(
+        RUNG4_NODES,
+        RUNG4_CLIENTS,
+        RUNG4_REQS,
+        batch_size=RUNG4_BATCH_SIZE,
+        network_state=state,
+        record=False,
+        hash_plane=hash_plane,
+        checkpoint_certs=certs,
+        params=RuntimeParameters(link_jitter=30),
+        manglers=[drop],
+    )
+    rec.drain_clients(max_steps=20_000_000)
+    # Run on until at least one checkpoint quorum has formed.
+    extra = 0
+    while not (certs._pending or certs._certs) and extra < 2_000_000:
+        rec.step()
+        extra += 1
+    wall = time.perf_counter() - start
+    chains = {rec.node_states[n].app_chain for n in range(RUNG4_NODES)}
+    if len(chains) != 1:
+        raise AssertionError(f"rung 4: the nodes hold {len(chains)} chains")
+    total = RUNG4_CLIENTS * RUNG4_REQS
+    start = time.perf_counter()
+    certificates = certs.certificates()
+    agg_ms = 1e3 * (time.perf_counter() - start)
+    if not certificates:
+        raise AssertionError("rung 4: no checkpoint certificate formed")
+    (seq, value), (signers, asig) = sorted(certificates.items())[0]
+    verified = CheckpointCertPlane.verify(seq, value, signers, asig)
+    tampered = CheckpointCertPlane.verify(seq, value + b"!", signers, asig)
+    if not verified or tampered:
+        raise AssertionError(
+            f"rung 4: the certificate at {seq} verified {verified}, its "
+            f"tampered statement {tampered}"
+        )
+    return {
+        "reqs_per_sec": total / wall,
+        "events": rec.event_count,
+        "certificates": len(certificates),
+        "aggregate_ms": agg_ms,
+        "sim_ms": rec.now,
+        "wall_s": wall,
+        "chain": chains.pop().hex(),
+        "commits": sorted({rec.committed_at(n) for n in range(RUNG4_NODES)}),
+        "dropped": drop.dropped,
+        "device_batches": certs.device_batches,
+        "host_folds": certs.host_folds,
+        "device_digests": hash_plane.device_digests,
+        "host_digests": hash_plane.host_digests,
+        "hash_launches": hash_plane.launches,
+        "kernel_ms": hash_plane.kernel_ms,
+        "certificate": (seq, value, signers, asig),
+        "votes": [certs._votes[(seq, value)][n] for n in signers],
+        "quorum": 2 * f + 1,
+    }

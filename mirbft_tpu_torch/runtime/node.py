@@ -9,8 +9,8 @@ through a one-slot outbox; each handoff is marked with an ActionsReceived
 event so recorded logs tie results to the actions that caused them.
 
 Not ported yet, and raising ``NotImplementedError`` where asked for: the
-HTTP exporter (``Config.metrics_port``; ROADMAP queue 1 item 4) and the app
-commit stream (``attach_app``; item 5).
+HTTP exporter (``Config.metrics_port``; ROADMAP queue 1 item 2) and the app
+commit stream (``attach_app``; item 3).
 """
 
 from __future__ import annotations
@@ -135,7 +135,7 @@ class Node:
         if config.metrics_port is not None:
             raise NotImplementedError(
                 "Config.metrics_port: the HTTP exporter (obsv/exporter.py) "
-                "is not ported yet (ROADMAP queue 1, item 4)"
+                "is not ported yet (ROADMAP queue 1, item 2)"
             )
         self.config = config
         self._inbox: queue.Queue = queue.Queue()
@@ -203,7 +203,7 @@ class Node:
         ported yet: this raises."""
         raise NotImplementedError(
             "Node.attach_app: the app commit stream (app/stream.py) is not "
-            "ported yet (ROADMAP queue 1, item 5)"
+            "ported yet (ROADMAP queue 1, item 3)"
         )
 
     def step(self, source: int, msg: pb.Msg) -> None:

@@ -14,7 +14,7 @@ in for them.  Dynamic shared memory is a buffer a block.  The
 ``extern "C"`` launchers are cut off and a host main launches the kernels
 itself.
 
-    python3 tests/rehearse_cuda.py [ladder|sha256|decompress|ack] [--rows N]
+    python3 tests/rehearse_cuda.py [ladder|sha256|decompress|ack|bls] [--rows N]
 
 ``ladder`` runs the quad ladder on rows it builds with the host oracle
 (valid signatures, corrupted ones, the identity and a point of order 8 as
@@ -27,11 +27,16 @@ plain version, and that no group past the rows writes; ``ack`` runs the
 ack plane's step (its three kernels, one host thread a row, on the stub's
 host atomics) and sweep on seeded cases (tests/ack_plane_cases.py) and
 checks the state, the row outputs and the sweep bit for bit against the
-plain versions, and that the adoption scratch is empty after the step.
+plain versions, and that the adoption scratch is empty after the step;
+``bls`` runs the G1 aggregation, one host thread a certificate, on the
+seeded certificates of tests/bls_cases.py (edge cases, (4, 4), rung 4's
+(4, 128), (64, 128) and (4, 256)) and checks its output bit for bit
+against the plain version and its affine points against the host fold.
 The thread counts of the kernels are cut to keep the host threads few (the
 ladder's block to 2 quads, the decompress block to one warp, the
 one-thread body's block to 16 rows, the specialised body's warps to 8
-lanes, the ack plane's block to two warps), so the rehearsal runs the
+lanes, the ack plane's block to two warps, the BLS block to 8
+certificates), so the rehearsal runs the
 card's code at a smaller block than the card does.  Exit status 0 when every check passes.
 ``tests/test_torch_rehearse.py`` runs it under pytest.
 """
@@ -368,8 +373,31 @@ int main(int argc, char** argv) {
 }
 """
 
+BLS_MAIN = r"""
+// argv: input file (2 ints: batch, width; xs, ys, zs as (batch, width, 12)
+// uint32; the (batch, width) int32 mask), output file: (batch, 3, 12)
+// uint32.
+int main(int argc, char** argv) {
+  std::vector<char> in = read_all(argv[1]);
+  const int32_t* p = reinterpret_cast<const int32_t*>(in.data());
+  const int batch = p[0], width = p[1];
+  const size_t coords = static_cast<size_t>(batch) * width * kLimbs;
+  const uint32_t* xs = reinterpret_cast<const uint32_t*>(p + 2);
+  const uint32_t* ys = xs + coords;
+  const uint32_t* zs = ys + coords;
+  const int32_t* mask = reinterpret_cast<const int32_t*>(zs + coords);
+  std::vector<uint32_t> out(static_cast<size_t>(batch) * 3 * kLimbs, 0xdeadbeefu);
+  launch((batch + kBlsThreads - 1) / kBlsThreads, kBlsThreads, 0, [&] {
+    mirbft_bls_g1_aggregate_kernel(xs, ys, zs, mask, out.data(), batch, width);
+  });
+  write_all(argv[2], out.data(), out.size() * 4);
+  return 0;
+}
+"""
+
 ACK_THREADS = 64  # the ack plane's block in the rehearsal: two warps
 DEC_THREADS = 32  # decompression's block in the rehearsal: one warp
+BLS_THREADS = 8  # the BLS block in the rehearsal: 8 certificates
 # Host thread counts: the ladder's block cut to 2 quads, decompression's
 # to one warp, the digest kernel's one-thread body to 16 rows a block and
 # its warps to 8 lanes.
@@ -382,6 +410,10 @@ CUTS = {
     "ack_plane": {
         r"constexpr int kAckThreads = \d+;":
             f"constexpr int kAckThreads = {ACK_THREADS};",
+    },
+    "bls_g1": {
+        r"constexpr int kBlsThreads = \d+;":
+            f"constexpr int kBlsThreads = {BLS_THREADS};",
     },
     "sha256": {
         r"constexpr int kThreads = \d+;": "constexpr int kThreads = 16;",
@@ -666,10 +698,46 @@ def rehearse_ack(rows: int, limbs: int, workdir: Path) -> int:
     return 1 if bad else 0
 
 
+def rehearse_bls(cases: list, workdir: Path) -> int:
+    """The aggregation kernel on the host, one host thread a certificate,
+    on seeded certificates (tests/bls_cases.py), against the plain version
+    bit for bit and, as affine points, against the host oracle."""
+    import torch
+    from bls_cases import host_sums
+
+    from mirbft_tpu_torch.ops import bls_g1
+
+    binary = compile_host_main("bls_g1", BLS_MAIN, workdir)
+    status = 0
+    for label, certs, voters in cases:
+        xs, ys, zs, mask = bls_g1.pack_certificates(certs, voters)
+        batch, width = mask.shape
+        blob = b"".join([np.array([batch, width], dtype=np.int32).tobytes(),
+                         xs.tobytes(), ys.tobytes(), zs.tobytes(),
+                         mask.tobytes()])
+        (workdir / "bls.in").write_bytes(blob)
+        subprocess.run([str(binary), str(workdir / "bls.in"),
+                        str(workdir / "bls.out")], check=True)
+        got = np.frombuffer((workdir / "bls.out").read_bytes(),
+                            dtype=np.int32).reshape(batch, 3, bls_g1.NLIMB)
+        want = bls_g1.aggregate_plain(
+            *(torch.from_numpy(a) for a in (xs, ys, zs, mask))
+        ).numpy()
+        points = [bls_g1.to_affine(xyz) for xyz in bls_g1.canonical(got)]
+        same = np.array_equal(got, want)
+        oracle = points[: len(certs)] == host_sums(certs)
+        print(f"bls, {label} -> ({batch}, {width}) on the host: "
+              + ("kernel == plain" if same else "kernel != plain")
+              + (", == the oracle" if oracle else ", != the oracle"))
+        status |= 0 if same and oracle else 1
+    return status
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("what", nargs="*", default=["ladder", "sha256"],
-                        choices=["ladder", "sha256", "decompress", "ack"])
+                        choices=["ladder", "sha256", "decompress", "ack",
+                                 "bls"])
     parser.add_argument("--rows", type=int, default=6,
                         help="ladder rows (default 6: two ragged blocks)")
     args = parser.parse_args(argv)
@@ -683,6 +751,10 @@ def main(argv=None) -> int:
         if "ack" in args.what:
             for rows, limbs in ACK_CASES:
                 status |= rehearse_ack(rows, limbs, workdir)
+        if "bls" in args.what:
+            from bls_cases import cases
+
+            status |= rehearse_bls(cases(), workdir)
         if "decompress" in args.what:
             from ed25519_corpus import decompression_corpus
 

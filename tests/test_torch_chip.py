@@ -2,7 +2,9 @@
 and hashlib, launched and counted on the engine's commit path; the two
 Ed25519 kernels equal to their plain versions and the RFC 8032 oracle
 (decompression also on the corpus that takes each of its branches), and
-the signed engine run on them equal to the host-oracle run.
+the signed engine run on them equal to the host-oracle run; the ack
+plane's two kernels; and the BLS G1 aggregation kernel equal to its plain
+version and the host fold, with no host fold behind it.
 
 Marked ``gpu``: each test skips, with its reason, where no CUDA card is
 present (the kernel has no CPU mode).  Run them on a machine with a card:
@@ -376,3 +378,63 @@ def test_device_plane_tracker_on_the_card(card):
     assert plane.quorum_sweep() == {
         "weak_certs": 40, "strong_certs": 40, "committed": 0,
     }
+
+
+# -- BLS G1 aggregation ---------------------------------------------------------
+
+
+def _bls_small_cases():
+    import bls_cases
+
+    return bls_cases.cases(full=False)
+
+
+@pytest.mark.parametrize("index", range(4),
+                         ids=["edges-4x4", "edges-4x8", "random-4x4",
+                              "rung4-4x128"])
+def test_bls_kernel_equals_its_plain_version(card, index):
+    """tests/bls_cases.py's small cases: the kernel's (batch, 3, 12) output
+    bit for bit equal to the plain version's on the same inputs, counted
+    once, and its affine points equal to the host fold."""
+    import bls_cases
+
+    from mirbft_tpu_torch.ops import bls_g1
+
+    label, certs, voters = _bls_small_cases()[index]
+    arrays = [torch.from_numpy(a) for a in
+              bls_g1.pack_certificates(certs, voters)]
+    before = bls_g1.aggregate_points.launches
+    out = bls_g1.aggregate_points(*(a.to(card) for a in arrays))
+    torch.cuda.synchronize()
+    assert bls_g1.aggregate_points.launches == before + 1
+    assert torch.equal(out.cpu(), bls_g1.aggregate_plain(*arrays)), label
+    points = [bls_g1.to_affine(xyz) for xyz in bls_g1.canonical(out)]
+    assert points[: len(certs)] == bls_cases.host_sums(certs), label
+
+
+def test_bls_aggregate_raises_rather_than_folding_on_the_host(card,
+                                                              monkeypatch):
+    """qc.aggregate on the card: a malformed point raises (nothing falls
+    back to bls_host), inputs the wrapper refuses raise, and a good call
+    never reaches the host fold."""
+    import bls_cases
+
+    from mirbft_tpu_torch.crypto import bls_host, qc
+    from mirbft_tpu_torch.ops import bls_g1
+
+    pool = bls_cases.point_pool(4)
+    want = bls_host.aggregate_g1(pool)
+
+    def no_host_fold(_points):
+        raise AssertionError("folded on the host")
+
+    monkeypatch.setattr(bls_host, "aggregate_g1", no_host_fold)
+    with pytest.raises(ValueError):
+        qc.aggregate([pool[0], (bls_host.P, 0)])
+    assert qc.aggregate(pool) == want
+    xs, ys, zs, mask = (torch.from_numpy(a).to(card) for a in
+                        bls_g1.pack_certificates([pool], 4))
+    with pytest.raises(ValueError):
+        bls_g1.aggregate_points(xs, ys, zs.cpu(), mask)
+    with pytest.raises(TypeError):
+        bls_g1.aggregate_points(xs.to(torch.int64), ys, zs, mask)

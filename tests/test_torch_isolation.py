@@ -1,6 +1,7 @@
 """The port stands alone: mirbft_tpu_torch imports neither jax nor the JAX
 package, its entry points refuse to run on a card that is not there, and
-the device ack plane raises instead of falling back to the host plane."""
+the device ack plane and the BLS aggregation raise instead of falling back
+to the host."""
 
 import ast
 import os
@@ -16,6 +17,8 @@ from mirbft_tpu_torch import bench as port_bench
 from mirbft_tpu_torch.core import device_tracker
 from mirbft_tpu_torch.core.state_machine import StateMachine
 from mirbft_tpu_torch.crypto import ed25519_host
+from mirbft_tpu_torch.crypto import qc as port_qc
+from mirbft_tpu_torch.ops import bls_g1 as port_bls_g1
 from mirbft_tpu_torch.ops import ed25519 as port_ed25519
 from mirbft_tpu_torch.ops import sha256 as port_sha256
 from mirbft_tpu_torch.ops.batching import pack_preimages, to_tensors
@@ -393,3 +396,76 @@ def test_device_ack_plane_env_knob_raises_in_the_engine(monkeypatch):
             hash_plane=AsyncKernelHashPlane(device="cpu"),
         )
         recorder.drain_clients(max_steps=20000)
+
+
+#: Ladder rung 4's modules: the manglers, the event log and its CLI, and
+#: the BLS certificate plane down to its kernel.
+RUNG4_MODULES = [
+    "testengine/manglers.py", "eventlog.py", "cat.py", "crypto/bls_host.py",
+    "crypto/qc.py", "testengine/certs.py", "ops/bls_g1.py",
+]
+
+
+@pytest.mark.parametrize("name", RUNG4_MODULES)
+def test_rung4_modules_import_neither_jax_nor_the_jax_package(name):
+    path = PORT / name
+    assert path.exists(), name
+    bad = [m for m in _imports(path) if m and forbidden(m)]
+    assert not bad, f"{name}: {bad}"
+
+
+def _bls_votes():
+    from mirbft_tpu_torch.crypto import bls_host
+
+    return [(bls_host.G1_X, bls_host.G1_Y)] * 3
+
+
+def _pending_plane(**kwargs):
+    from mirbft_tpu_torch.testengine.certs import CheckpointCertPlane
+
+    plane = CheckpointCertPlane(quorum=3, **kwargs)
+    plane._votes[(20, b"v")] = dict(enumerate(_bls_votes()))
+    plane._pending.append((20, b"v"))
+    return plane
+
+
+@pytest.mark.parametrize(
+    "entry",
+    [
+        lambda: port_qc.aggregate(_bls_votes()),
+        lambda: port_bls_g1.aggregate_signatures([_bls_votes()]),
+        lambda: _pending_plane().certificates(),
+        port_bench.rung4_run,
+    ],
+    ids=["qc_aggregate", "aggregate_signatures", "cert_plane", "rung4_run"],
+)
+def test_bls_entry_points_raise_without_a_card(no_card, entry):
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        entry()
+
+
+def test_bls_entry_points_run_on_the_cpu_when_asked(no_card):
+    from mirbft_tpu_torch.crypto import bls_host
+
+    want = bls_host.aggregate_g1(_bls_votes())
+    assert port_qc.aggregate(_bls_votes(), device="cpu") == want
+    assert port_bls_g1.aggregate_signatures([_bls_votes()],
+                                            device="cpu") == [want]
+    plane = _pending_plane(device="cpu")
+    assert plane.certificates() == {(20, b"v"): ([0, 1, 2], want)}
+    assert plane.host_folds == 0
+
+
+def test_bls_route_has_no_host_fallback():
+    """Neither the wrapper's launch, nor the entry point, nor the seam, nor
+    the plane's aggregation holds a try statement: a failure raises out
+    of them instead of folding on the host."""
+    import inspect
+
+    from mirbft_tpu_torch.testengine.certs import CheckpointCertPlane
+
+    for fn in (port_bls_g1.aggregate_points, port_bls_g1.aggregate_signatures,
+               port_qc.aggregate, CheckpointCertPlane._aggregate_pending):
+        fn = inspect.unwrap(fn)
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], fn

@@ -1,8 +1,9 @@
 """The CUDA sources of the port rehearsed on the host with g++
 (tests/rehearse_cuda.py): the quad ladder's verdicts against the RFC 8032
 oracle, decompression's points against the oracle and its plain version,
-both SHA-256 digest bodies against hashlib, and the ack plane's step and
-sweep against their plain versions, with every shuffle, warp reduction,
+both SHA-256 digest bodies against hashlib, the ack plane's step and
+sweep against their plain versions, and the BLS G1 aggregation against its
+plain version and the host fold, with every shuffle, warp reduction,
 atomic and mbarrier of the card's code modelled by host threads.  The card
 itself runs them in tests/test_torch_chip.py."""
 
@@ -55,7 +56,22 @@ def test_ack_plane_equals_its_plain_version_on_the_host(gxx, tmp_path, rows,
     assert rehearse_cuda.rehearse_ack(rows, limbs, tmp_path) == 0
 
 
-@pytest.mark.parametrize("name", ["ed25519", "sha256", "ack_plane"])
+@pytest.mark.parametrize("index", range(4),
+                         ids=["edges-4x4", "edges-4x8", "random-4x4",
+                              "rung4-4x128"])
+def test_bls_aggregate_equals_its_plain_version_on_the_host(gxx, tmp_path,
+                                                           index):
+    """tests/bls_cases.py's small cases, one host thread a certificate:
+    the output bit for bit equal to the plain version's, the affine
+    points to the host fold (``rehearse_cuda.py bls`` adds (64, 128) and
+    (4, 256))."""
+    from bls_cases import cases
+
+    assert rehearse_cuda.rehearse_bls([cases(full=False)[index]],
+                                      tmp_path) == 0
+
+
+@pytest.mark.parametrize("name", ["ed25519", "sha256", "ack_plane", "bls_g1"])
 def test_host_source_cuts_the_launchers_and_the_ptx(name):
     text = rehearse_cuda.host_source(name)
     assert 'extern "C"' not in text and "<<<" not in text
