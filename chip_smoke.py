@@ -130,7 +130,40 @@ Phases (any failure raises and the script exits nonzero):
     verifies while a tampered statement fails, equal to
     ``bls_host.aggregate_g1`` of its votes, every digest on the card;
     committed req/s, the aggregate's device ms on the rung's votes, and
-    the card's idle share.
+    the card's idle share;
+16. signed ingress on live nodes (``mirbft_tpu_torch.bench.ingress_run``,
+    the traffic of the JAX package's multi-process rung, bench.py:133-144:
+    4 nodes, BatchSize 4, clients 1-3 under ``standard_client_models``
+    signed, Poisson steps at 25, 50 and 100 req/s of 2 s each, generator
+    seed 11, 25 s of drain) on the in-process cluster with the
+    cuda-pipelined processor, a ``SpeculativeIngress`` on
+    ``signing.batch_verifier("cuda")`` in front of each node's propose,
+    and a seeded forged twin (one bit of S flipped) of every 8th request
+    sent to the same nodes: every honest request committed exactly once
+    on every node (a node that fell behind and installed a snapshot holds
+    the requests below its checkpoint through it), no forgery reaching a
+    node, each node's evictions equal
+    to the forgeries it was sent, 0 verifier errors, 0 dropped, the chains
+    agreeing, every digest on the card, and each Ed25519 kernel launched
+    once for each ingress batch with a row left after the host's rejects,
+    at that many rows; the first launch at each row count is replayed
+    through the kernels and their plain versions on the card (bit for
+    bit) and its verdicts against the host oracle.  Per step: goodput,
+    p50 and p95 submit-to-commit latency, the ingress batch sizes, the
+    verify wall a batch;
+17. the replicated KV service (``mirbft_tpu_torch.bench.app_run``, the JAX
+    package's app rung, bench.py:157-180: 8 nodes, 4 closed-loop sessions
+    x 40 ops, read ratio 0.5, ``kv_client_models``, committed reads
+    through the read-index barrier, BatchSize 1, tick 0.25 s, op timeout
+    20 s, seed 7) on the in-process cluster with the cuda-pipelined
+    processor: 0 ops timed out, ``check_linearizable_reads`` passing, every
+    replica's KvStore snapshot the same bytes, every digest on the card;
+    then a lagging replica, its inbound frames held until the others'
+    low watermarks are two checkpoint intervals past its own, released
+    and caught up through ``TransferEngine``: a snapshot installed, 0
+    chunks rejected, its KvStore equal, committed reads served from it.
+    Read and write p50/p95/p99, goodput, the transfer's bytes, chunks and
+    wall, and the card's idle share.
 
 It then prints the kernels as one JSON line, the card's name and power
 limit, and, last, the result line the chip check reads.  Without a CUDA
@@ -140,6 +173,7 @@ card it prints nothing to stdout and exits 1.
 from __future__ import annotations
 
 import argparse
+import collections
 import cProfile
 import gc
 import hashlib
@@ -1076,6 +1110,217 @@ def bls_phases(sms: int, t0: float) -> dict:
                 launches=rung4_launches["bls_aggregate"])
 
 
+def compare_ingress_launch(items: list) -> tuple:
+    """Replay one ingress batch: its rows through both Ed25519 kernels and
+    through their plain versions on the card, bit for bit, and the batch's
+    verdicts from the kernels against the host oracle's.  Returns (rows,
+    max_abs_err)."""
+    import torch
+
+    from mirbft_tpu_torch import bench as port_bench
+    from mirbft_tpu_torch.ops import ed25519
+    from mirbft_tpu_torch.testengine import signing
+
+    rows = port_bench.ingress_rows(items)
+    enc, s_words, k_words = (
+        torch.from_numpy(a).to("cuda") for a in ed25519.pack_rows(rows)
+    )
+    xy, ok = ed25519.decompress(enc)
+    verdicts = ed25519.ladder(xy, ok, s_words, k_words)
+    torch.cuda.synchronize()
+    plain_xy, plain_ok = ed25519.decompress_plain(enc)
+    plain_verdicts = ed25519.ladder_plain(plain_xy, plain_ok, s_words, k_words)
+    err = max(
+        int((xy - plain_xy).abs().max()), int((ok - plain_ok).abs().max()),
+        int((verdicts - plain_verdicts).abs().max()),
+    )
+    check(err == 0, f"ingress n={len(rows)}: kernel != plain (max abs err "
+          f"{err})")
+    check(signing.kernel_verifier(items, device="cuda")
+          == signing.host_verifier(items),
+          f"ingress n={len(rows)}: kernel verdicts != the host oracle's")
+    return len(rows), err
+
+
+def service_phases(t0: float) -> dict:
+    """Phases 16 and 17: signed ingress on live nodes, then the replicated
+    KV service and a lagging replica.  Returns what the kernels line
+    reads."""
+    from mirbft_tpu_torch import bench as port_bench
+    from mirbft_tpu_torch.ops import ed25519
+    from mirbft_tpu_torch.ops.sha256 import sha256_digest_words
+
+    # -- phase 16: signed ingress on live nodes --------------------------------
+    sha256_digest_words.launches = 0
+    ed25519.decompress.launches = ed25519.ladder.launches = 0
+    ed25519.decompress.launches_by_rows.clear()
+    ed25519.ladder.launches_by_rows.clear()
+    ing = port_bench.ingress_run(device="cuda")
+    ing_launches = {
+        "sha256_digest": sha256_digest_words.launches,
+        "ed25519_decompress": ed25519.decompress.launches,
+        "ed25519_ladder": ed25519.ladder.launches,
+    }
+    ladder_rows = collections.Counter(ed25519.ladder.launches_by_rows)
+    decompress_rows = collections.Counter(ed25519.decompress.launches_by_rows)
+    for step in ing["steps"]:
+        s = step["step"]
+        walls = step["verify_wall_s"]
+        sizes = step["batch_sizes"]
+        print(
+            f"  ingress {s.name}: submitted {s.submitted}, committed "
+            f"{s.committed}, timed out {s.timed_out}, retries "
+            f"{s.duplicates}; goodput {s.goodput_per_sec:.3f} req/s, "
+            f"submit-to-commit p50 {s.p50_ms:.3f} ms p95 {s.p95_ms:.3f} ms; "
+            f"{len(sizes)} ingress batches of "
+            f"{sorted(collections.Counter(sizes).items())} (size, count); "
+            f"verify wall a batch mean "
+            f"{1e3 * statistics.mean(walls) if walls else 0.0:.3f} ms, max "
+            f"{1e3 * max(walls, default=0.0):.3f} ms; the nodes' epochs "
+            f"after it {step['epochs']}"
+        )
+    for n, stage in sorted(ing["ingress"].items()):
+        check(stage["verify_errors"] == 0,
+              f"ingress node {n}: {stage['verify_errors']} verifier errors, "
+              f"last {stage['last_error']!r}")
+        check(stage["dropped_overflow"] == 0,
+              f"ingress node {n}: {stage['dropped_overflow']} dropped")
+        check(stage["evicted"] == ing["forged_to"][n],
+              f"ingress node {n}: evicted {stage['evicted']}, sent "
+              f"{ing['forged_to'][n]} forgeries")
+    # A node that fell behind and installed a snapshot holds the requests
+    # below its checkpoint through the snapshot: each request it did not
+    # commit itself must sit at or below that checkpoint's seq_no.
+    seq_of = {(cid, req_no): seq
+              for _n, cid, req_no, seq, _ts in ing["observed"]}
+    adopted = 0
+    for n, commits in sorted(ing["commits"].items()):
+        missing = ing["honest"] - set(commits)
+        installed, cp_seq = ing["transfers"][n]
+        check(not missing or (installed and all(
+            seq_of[key] <= cp_seq for key in missing)),
+              f"ingress node {n}: committed {len(commits)} of "
+              f"{len(ing['honest'])} requests; missing {sorted(missing)[:8]}"
+              f", snapshots installed {ing['transfers']}")
+        check(max(commits.values()) == 1,
+              f"ingress node {n}: a request committed twice")
+        adopted += len(missing)
+    check(ing["forged_stored"] == 0,
+          f"ingress: {ing['forged_stored']} forged requests reached a node")
+    check(len(set(ing["chains"].values())) == 1, "ingress: chains differ")
+    for step in ing["steps"]:
+        check(step["step"].timed_out == 0,
+              f"ingress {step['step'].name}: {step['step'].timed_out} "
+              "requests timed out")
+    # Each batch with a row left after the host's rejects is one launch of
+    # each kernel at that many rows; the first batch at each row count is
+    # replayed through kernel and plain (outside the counted run).
+    batch_rows = [len(port_bench.ingress_rows(b)) for b in ing["batches"]]
+    launched = collections.Counter(n for n in batch_rows if n)
+    check(ing_launches["ed25519_decompress"] == ing_launches["ed25519_ladder"]
+          == sum(launched.values()) > 0,
+          f"ingress: launches {ing_launches}, {sum(launched.values())} "
+          f"batches with rows of {len(batch_rows)}")
+    check(ladder_rows == launched and decompress_rows == collections.Counter(
+        {2 * n: c for n, c in launched.items()}),
+          f"ingress: ladder launches by rows {sorted(ladder_rows.items())}, "
+          f"batches {sorted(launched.items())}")
+    check(ing["host_digests"] == 0 and ing["device_digests"] > 0
+          and ing_launches["sha256_digest"] == ing["hash_launches"],
+          f"ingress: digests device {ing['device_digests']} host "
+          f"{ing['host_digests']} in {ing['hash_launches']} launches, the "
+          f"wrappers counted {ing_launches}")
+    replayed, ing_err = {}, 0
+    for items, n in zip(ing["batches"], batch_rows):
+        if n and n not in replayed:
+            rows, err = compare_ingress_launch(items)
+            check(rows == n, f"ingress replay: {rows} rows, recorded {n}")
+            replayed[n] = len(items)
+            ing_err = max(ing_err, err)
+    evicted = sum(s["evicted"] for s in ing["ingress"].values())
+    print(
+        f"phase 16 ok: signed ingress, {port_bench.INGRESS_NODES} nodes, "
+        f"BatchSize {port_bench.INGRESS_BATCH_SIZE}, Poisson "
+        f"{'/'.join(str(int(r)) for r in port_bench.INGRESS_RATES)} req/s x "
+        f"{port_bench.INGRESS_STEP_S} s: {len(ing['honest'])} honest "
+        f"requests committed once on every node ({adopted} of them through "
+        f"the snapshots installed, by node: "
+        f"{ {n: t[0] for n, t in ing['transfers'].items()} }), "
+        f"{ing['forged']} forged "
+        f"twins ({evicted} evictions, one a forgery a node), none reached a "
+        f"node; 0 verifier errors, 0 dropped; chains agree; "
+        f"{len(ing['batches'])} ingress batches, {sum(launched.values())} "
+        f"with rows: one launch of each Ed25519 kernel each at "
+        f"{len(launched)} row counts {sorted(launched)}, each replayed "
+        f"kernel == plain (max_abs_err {ing_err}) == oracle; digests device "
+        f"{ing['device_digests']} host {ing['host_digests']} in "
+        f"{ing['hash_launches']} launches; launches {ing_launches}; wall "
+        f"{ing['wall_s']:.3f} s (done at {time.perf_counter() - t0:.1f} s)"
+    )
+
+    # -- phase 17: the replicated KV service and a lagging replica -------------
+    sha256_digest_words.launches = 0
+    app = port_bench.app_run(device="cuda")
+    app_launches = {"sha256_digest": sha256_digest_words.launches}
+    step = app["step"]
+    lag = app["lag"]
+    check(step.timed_out == 0, f"app: {step.timed_out} ops timed out")
+    check("violation" not in app["linearizable"],
+          f"app: {app['linearizable'].get('violation')}")
+    check(app["converged"], "app: the replicas' KvStore snapshots differ")
+    check(app["host_digests"] == 0 and app["device_digests"] > 0
+          and app_launches["sha256_digest"] == app["hash_launches"],
+          f"app: digests device {app['device_digests']} host "
+          f"{app['host_digests']} in {app['hash_launches']} launches, the "
+          f"wrapper counted {app_launches}")
+    engine = lag["engine"]
+    check(lag["caught_up"] and engine["snapshots_installed"] >= 1,
+          f"app: the lagging replica did not catch up: {lag}")
+    check(engine["chunks_rejected_corrupt"] == 0
+          and engine["chunks_rejected_oversized"] == 0,
+          f"app: the lagging replica rejected chunks: {engine}")
+    check(lag["snapshot_equal"], "app: the lagging replica's KvStore differs")
+    check(lag["reads_ok"], f"app: committed reads from the lagging replica: "
+          f"{lag['reads'][:4]}")
+    idle = 100 * (1 - app["kernel_ms"] / 1e3 / app["wall_s"])
+    print(
+        f"  app: {step.submitted} ops ({step.reads} reads, {step.writes} "
+        f"writes) in {step.duration_s:.3f} s: read p50 {step.read_p50_ms:.3f}"
+        f" p95 {step.read_p95_ms:.3f} p99 {step.read_p99_ms:.3f} ms, write "
+        f"p50 {step.write_p50_ms:.3f} p95 {step.write_p95_ms:.3f} p99 "
+        f"{step.write_p99_ms:.3f} ms; goodput {step.goodput_per_sec:.3f} "
+        f"ops/s (reads {step.read_goodput_per_sec:.3f}, writes "
+        f"{step.write_goodput_per_sec:.3f}); linearizable reads "
+        f"{app['linearizable']}"
+    )
+    print(
+        f"  app lagging replica {lag['node']}: {lag['frames_held']} frames "
+        f"held for {lag['hold_s']:.3f} s while {lag['writes']} writes moved "
+        f"the others' low watermarks from {lag['low_watermark_before']} to "
+        f"{min(lag['others_low_watermarks'])} (target "
+        f"{lag['target_low_watermark']}); transfer {lag['transfer_bytes']} "
+        f"bytes in {lag['transfer_chunks']} chunks, release to install "
+        f"{lag['transfer_s']:.3f} s; engine {engine}; {len(lag['reads'])} "
+        f"committed reads from it == the writes"
+    )
+    print(
+        f"phase 17 ok: the KV service, {port_bench.APP_NODES} nodes, "
+        f"{port_bench.APP_SESSIONS} sessions x "
+        f"{port_bench.APP_OPS_PER_SESSION} ops, 0 timed out, reads "
+        f"linearizable, every replica's KvStore the same "
+        f"{app['snapshot_bytes']} bytes; the lagging replica installed "
+        f"{engine['snapshots_installed']} snapshot(s), 0 chunks rejected, "
+        f"caught up byte for byte and served committed reads; digests device"
+        f" {app['device_digests']} host {app['host_digests']} in "
+        f"{app['hash_launches']} launches, {app['kernel_ms']:.6f} ms of "
+        f"kernel spans (CUDA events around each launch) over "
+        f"{app['wall_s']:.3f} s: the card idle at least {idle:.4f}%; "
+        f"launches {app_launches} (done at {time.perf_counter() - t0:.1f} s)"
+    )
+    return dict(ingress_launches=ing_launches, app_launches=app_launches,
+                ingress_err=ing_err, replayed=sorted(replayed))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="PATH",
@@ -1951,6 +2196,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s)")
 
     bls = bls_phases(sms, t0)
+    service = service_phases(t0)
 
     head = per_shape[0]
     kernels = [{
@@ -1961,6 +2207,8 @@ def main() -> int:
         "launches": rung2_launches,
         "launches_rung3": rung3_launches["sha256_digest"],
         "launches_live": live_launches,
+        "launches_ingress": service["ingress_launches"]["sha256_digest"],
+        "launches_app": service["app_launches"]["sha256_digest"],
         "live_shapes": [
             [*shape, n] for shape, n in sorted(live_shapes.items())
         ],
@@ -1990,8 +2238,10 @@ def main() -> int:
             "source": "mirbft_tpu_torch/csrc/ed25519.cu",
             "replaces": replaces,
             "launches": rung3_launches[name],
-            "matched_plain": ed_err == 0,
-            "max_abs_err": ed_err,
+            "launches_ingress": service["ingress_launches"][name],
+            "ingress_rows_replayed": service["replayed"],
+            "matched_plain": ed_err == 0 and service["ingress_err"] == 0,
+            "max_abs_err": max(ed_err, service["ingress_err"]),
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],

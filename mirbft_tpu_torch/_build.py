@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -26,7 +27,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: dict = {}
+_loaded: dict = {}  # guarded-by: _load_lock
+# Live nodes launch from several threads; the first launch of each builds
+# and loads its library once, not once a thread (a build's partial file is
+# named by the process).
+_load_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -83,7 +88,8 @@ def build_all(names) -> dict:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        lib = _loaded[name] = ctypes.CDLL(str(build(name)))
+    with _load_lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = _loaded[name] = ctypes.CDLL(str(build(name)))
     return lib

@@ -1,7 +1,7 @@
-"""The port's benchmarks: the SHA-256 kernel microbenchmark, the live rung
-and the ack-plane rung.
+"""The port's benchmarks: the SHA-256 kernel microbenchmark, the live rung,
+the ack-plane rung, rung 4, and the signed-ingress and KV service rungs.
 
-Counterparts of three parts of the JAX package's ``bench.py``, with its
+Counterparts of parts of the JAX package's ``bench.py``, with its
 constants and its measurement protocols:
 
 - ``sha256_microbench_warmup`` and ``kernel_microbench`` (``bench.py:481-569``):
@@ -19,18 +19,26 @@ constants and its measurement protocols:
   device ack plane under one seeded ack storm of 100,000 clients, with the
   divergence oracle's verdict and a cross-plane parity check.
 
+- ``ingress_run`` and ``app_run`` (``bench.py:133-180``): the live node as
+  a replicated service on the in-process cluster: signed client ingress
+  on the Ed25519 kernels under the multi-process rung's traffic, and the
+  KV service under the app rung's sessions, with a lagging replica that
+  catches up by state transfer.
+
 All run on ``cuda`` unless the caller passes ``device="cpu"`` (the kernels'
 plain versions; the tests' route), and raise without a card.
-``chip_smoke.py`` (phases 10, 11 and 13) runs them on a card.
+``chip_smoke.py`` (phases 10, 11, 13, 15, 16 and 17) runs them on a card.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import hashlib
 import multiprocessing
 import multiprocessing.connection
 import os
+import random
 import shutil
 import tempfile
 import threading
@@ -955,4 +963,509 @@ def rung4_run(*, device="cuda") -> dict:
         "certificate": (seq, value, signers, asig),
         "votes": [certs._votes[(seq, value)][n] for n in signers],
         "quorum": 2 * f + 1,
+    }
+
+
+# -- the live node as a replicated service ----------------------------------
+#
+# Two rungs on the in-process cluster (loadgen/inproc.py: N real Nodes in
+# one process, direct-call links, in-memory storage, the real
+# TransferEngine), every node on the cuda-pipelined processor.
+#
+# Signed ingress: the JAX package's multi-process rung traffic
+# (bench.py:133-144, 1192-1229): 4 nodes, BatchSize 4, clients 1-3 under
+# standard_client_models signed, Poisson steps at 25/50/100 req/s of 2 s
+# each, arrivals seeded with the rate, generator seed 11, 25 s of drain.
+# Each node's propose sits behind a SpeculativeIngress whose verifier is
+# signing.batch_verifier() (as mirbft_tpu/cluster/worker.py:251-265
+# installs it), so every batch of client requests goes through one launch
+# of each Ed25519 kernel.  On top, every INGRESS_FORGE_EVERY-th request
+# gets a forged twin (one seeded bit of S flipped) sent to the same nodes.
+INGRESS_NODES = 4
+INGRESS_CLIENTS = (1, 2, 3)
+INGRESS_BATCH_SIZE = 4
+INGRESS_RATES = (25.0, 50.0, 100.0)
+INGRESS_STEP_S = 2.0
+INGRESS_DRAIN_S = 25.0
+INGRESS_SEED = 11
+INGRESS_TICK_S = 0.04  # the JAX package's ClusterSupervisor default
+INGRESS_FORGE_EVERY = 8
+INGRESS_SETTLE_S = 30.0  # every node commits every request, after drain
+
+# The KV service: the JAX package's app rung (bench.py:157-180,
+# 1331-1381): 8 nodes, 4 closed-loop sessions x 40 ops, read ratio 0.5,
+# kv_client_models, committed reads through the read-index barrier,
+# BatchSize 1, tick 0.25 s, op timeout 20 s, workload seed 7.  Then a
+# lagging replica: its inbound protocol frames are held until the others
+# have garbage-collected APP_LAG_CHECKPOINTS checkpoints past it, and on
+# release it must catch up by state transfer.
+APP_NODES = 8
+APP_SESSIONS = 4
+APP_OPS_PER_SESSION = 40
+APP_BATCH_SIZE = 1
+APP_TICK_S = 0.25
+APP_READ_RATIO = 0.5
+APP_OP_TIMEOUT_S = 20.0
+APP_SEED = 7
+APP_LAG_CHECKPOINTS = 2
+APP_CONVERGE_S = 60.0
+APP_LAG_TIMEOUT_S = 120.0  # to reach the hold's target; again to catch up
+
+
+class _IngressFront:
+    """The load generator's cluster for the signed-ingress rung: node ids
+    and commit polling are the in-process cluster's, and ``submit`` hands
+    the request to the node's ingress stage instead of its propose.  Every
+    ``forge_every``-th distinct request gets a forged twin, one seeded bit
+    of its signature's S flipped, submitted to each node right after the
+    honest request's first submission there."""
+
+    def __init__(self, cluster, ingress: dict, forge_every: int, seed: int):
+        from . import pb
+        from .testengine.signing import PK_LEN, SIG_LEN
+
+        self._request = pb.Request
+        self._s_at = (SIG_LEN // 2 + PK_LEN, PK_LEN)  # S: data[-64:-32]
+        self.cluster = cluster
+        self.ingress = ingress
+        self.forge_every = forge_every
+        self._rng = random.Random(seed)
+        self.node_ids = cluster.node_ids
+        self.commits: list = []  # every observation the generator polled
+        self.honest: dict = {}  # (client, req_no) -> data
+        self.forged: dict = {}  # (client, req_no) -> forged data
+        self.forged_to: dict = {n: 0 for n in self.node_ids}
+        self._sent: set = set()  # (client, req_no, node) forgeries sent
+
+    def _forge(self, data: bytes) -> bytes:
+        start, end = self._s_at
+        s = bytearray(data[-start:-end])
+        bit = self._rng.randrange(8 * len(s))
+        s[bit // 8] ^= 1 << (bit % 8)
+        return data[:-start] + bytes(s) + data[-end:]
+
+    def poll_commits(self) -> list:
+        got = self.cluster.poll_commits()
+        self.commits.extend(got)
+        return got
+
+    def submit(self, node_id: int, request) -> None:
+        key = (request.client_id, request.req_no)
+        if key not in self.honest:
+            self.honest[key] = request.data
+            if len(self.honest) % self.forge_every == 0:
+                self.forged[key] = self._forge(request.data)
+        self.ingress[node_id].submit(request)
+        forged = self.forged.get(key)
+        if forged is not None and (*key, node_id) not in self._sent:
+            self._sent.add((*key, node_id))
+            self.forged_to[node_id] += 1
+            self.ingress[node_id].submit(self._request(
+                client_id=request.client_id, req_no=request.req_no,
+                data=forged,
+            ))
+
+
+def ingress_rows(items: list) -> list:
+    """The rows one ingress batch hands the Ed25519 kernels: the items
+    that pass the host's checks (``signing.identified``, then
+    ``marshal_light``'s range checks), marshalled, in order.
+    ``signing.kernel_verifier`` launches exactly these, or nothing."""
+    from .ops.ed25519 import marshal_light
+    from .testengine import signing
+
+    rows = (marshal_light(*t) for t in signing.identified(items)[1])
+    return [row for row in rows if row is not None]
+
+
+def ingress_run(*, device="cuda") -> dict:
+    """The signed-ingress rung (see the constants above).  Returns each
+    step's loadgen result beside its ingress batches (sizes and verify
+    wall) and the nodes' epochs after it, every ingress batch's items in order (``batches``: what the
+    kernels were asked), each node's ingress counters and the forgeries
+    it was sent, each node's commits as (client, req_no) -> times and as
+    (client, req_no, seq) observations, the snapshots each node installed
+    with the last one's checkpoint seq_no, whether any forged bytes
+    reached a node's request store, the nodes' chains, and the
+    processors' digest counters.  The caller holds them to the rung's gates."""
+    from . import loadgen
+    from .crypto import ed25519_host
+    from .runtime.ingress import SpeculativeIngress
+    from .testengine import signing
+
+    for cid in INGRESS_CLIENTS:
+        signing.register_pk(
+            cid, ed25519_host.public_key(signing.client_seed(cid))
+        )
+    verify = signing.batch_verifier(device)
+    batches: list = []
+    batches_lock = threading.Lock()
+
+    def recorded(items):
+        with batches_lock:
+            batches.append(list(items))
+        return verify(items)
+
+    models = {
+        cid: dataclasses.replace(model, signed=True)
+        for cid, model in loadgen.standard_client_models(
+            list(INGRESS_CLIENTS)
+        ).items()
+    }
+    cluster = loadgen.InProcessCluster(
+        node_count=INGRESS_NODES,
+        client_ids=list(INGRESS_CLIENTS),
+        batch_size=INGRESS_BATCH_SIZE,
+        processor="cuda-pipelined",
+        device=device,
+        tick_seconds=INGRESS_TICK_S,
+    )
+    ingress = {}
+    try:
+        for replica in cluster.replicas:
+            ingress[replica.node_id] = SpeculativeIngress(
+                replica.node.propose, recorded,
+                name=f"ingress-{replica.node_id}",
+            )
+        front = _IngressFront(
+            cluster, ingress, INGRESS_FORGE_EVERY, INGRESS_SEED
+        )
+        generator = loadgen.LoadGenerator(front, models, seed=INGRESS_SEED)
+        steps = []
+        start = time.perf_counter()
+        for rate in INGRESS_RATES:
+            before = {n: len(s.flush_sizes) for n, s in ingress.items()}
+            step = generator.run_step(
+                f"ingress-poisson-{int(rate)}",
+                loadgen.PoissonArrivals(rate, seed=int(rate)),
+                duration_s=INGRESS_STEP_S,
+                drain_s=INGRESS_DRAIN_S,
+            )
+            sizes, walls = [], []
+            for n, stage in ingress.items():
+                sizes += stage.flush_sizes[before[n]:]
+                walls += stage.flush_wall_s[before[n]:]
+            steps.append({"step": step, "batch_sizes": sizes,
+                          "verify_wall_s": walls,
+                          "epochs": _epochs(cluster)})
+        # Every node commits every honest request (the generator stops at
+        # the first node's commit), or installs a snapshot and reaches the
+        # chain of a node that committed them all.
+        want = set(front.honest)
+        deadline = time.monotonic() + INGRESS_SETTLE_S
+        while time.monotonic() < deadline:
+            front.poll_commits()
+            per_node = {n: set() for n in cluster.node_ids}
+            for node, cid, req_no, _seq, _ts in front.commits:
+                per_node[node].add((cid, req_no))
+            full = {
+                r.app_log.chain for r in cluster.replicas
+                if want <= per_node[r.node_id]
+            }
+            if full and all(
+                want <= per_node[r.node_id] or (
+                    r.engine.counters["snapshots_installed"]
+                    and r.app_log.chain in full
+                )
+                for r in cluster.replicas
+            ):
+                break
+            time.sleep(0.05)
+        for stage in ingress.values():
+            stage.flush(timeout=10.0)
+        wall = time.perf_counter() - start
+        cluster.check()
+        commits = {n: collections.Counter() for n in cluster.node_ids}
+        for node, cid, req_no, _seq, _ts in front.commits:
+            commits[node][(cid, req_no)] += 1
+        forged = set(front.forged.values())
+        forged_stored = sum(
+            1 for replica in cluster.replicas
+            for data in replica.reqstore.data.values() if data in forged
+        )
+        out = {
+            "steps": steps,
+            "wall_s": wall,
+            "batches": batches,
+            "honest": want,
+            "forged": len(front.forged),
+            "forged_to": dict(front.forged_to),
+            "forged_stored": forged_stored,
+            "commits": commits,
+            "observed": list(front.commits),
+            "ingress": {
+                n: {
+                    "admitted": s.admitted, "delivered": s.delivered,
+                    "evicted": s.evicted, "batches": s.batches,
+                    "verify_errors": s.verify_errors,
+                    "last_error": s.last_error,
+                    "dropped_overflow": s.dropped_overflow,
+                }
+                for n, s in ingress.items()
+            },
+            "chains": {r.node_id: r.app_log.chain for r in cluster.replicas},
+            "transfers": {
+                r.node_id: (
+                    r.engine.counters["snapshots_installed"],
+                    r.engine.status()["target_seq_no"],
+                )
+                for r in cluster.replicas
+            },
+        }
+    finally:
+        for stage in ingress.values():
+            stage.close()
+        cluster.close()
+    # Read once every node has stopped: the wrappers' counts end there too.
+    out.update(_digest_counters(cluster))
+    return out
+
+
+def _epochs(cluster) -> list:
+    """Each node's current epoch number (an epoch change shows here)."""
+    out = []
+    for replica in cluster.replicas:
+        tracker = replica.node.status(timeout=5.0).epoch_tracker
+        out.append(None if tracker is None else tracker.number)
+    return out
+
+
+def _digest_counters(cluster) -> dict:
+    procs = [r.processor for r in cluster.replicas]
+    return {
+        "device_digests": sum(p.device_digests for p in procs),
+        "host_digests": sum(p.host_digests for p in procs),
+        "hash_launches": sum(p.launches for p in procs),
+        "kernel_ms": sum(p.kernel_ms for p in procs),
+    }
+
+
+class _HeldInbound:
+    """Holds one node's inbound protocol frames (the direct links' calls
+    into its ``step``) until ``release``, which delivers them in arrival
+    order and lets later frames through.  A harness wrapper only: client
+    proposals and transfer frames take other paths and are not held."""
+
+    def __init__(self, node):
+        self._step = node.step
+        self._lock = threading.Lock()
+        self._held: list = []
+        self.holding = True
+        node.step = self.step
+
+    def step(self, source, msg) -> None:
+        with self._lock:
+            if self.holding:
+                self._held.append((source, msg))
+                return
+        self._step(source, msg)
+
+    def release(self) -> int:
+        from .runtime.node import NodeStopped
+
+        with self._lock:
+            held, self._held = self._held, []
+            for source, msg in held:
+                try:
+                    self._step(source, msg)
+                except (NodeStopped, ValueError):
+                    pass  # dropped, as the direct link drops it
+            self.holding = False
+        return len(held)
+
+
+def _kv_converged(replicas, timeout_s: float) -> bool:
+    """Wait until every replica's commit stream sits at one applied index
+    and every KvStore snapshot is the same bytes."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        indexes = {r.stream.status()["applied_index"] for r in replicas}
+        if len(indexes) == 1 and len(
+            {r.store.snapshot() for r in replicas}
+        ) == 1:
+            return True
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+
+
+def app_run(*, device="cuda", ops_per_session=APP_OPS_PER_SESSION,
+            nodes=APP_NODES, tick_s=APP_TICK_S) -> dict:
+    """The KV rung (see the constants above), then the lagging replica.
+    ``ops_per_session``, ``nodes`` and ``tick_s`` shrink it for the CPU
+    tests.  Returns the workload's step and history, the linearizable-reads
+    evidence (``{"violation": message}`` when the audit fails), whether the replicas converged to one KvStore snapshot, the
+    digest counters, and the held replica's catch-up: frames
+    held, its engine's counters, the transfer's bytes, chunks and wall,
+    whether its snapshot equals the others', and the committed reads
+    served from it against a caught-up replica's values."""
+    from . import loadgen
+    from .chaos.invariants import InvariantViolation, check_linearizable_reads
+    from .runtime.node import standard_initial_network_state
+
+    client_ids = list(range(1, APP_SESSIONS + 1))
+    lag_node = nodes - 1  # no session is homed on it
+    start = time.perf_counter()
+    cluster = loadgen.InProcessCluster(
+        node_count=nodes,
+        client_ids=client_ids,
+        batch_size=APP_BATCH_SIZE,
+        processor="cuda-pipelined",
+        device=device,
+        tick_seconds=tick_s,
+        app="kv",
+    )
+    try:
+        sessions = {
+            cid: cluster.kv_session(cid, home=i % nodes)
+            for i, cid in enumerate(client_ids)
+        }
+        workload = loadgen.KvWorkload(
+            sessions,
+            loadgen.kv_client_models(client_ids, read_ratio=APP_READ_RATIO),
+            seed=APP_SEED,
+        )
+        step = workload.run_step(
+            "app-kv-mixed",
+            ops_per_session=ops_per_session,
+            op_timeout_s=APP_OP_TIMEOUT_S,
+        )
+        try:
+            evidence = check_linearizable_reads(workload.history)
+        except InvariantViolation as err:
+            evidence = {"violation": str(err)}
+        converged = _kv_converged(cluster.replicas, APP_CONVERGE_S)
+        snapshot = cluster.replicas[0].store.snapshot()
+        out = {
+            "step": step,
+            "history": workload.history,
+            "linearizable": evidence,
+            "converged": converged,
+            "snapshot_bytes": len(snapshot),
+            "workload_wall_s": time.perf_counter() - start,
+        }
+        interval = standard_initial_network_state(
+            nodes, client_ids
+        ).config.checkpoint_interval
+        out["lag"] = _lagging_replica(cluster, sessions, lag_node, interval)
+        cluster.check()
+        out["wall_s"] = time.perf_counter() - start
+    finally:
+        cluster.close()
+    # Read once every node has stopped: the wrappers' counts end there too.
+    out.update(_digest_counters(cluster))
+    return out
+
+
+def _lagging_replica(cluster, sessions, lag_node, interval) -> dict:
+    """Hold ``lag_node``'s inbound frames while the sessions write, until
+    every other node's low watermark sits ``APP_LAG_CHECKPOINTS``
+    checkpoint intervals past the held node's; stop writing, release, and
+    wait for the held node to install a snapshot and reach the others'
+    KvStore bytes.  Then read every written key from it, committed."""
+    from .runtime.transfer import decode_frame
+
+    timeout_s = APP_LAG_TIMEOUT_S
+    replicas = cluster.replicas
+    lagger = replicas[lag_node]
+    others = [r for r in replicas if r.node_id != lag_node]
+    low0 = lagger.node.status(timeout=5.0).low_watermark
+    target = low0 + APP_LAG_CHECKPOINTS * interval
+    received = {"bytes": 0, "chunks": 0, "first": None}
+    on_frame = lagger.engine.on_frame
+
+    def counting(sender, body):
+        try:
+            frame = decode_frame(body)
+        except ValueError:
+            frame = ("?",)
+        if frame[0] == "chunk":
+            received["bytes"] += len(frame[5])
+            received["chunks"] += 1
+            if received["first"] is None:
+                received["first"] = time.perf_counter()
+        on_frame(sender, body)
+
+    lagger.engine.on_frame = counting
+    held = _HeldInbound(lagger.node)
+    stop = threading.Event()
+    written: dict = {}
+    written_lock = threading.Lock()
+
+    def writer(cid, session):
+        i = 0
+        while not stop.is_set():
+            key = f"lag-{cid}-{i % 8}"
+            value = b"%d:%d" % (cid, i)
+            resp = session.put(key, value, timeout=APP_OP_TIMEOUT_S)
+            if resp.get("status") == "ok":
+                with written_lock:
+                    written[key] = value
+            i += 1
+
+    threads = [
+        threading.Thread(target=writer, args=(cid, s), daemon=True)
+        for cid, s in sorted(sessions.items())
+    ]
+    hold_start = time.perf_counter()
+    for thread in threads:
+        thread.start()
+    deadline = time.monotonic() + timeout_s
+    lows = []
+    while time.monotonic() < deadline:
+        lows = [r.node.status(timeout=5.0).low_watermark for r in others]
+        if min(lows) >= target:
+            break
+        time.sleep(0.1)
+    stop.set()
+    for thread in threads:
+        thread.join(timeout=APP_OP_TIMEOUT_S + 5)
+    hold_s = time.perf_counter() - hold_start
+    released_at = time.perf_counter()
+    frames = held.release()
+    caught_up = False
+    installed_at = None
+    while time.monotonic() < deadline + timeout_s:
+        if installed_at is None and lagger.engine.counters[
+            "snapshots_installed"
+        ]:
+            installed_at = time.perf_counter()
+        if installed_at is not None and _kv_converged(replicas, 0.0):
+            caught_up = True
+            break
+        time.sleep(0.05)
+    reads = []
+    if caught_up:
+        reader = cluster.kv_session(
+            min(sessions), home=lag_node
+        )
+        reader.session_index = others[0].stream.status()["applied_index"]
+        for key, value in sorted(written.items()):
+            resp = reader.get(key, mode="committed",
+                              timeout=APP_OP_TIMEOUT_S)
+            reads.append((key, value.hex(), resp))
+    counters = dict(lagger.engine.counters)
+    return {
+        "node": lag_node,
+        "low_watermark_before": low0,
+        "target_low_watermark": target,
+        "others_low_watermarks": lows,
+        "frames_held": frames,
+        "hold_s": hold_s,
+        "writes": len(written),
+        "caught_up": caught_up,
+        "transfer_s": (
+            None if installed_at is None else installed_at - released_at
+        ),
+        "transfer_bytes": received["bytes"],
+        "transfer_chunks": received["chunks"],
+        "engine": counters,
+        "snapshot_equal": caught_up and lagger.store.snapshot() == (
+            others[0].store.snapshot()
+        ),
+        "reads": reads,
+        "reads_ok": bool(reads) and all(
+            resp.get("status") == "ok" and resp.get("value") == want
+            for _key, want, resp in reads
+        ),
     }

@@ -19,7 +19,7 @@ and rotated over a small fixed set of names, so:
 each to a Chrome trace carrying the same ``clock_sync`` metadata the live
 tracer emits, for ``obsv/merge.py`` to join into one cross-node,
 clock-aligned causal timeline ending at the failure.  The trace merger is
-not ported yet (ROADMAP queue 1, item 2): ``postmortem`` raises there,
+not ported yet (ROADMAP queue 1, item 1): ``postmortem`` raises there,
 after loading and converting the dumps.
 """
 
@@ -311,7 +311,7 @@ def merge_traces(traces):
     package's ``obsv/merge.py``, which is not ported yet."""
     raise NotImplementedError(
         "obsv/merge.py (the trace merger) is not ported yet (ROADMAP "
-        "queue 1, item 2): the flight dumps load and convert, but do not "
+        "queue 1, item 1): the flight dumps load and convert, but do not "
         "merge"
     )
 

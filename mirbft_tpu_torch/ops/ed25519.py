@@ -48,6 +48,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import hashlib
+import threading
 
 import numpy as np
 import torch
@@ -536,6 +537,19 @@ def _raise_on(lib, err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: {msg} ({err})")
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count_launch(wrapper, rows: int) -> None:
+    """Add one to ``wrapper.launches`` and to its rows' count.  Under a
+    lock: each live node's ingress stage launches from a thread of its
+    own, and ``+= 1`` on a function attribute can lose a count to another
+    thread."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
+        wrapper.launches_by_rows[rows] += 1
+
+
 def decompress(enc: torch.Tensor):
     """(m, 8) int32 words of 32-byte point encodings -> ((m, 2, 10) int32
     canonical affine (x, y), (m,) int32 ok).  CUDA tensors launch the kernel
@@ -561,8 +575,7 @@ def decompress(enc: torch.Tensor):
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "decompress")
-    decompress.launches += 1
-    decompress.launches_by_rows[rows] += 1
+    _count_launch(decompress, rows)
     return xy, ok
 
 
@@ -599,8 +612,7 @@ def ladder(xy, ok, s_words, k_words):
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "ladder")
-    ladder.launches += 1
-    ladder.launches_by_rows[n] += 1
+    _count_launch(ladder, n)
     return out
 
 

@@ -9,8 +9,7 @@ through a one-slot outbox; each handoff is marked with an ActionsReceived
 event so recorded logs tie results to the actions that caused them.
 
 Not ported yet, and raising ``NotImplementedError`` where asked for: the
-HTTP exporter (``Config.metrics_port``; ROADMAP queue 1 item 2) and the app
-commit stream (``attach_app``; item 3).
+HTTP exporter (``Config.metrics_port``; ROADMAP queue 1, item 1).
 """
 
 from __future__ import annotations
@@ -135,7 +134,7 @@ class Node:
         if config.metrics_port is not None:
             raise NotImplementedError(
                 "Config.metrics_port: the HTTP exporter (obsv/exporter.py) "
-                "is not ported yet (ROADMAP queue 1, item 2)"
+                "is not ported yet (ROADMAP queue 1, item 1)"
             )
         self.config = config
         self._inbox: queue.Queue = queue.Queue()
@@ -163,6 +162,7 @@ class Node:
                 recorder=hooks.recorder,
             )
         self._waiters: list[_Waiter] = []
+        self.app_stream = None  # set by attach_app
         self._wal_storage = wal_storage
         self._req_storage = req_storage
         self._thread = threading.Thread(
@@ -198,13 +198,30 @@ class Node:
 
     def attach_app(self, app, *, state_path=None, queue_depth=256,
                    data_source=None):
-        """Register a replicated state machine behind a commit stream.
-        The commit stream (the JAX package's ``app/stream.py``) is not
-        ported yet: this raises."""
-        raise NotImplementedError(
-            "Node.attach_app: the app commit stream (app/stream.py) is not "
-            "ported yet (ROADMAP queue 1, item 3)"
+        """Register a replicated state machine and return the commit
+        stream: an ordered, exactly-once-per-apply-index delivery of
+        committed ops into ``app.apply(client_id, req_no, seq_no,
+        apply_index, data)``, with the applied index persisted inside the
+        app snapshot at ``state_path`` so restart and snapshot install
+        resume without re-applying.  The returned ``CommitStream`` is the
+        ``Log`` to hand to ``build_processor`` (or to compose with a
+        durable journal via ``app.AppLog``); ``app_status()`` reads its
+        frontier."""
+        from ..app.stream import CommitStream
+
+        self.app_stream = CommitStream(
+            app,
+            node_id=self.config.id,
+            state_path=state_path,
+            queue_depth=queue_depth,
+            data_source=data_source,
         )
+        return self.app_stream
+
+    def app_status(self) -> dict | None:
+        """The attached commit stream's frontier/queue status (None when
+        no app is attached)."""
+        return None if self.app_stream is None else self.app_stream.status()
 
     def step(self, source: int, msg: pb.Msg) -> None:
         """Inbound authenticated message from the transport.  Structural
@@ -305,6 +322,8 @@ class Node:
                 # sentinel must always reach the serializer.
                 self._inbox.put(("stop",))
             self._thread.join(timeout=10)
+            if self.app_stream is not None:
+                self.app_stream.close()
 
     @property
     def exit_error(self):

@@ -23,9 +23,8 @@ observable as ``mirbft_*_group_commit_batches`` / ``mirbft_*_fsyncs_total``
 and the honest per-waiter latency (issue-to-durable, including queueing)
 as ``mirbft_*_group_sync_wait_seconds``.
 
-The on-disk bytes are the JAX package's, record for record.  Its snapshot
-staging files (state transfer) and app-state files (``app/``) are not
-carried over: neither subsystem is ported yet.
+The on-disk bytes are the JAX package's, record for record, and so are
+the snapshot staging files (state transfer) and app-state files (``app/``).
 """
 
 from __future__ import annotations
@@ -589,3 +588,75 @@ class FileRequestStore:
         self._group.stop(flush=False)
         with self._lock:
             self._file.close()
+
+
+# -- snapshot staging (state transfer) ---------------------------------------
+#
+# The transfer engine (runtime/transfer.py) stages a verified snapshot to
+# disk *before* adoption so a crash mid-install restarts cleanly: the core
+# re-emits state_transfer on restart (TEntry > CEntry in the WAL), the
+# engine finds the staged blob for the same target, and completes the
+# install without re-fetching.  All fsync-bearing snapshot file I/O lives
+# here (lint rules W10/W17).
+
+
+def write_snapshot_file(path: str, blob: bytes) -> None:
+    """Atomically persist a snapshot blob: tmp + fsync + rename + dir
+    fsync, so ``path`` either holds the complete blob or does not exist —
+    a torn staging file can never be mistaken for a verified snapshot."""
+    directory = os.path.dirname(path) or "."
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _fsync_dir(directory)
+
+
+def read_snapshot_file(path: str) -> bytes | None:
+    """Read a staged snapshot blob, or None when absent."""
+    try:
+        with open(path, "rb") as f:
+            return f.read()
+    except OSError:
+        return None
+
+
+def remove_snapshot_file(path: str) -> None:
+    """Discard a staged snapshot (post-install or on target change); the
+    unlink is made durable so a crash cannot resurrect a consumed blob."""
+    directory = os.path.dirname(path) or "."
+    try:
+        os.unlink(path)
+    except OSError:
+        return
+    _fsync_dir(directory)
+
+
+# -- application state (replicated app snapshots) -----------------------------
+#
+# The app commit stream (app/stream.py) persists its state as
+# ONE atomic blob: the applied consensus seq_no, the apply index, the
+# journal chain, and the state machine's own snapshot travel together,
+# so a crash at any instant leaves either the old complete state or the
+# new complete state — never an applied-index that disagrees with the
+# entries actually absorbed (the double-apply-after-restart bug class).
+# All fsync-bearing app-state file I/O lives here (lint rules W10/W18).
+
+
+def write_app_state(path: str, blob: bytes) -> None:
+    """Atomically persist an app-state blob (tmp + fsync + rename + dir
+    fsync): the applied-index inside the blob can never be observed
+    without the state it describes."""
+    write_snapshot_file(path, blob)
+
+
+def read_app_state(path: str) -> bytes | None:
+    """Read a persisted app-state blob, or None when absent."""
+    return read_snapshot_file(path)
+
+
+def remove_app_state(path: str) -> None:
+    """Durably discard a persisted app-state blob."""
+    remove_snapshot_file(path)

@@ -124,13 +124,13 @@ def host_verifier(items: list) -> list:
     return out
 
 
-def _batch_verdicts(items: list, verify, device) -> list:
-    """Judge items through a batch verifier (ops.ed25519); the
-    client-identity binding (pk == registry pk) stays host-side."""
-    device = resolve_device(device)
+def identified(items: list) -> tuple:
+    """items: [(client_id, req_no, data)] -> (slots, [(pk, message,
+    signature)]): the items whose signed trailer parses and whose key is
+    the client's, with their places in ``items``.  The rest are rejected
+    on the host before any batch verifier sees them."""
     cache = _PK_CACHE
-    out = [False] * len(items)
-    pks, msgs, sigs, slots = [], [], [], []
+    slots, triples = [], []
     for slot, (client_id, req_no, data) in enumerate(items):
         parts = split_signed(data)
         if parts is None:
@@ -138,11 +138,19 @@ def _batch_verdicts(items: list, verify, device) -> list:
         payload, sig, pk = parts
         if pk != _expected_pk(client_id, cache):
             continue
-        pks.append(pk)
-        msgs.append(signing_message(client_id, req_no, payload))
-        sigs.append(sig)
         slots.append(slot)
+        triples.append((pk, signing_message(client_id, req_no, payload), sig))
+    return slots, triples
+
+
+def _batch_verdicts(items: list, verify, device) -> list:
+    """Judge items through a batch verifier (ops.ed25519); the
+    client-identity binding (pk == registry pk) stays host-side."""
+    device = resolve_device(device)
+    out = [False] * len(items)
+    slots, triples = identified(items)
     if slots:
+        pks, msgs, sigs = map(list, zip(*triples))
         verdicts = verify(pks, msgs, sigs, device=device)
         for slot, valid in zip(slots, verdicts, strict=True):
             out[slot] = bool(valid)
@@ -159,6 +167,44 @@ def pallas_verifier(items: list, device="cuda") -> list:
     """items: [(client_id, req_no, data)] -> [bool], through the Ed25519
     kernels at ``verify_batch_pallas``'s 4096-row chunks."""
     return _batch_verdicts(items, verify_batch_pallas, device)
+
+
+def rlc_verifier(items: list) -> list:
+    """items: [(client_id, req_no, data)] -> [bool], via the host batch
+    verifier (crypto.ed25519_batch, a random linear combination).  The
+    host route, taken only where a caller names it: no entry point picks
+    it on its own.  Verdicts equal host_verifier's bit for bit; the
+    client-identity binding (pk == registry pk) stays per item."""
+    from ..crypto import ed25519_batch
+
+    out = [False] * len(items)
+    slots, triples = identified(items)
+    if slots:
+        verdicts = ed25519_batch.verify_batch(triples)
+        for slot, valid in zip(slots, verdicts, strict=True):
+            out[slot] = bool(valid)
+    return out
+
+
+def kernel_authority(device="cuda") -> bool:
+    """Whether the Ed25519 kernels hold verify authority on ``device``:
+    true for a CUDA device.  ``resolve_device`` raises without a card;
+    there is no "no accelerator, so the host" branch."""
+    return resolve_device(device).type == "cuda"
+
+
+def batch_verifier(device="cuda"):
+    """The batch verifier that live embedders inject into
+    ``runtime.ingress.SpeculativeIngress``: ``kernel_verifier`` bound to
+    ``device`` (``cuda`` unless the caller asks for ``cpu``, the kernels'
+    plain versions).  Raises without a card; never ``rlc_verifier``."""
+    device = resolve_device(device)
+
+    def verifier(items: list) -> list:
+        return kernel_verifier(items, device=device)
+
+    verifier.device = device
+    return verifier
 
 
 class SignaturePlane:

@@ -438,3 +438,81 @@ def test_bls_aggregate_raises_rather_than_folding_on_the_host(card,
         bls_g1.aggregate_points(xs, ys, zs.cpu(), mask)
     with pytest.raises(TypeError):
         bls_g1.aggregate_points(xs.to(torch.int64), ys, zs, mask)
+
+
+# -- the live node as a replicated service ---------------------------------------
+
+
+def _ingress_items(n: int) -> list:
+    """n signed requests (client_id, req_no, data) for clients 1-3: valid
+    ones with forgeries among them (a flipped bit of S, a signature for
+    another req_no), each reaching the kernels."""
+    signer = signing.make_signer()
+    items = []
+    for i in range(n):
+        cid, req_no = 1 + i % 3, i
+        data = signer(cid, req_no, b"op-%d" % i)
+        if i % 5 == 3:
+            flipped = bytearray(data)
+            flipped[-64] ^= 1 << (i % 8)
+            data = bytes(flipped)
+        elif i % 5 == 4:
+            req_no += 1
+        items.append((cid, req_no, data))
+    return items
+
+
+@pytest.mark.parametrize("n", [1, 7, 100, 256])
+def test_ingress_batch_verifier_on_the_card_equals_plain(card, n):
+    """batch_verifier("cuda") on a batch of valid signatures and forgeries:
+    one launch of each Ed25519 kernel at n rows, verdicts equal to the
+    plain versions' (batch_verifier("cpu")) and the host oracle's."""
+    from mirbft_tpu_torch import bench
+
+    items = _ingress_items(n)
+    assert len(bench.ingress_rows(items)) == n
+    verifier = signing.batch_verifier()
+    assert verifier.device.type == "cuda"
+    before = (ed25519.decompress.launches, ed25519.ladder.launches)
+    got = verifier(items)
+    assert (ed25519.decompress.launches, ed25519.ladder.launches) == (
+        before[0] + 1, before[1] + 1,
+    )
+    assert got == signing.batch_verifier("cpu")(items)
+    assert got == signing.host_verifier(items)
+    if n >= 5:
+        assert any(got) and not all(got)
+
+
+def test_kv_cluster_smoke_on_the_card(card):
+    """A 4-node InProcessCluster(app="kv") on its default processor,
+    cuda-pipelined on the card: read-your-writes through the committed
+    read barrier, cas, a read from another node, every digest launched."""
+    import time
+
+    from mirbft_tpu_torch.loadgen import InProcessCluster
+
+    before = port.sha256_digest_words.launches
+    with InProcessCluster(node_count=4, client_ids=[1, 2], app="kv") as cluster:
+        assert all(r.processor.device.type == "cuda" for r in cluster.replicas)
+        s1 = cluster.kv_session(1, home=0)
+        put = s1.put("alpha", b"v1", timeout=30.0)
+        assert put["status"] == "ok", put
+        got = s1.get("alpha", timeout=30.0)
+        assert bytes.fromhex(got["value"]) == b"v1"
+        cas = s1.cas("alpha", put["version"], b"v2", timeout=30.0)
+        assert cas["status"] == "ok", cas
+        s2 = cluster.kv_session(2, home=1)
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            other = s2.get("alpha", timeout=30.0)
+            if other.get("version") == cas["version"]:
+                break
+            time.sleep(0.05)
+        assert bytes.fromhex(other["value"]) == b"v2"
+        cluster.check()
+    procs = [r.processor for r in cluster.replicas]
+    assert sum(p.host_digests for p in procs) == 0
+    launches = sum(p.launches for p in procs)
+    assert launches > 0
+    assert port.sha256_digest_words.launches - before == launches

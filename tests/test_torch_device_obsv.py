@@ -385,7 +385,7 @@ def test_postmortem_loads_dumps_then_names_the_missing_merger(tmp_path):
         rec.record_milestone("commit", args={"seq": node})
         rec.flush()
     assert set(load_dumps(str(tmp_path))) == {0, 1}
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
+    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
         postmortem(str(tmp_path))
     with pytest.raises(FileNotFoundError):
         postmortem(str(tmp_path / "empty"))

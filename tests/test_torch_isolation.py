@@ -1,7 +1,9 @@
 """The port stands alone: mirbft_tpu_torch imports neither jax nor the JAX
 package, its entry points refuse to run on a card that is not there, and
 the device ack plane and the BLS aggregation raise instead of falling back
-to the host."""
+to the host.  The live service (signed ingress, the app layer, state
+transfer, the load generator and the chaos invariants) is held to the same
+rules: no jax, no JAX package, no host route unless named."""
 
 import ast
 import os
@@ -153,6 +155,12 @@ def _chain_block():
     return torch.zeros((4, 16), dtype=torch.int32)
 
 
+def _cluster(**kw):
+    from mirbft_tpu_torch.loadgen import InProcessCluster
+
+    return InProcessCluster(node_count=1, client_ids=[1], **kw)
+
+
 @pytest.mark.parametrize(
     "entry",
     [
@@ -175,6 +183,12 @@ def _chain_block():
         lambda: _processor("cuda-pool"),
         lambda: _processor("cuda-pipelined"),
         lambda: _processor(),
+        signing.batch_verifier,
+        signing.kernel_authority,
+        _cluster,
+        lambda: _cluster(app="kv"),
+        port_bench.ingress_run,
+        port_bench.app_run,
     ],
     ids=[
         "kernel_plane", "sha256_many", "sha256_chunked", "to_tensors",
@@ -182,7 +196,9 @@ def _chain_block():
         "verify_batch", "verify_batch_pallas", "verify_batch_empty",
         "launch_rows", "kernel_verifier", "kernel_microbench", "microbench_warmup", "live_cluster_rate",
         "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
-        "default_config_processor",
+        "default_config_processor", "batch_verifier", "kernel_authority",
+        "inprocess_cluster", "inprocess_kv_cluster", "ingress_run",
+        "app_run",
     ],
 )
 def test_entry_points_raise_without_a_card(no_card, entry):
@@ -214,6 +230,8 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         lambda: _processor("cuda-pool", device="cpu"),
         lambda: _processor("cuda-pipelined", device="cpu"),
         lambda: _processor(device="cpu"),
+        lambda: signing.batch_verifier("cpu"),
+        lambda: _cluster(device="cpu"),
     ],
     ids=[
         "kernel_plane", "sha256_many", "to_tensors", "recorder",
@@ -221,7 +239,7 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "verify_batch", "verify_batch_pallas", "launch_rows",
         "sha256_chain_checksum", "kernel_microbench", "microbench_warmup",
         "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
-        "default_config_processor",
+        "default_config_processor", "batch_verifier", "inprocess_cluster",
     ],
 )
 def test_entry_points_run_on_the_cpu_when_asked(no_card, entry):
@@ -316,6 +334,66 @@ def test_ack_plane_has_no_host_fallback():
     assert not hasattr(device_tracker, "device_plane_available")
 
 
+#: The live node as a replicated service: signed ingress, the app layer,
+#: state transfer, the load generator and the chaos invariants.
+SERVICE_MODULES = [
+    "crypto/ed25519_batch.py", "runtime/ingress.py", "runtime/transfer.py",
+    "runtime/storage.py", "app/__init__.py", "app/kvstore.py",
+    "app/stream.py", "app/journal.py", "app/service.py",
+    "loadgen/__init__.py", "loadgen/arrivals.py", "loadgen/clients.py",
+    "loadgen/generator.py", "loadgen/inproc.py", "loadgen/kv.py",
+    "loadgen/slo.py", "chaos/__init__.py", "chaos/invariants.py",
+]
+
+
+@pytest.mark.parametrize("name", SERVICE_MODULES)
+def test_service_modules_import_neither_jax_nor_the_jax_package(name):
+    """Checked by every import statement of the source, those inside
+    functions too (generator.py signs through a lazy import)."""
+    path = PORT / name
+    assert path.exists(), name
+    bad = [m for m in _imports(path) if m and forbidden(m)]
+    assert not bad, f"{name}: {bad}"
+    relative = [
+        node.module for node in ast.walk(ast.parse(path.read_text()))
+        if isinstance(node, ast.ImportFrom) and node.level
+        and node.module and forbidden(node.module)
+    ]
+    assert not relative, f"{name}: {relative}"
+
+
+def test_no_host_route_is_picked_unless_named():
+    """The verifier live embedders inject is the kernels', the in-process
+    cluster's default processor hashes on the kernel, and no code in the
+    port's service modules or bench.py calls the host batch verifier or
+    passes a hashlib processor kind."""
+    import inspect
+
+    from mirbft_tpu_torch.loadgen import inproc
+
+    cpu = signing.batch_verifier("cpu")
+    assert cpu is not signing.rlc_verifier
+    names = _class_source_names(signing.batch_verifier)
+    assert "kernel_verifier" in names and "rlc_verifier" not in names
+    default = inspect.signature(inproc.InProcessCluster).parameters
+    assert default["processor"].default == "cuda-pipelined"
+    assert default["device"].default == "cuda"
+    for name in SERVICE_MODULES + ["bench.py"]:
+        tree = ast.parse((PORT / name).read_text())
+        used = {
+            node.id if isinstance(node, ast.Name) else node.attr
+            for node in ast.walk(tree)
+            if isinstance(node, (ast.Name, ast.Attribute))
+        }
+        assert "rlc_verifier" not in used, name
+        kinds = {
+            kw.value.value for node in ast.walk(tree)
+            if isinstance(node, ast.Call) for kw in node.keywords
+            if kw.arg == "processor" and isinstance(kw.value, ast.Constant)
+        }
+        assert not kinds & {"serial", "pool", "pipelined"}, (name, kinds)
+
+
 @pytest.mark.parametrize("name", NEW_MODULES)
 def test_live_node_modules_import_neither_jax_nor_the_jax_package(name):
     path = PORT / name
@@ -333,12 +411,18 @@ def test_signing_has_no_except_around_a_verify():
         assert not tries, f"{name}: try at line {tries[0].lineno}"
 
 
-def test_signing_has_no_host_authority_switch():
+def test_signing_has_no_host_authority_switch(no_card):
     """The JAX package's kernel_authority()/batch_verifier() picked a host
-    route when no device was attached; the port has neither."""
-    assert not hasattr(signing, "kernel_authority")
-    assert not hasattr(signing, "batch_verifier")
-    assert not hasattr(signing, "rlc_verifier")
+    route when no device was attached.  The port's raise there instead;
+    rlc_verifier exists as a route a caller names, and batch_verifier
+    never returns it."""
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        signing.kernel_authority()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        signing.batch_verifier()
+    assert signing.kernel_authority("cpu") is False
+    assert signing.batch_verifier("cpu") is not signing.rlc_verifier
+    assert "rlc_verifier" not in _class_source_names(signing.kernel_authority)
 
 
 def test_recorder_has_no_hash_executor_route():

@@ -3,7 +3,8 @@
 Real serializer threads, real files, an in-process transport (the six
 processor kinds of tests/test_runtime.py::test_four_node_runtime, the
 ``cuda*`` kinds on the kernel's plain version) and real TCP (a mixed
-cluster of two JAX nodes and two port nodes).  Also: the ``Cuda*``
+cluster of two JAX nodes and two port nodes), with state transfer served
+by each package's TransferEngine.  Also: the ``Cuda*``
 processors' digests against the host kinds', the pipelined persist→send
 barrier and group commit (mirroring tests/test_pipeline.py), and the WAL
 and request store read across packages byte for byte."""
@@ -27,6 +28,7 @@ from mirbft_tpu.runtime import TcpTransport as JaxTcpTransport
 from mirbft_tpu.runtime.node import (
     standard_initial_network_state as jax_initial_state,
 )
+from mirbft_tpu.runtime.transfer import TransferEngine as JaxTransferEngine
 from mirbft_tpu_torch import bench, pb
 from mirbft_tpu_torch.core import actions as act
 from mirbft_tpu_torch.runtime import (
@@ -53,6 +55,7 @@ from mirbft_tpu_torch.runtime.processor import (
     ProcessorClosed,
     _CudaHashMixin,
 )
+from mirbft_tpu_torch.runtime.transfer import TransferEngine
 
 KINDS = ["serial", "cuda", "pool", "cuda-pool", "pipelined", "cuda-pipelined"]
 CUDA_KINDS = [k for k in KINDS if k.startswith("cuda")]
@@ -66,15 +69,32 @@ class ThreadTransport:
 
     def __init__(self):
         self.nodes = {}
+        self.engines = {}
         self.lock = threading.Lock()
 
-    def register(self, node_id, node):
+    def register(self, node_id, node, engine=None):
         with self.lock:
             self.nodes[node_id] = node
+            self.engines[node_id] = engine
 
     def unregister(self, node_id):
         with self.lock:
             self.nodes.pop(node_id, None)
+            self.engines.pop(node_id, None)
+
+    def duct(self, source: int):
+        """The transfer frames' path: send == the dest engine's
+        on_frame (TransferEngine sends with its lock released)."""
+        transport = self
+
+        class _Duct:
+            def send(self, dest, body):
+                with transport.lock:
+                    engine = transport.engines.get(dest)
+                if engine is not None:
+                    engine.on_frame(source, body)
+
+        return _Duct()
 
     def link(self, source: int) -> Link:
         transport = self
@@ -113,19 +133,31 @@ class HashChainLog(Log):
         return self.chain
 
 
+class _TcpDuct:
+    """TransferEngine frames over a TcpTransport's transfer lane."""
+
+    def __init__(self, transport):
+        self.transport = transport
+
+    def send(self, dest, body):
+        self.transport.send_transfer(dest, body)
+
+
 class Replica:
     """One node: serializer + consumer loop thread + storage.  The consumer
-    counts the hash requests it hands to the processor and, as
-    tests/test_runtime.py's harness does, serves a state transfer out of
-    band: a node that falls behind its peers' stable checkpoint adopts one
-    (the reference consumer's job, mirbft.go:426-459)."""
+    counts the hash requests it hands to the processor and serves state
+    transfer through its package's TransferEngine over ``duct``: every
+    stable checkpoint is noted as a servable snapshot, and a node that
+    falls behind its peers' stable checkpoint fetches one from them and
+    adopts it (the reference consumer's job, mirbft.go:426-459)."""
 
     def __init__(self, node_id, link, tmp_path, state, node_cls=Node,
-                 config=None, processor=None, tick_seconds=0.05, peers=()):
+                 config=None, processor=None, tick_seconds=0.05, peers=(),
+                 duct=None):
         self.node_id = node_id
         self.peers = peers
         self.pb = pb if node_cls is Node else jax_pb
-        self.checkpoints = {}  # seq_no -> (value, encoded NetworkState)
+        self.checkpoints = {}  # seq_no -> (value, NetworkState)
         self.dir = tmp_path / f"node{node_id}"
         self.tick_seconds = tick_seconds
         self.app_log = HashChainLog()
@@ -135,6 +167,18 @@ class Replica:
         self.reqstore = store_cls(str(self.dir / "reqs"))
         self.node = node_cls.start_new(config, state)
         self.link = link
+        engine_cls = TransferEngine if node_cls is Node else JaxTransferEngine
+        self.engine = engine_cls(
+            node_id,
+            duct,
+            staging_dir=str(self.dir),
+            peers=list(state.config.nodes),
+            limits=config,
+            install=self._install_snapshot,
+            complete=self.node.state_transfer_complete,
+            failed=self.node.state_transfer_failed,
+            chunk_timeout_s=0.25,
+        )
         self.processor = processor(self)
         if hasattr(self.processor, "on_results"):
             self.processor.on_results = self._capture_checkpoints
@@ -147,26 +191,36 @@ class Replica:
 
     def _capture_checkpoints(self, results):
         for cr in results.checkpoints:
+            seq_no = cr.checkpoint.seq_no
+            if seq_no in self.checkpoints:
+                continue  # the pipelined kinds report through both paths
             state = self.pb.NetworkState(
                 config=cr.checkpoint.network_config,
                 clients=cr.checkpoint.clients_state,
                 pending_reconfigurations=list(cr.reconfigurations),
             )
-            self.checkpoints[cr.checkpoint.seq_no] = (
-                cr.value, self.pb.encode(state)
+            self.checkpoints[seq_no] = (cr.value, state)
+            requests = []
+            self.reqstore.uncommitted(
+                lambda ack: requests.append((ack, self.reqstore.get(ack)))
+            )
+            # The app state is the hash chain, which the checkpoint value
+            # is: the snapshot carries it as its app bytes.
+            self.engine.note_checkpoint(
+                seq_no, cr.value, state, cr.value, requests
             )
 
-    def _serve_transfer(self, target):
-        for peer in list(self.peers):
-            entry = peer.checkpoints.get(target.seq_no)
-            if peer is self or entry is None or entry[0] != target.value:
-                continue
-            self.app_log.chain = entry[0]  # adopt the app state wholesale
-            self.app_log.adopted = target.seq_no
-            state = self.pb.decode(self.pb.NetworkState, entry[1])
-            self.node.state_transfer_complete(target, state)
-            return
-        self.node.state_transfer_failed(target)
+    def _install_snapshot(self, snap):
+        """TransferEngine install callback: adopt the app state (the
+        chain, certified as the checkpoint value) and the donor's
+        uncommitted-request slice; the node then persists the CEntry."""
+        if snap.app_bytes != snap.value:
+            return None
+        self.app_log.chain = snap.value
+        self.app_log.adopted = snap.seq_no
+        for ack, data in snap.requests:
+            self.reqstore.store(ack, data)
+        return snap.network_state
 
     def _consume(self):
         last_tick = time.monotonic()
@@ -188,11 +242,12 @@ class Replica:
                     self.node.tick()
                 except Exception:
                     return
-            if actions is not None and actions.state_transfer is not None:
-                try:
-                    self._serve_transfer(actions.state_transfer)
-                except Exception:
-                    return
+            try:
+                if actions is not None and actions.state_transfer is not None:
+                    self.engine.begin(actions.state_transfer)
+                self.engine.poll()
+            except Exception:  # either package's NodeStopped
+                return
 
     def stop(self):
         self._stop.set()
@@ -271,8 +326,9 @@ def test_four_node_runtime(tmp_path, kind):
                     r.node, r.link, r.app_log, r.wal, r.reqstore,
                     device="cpu",
                 ),
+                duct=transport.duct(i),
             )
-            transport.register(i, replica.node)
+            transport.register(i, replica.node, replica.engine)
             replicas.append(replica)
         requests = make_requests(pb, 7, 10) + make_requests(pb, 8, 10)
         for request in requests:
@@ -293,6 +349,55 @@ def test_four_node_runtime(tmp_path, kind):
             assert proc.device_digests == replica.hash_requests > 0
             assert proc.launches > 0 and proc.kernel_ms == 0.0
             assert proc.device.type == "cpu"
+
+
+def test_held_node_catches_up_through_the_transfer_engine(tmp_path):
+    """Node 3's inbound frames are held (bench's harness wrapper) while
+    the others commit until their low watermarks are two checkpoint
+    intervals past it; released, it fetches a snapshot from them through
+    TransferEngine over the in-process duct, installs it, and reaches
+    their chain."""
+    transport = ThreadTransport()
+    state = standard_initial_network_state(4, [7, 8])
+    interval = state.config.checkpoint_interval
+    replicas = []
+    try:
+        for i in range(4):
+            replica = Replica(
+                i, transport.link(i), tmp_path, state, peers=replicas,
+                config=Config(id=i, processor="cuda"),
+                processor=lambda r: build_processor(
+                    r.node, r.link, r.app_log, r.wal, r.reqstore,
+                    device="cpu",
+                ),
+                duct=transport.duct(i),
+            )
+            transport.register(i, replica.node, replica.engine)
+            replicas.append(replica)
+        held = bench._HeldInbound(replicas[3].node)
+        target = 2 * interval
+        requests = make_requests(pb, 7, 3 * interval)
+        for request in requests:
+            for replica in replicas:
+                replica.node.propose(request)
+        deadline = time.monotonic() + 60.0
+        while min(
+            r.node.status(timeout=5.0).low_watermark for r in replicas[:3]
+        ) < target:
+            assert time.monotonic() < deadline, "the others stalled"
+            time.sleep(0.05)
+        assert replicas[3].node.status(timeout=5.0).low_watermark == 0
+        assert held.release() > 0
+        await_commits(replicas, {(r.client_id, r.req_no) for r in requests})
+        assert replicas[3].engine.counters["snapshots_installed"] >= 1
+        assert replicas[3].engine.counters["chunks_rejected_corrupt"] == 0
+        assert replicas[3].app_log.adopted is not None
+        assert_exactly_once_and_one_chain(replicas)
+    finally:
+        for replica in replicas:
+            transport.unregister(replica.node_id)
+            replica.stop()
+    assert all(r.node.exit_error is None for r in replicas)
 
 
 def _hash_actions(n=7):
@@ -355,7 +460,7 @@ def test_build_processor_kinds_and_tpu_names(tmp_path):
 
 @pytest.mark.parametrize(
     "knob, item",
-    [({"metrics_port": 0}, "2")],
+    [({"metrics_port": 0}, "1")],
     ids=["metrics_port"],
 )
 def test_unported_node_features_raise(knob, item):
@@ -403,11 +508,19 @@ def test_node_on_the_device_plane_audits_clean():
         node.stop()
 
 
-def test_unported_node_commands_raise():
+def test_attach_app_returns_the_commit_stream():
+    """Node.attach_app (ported with app/stream.py) registers the app behind
+    a CommitStream and app_status reads its frontier; stopping the node
+    closes the stream."""
+    from mirbft_tpu_torch.app import CommitStream, KvStore
+
     node = Node.start_new(Config(id=0), standard_initial_network_state(1, [1]))
     try:
-        with pytest.raises(NotImplementedError, match="item 3"):
-            node.attach_app(object())
+        assert node.app_status() is None
+        stream = node.attach_app(KvStore(), queue_depth=16)
+        assert isinstance(stream, CommitStream) and node.app_stream is stream
+        status = node.app_status()
+        assert status["applied_index"] == 0 and status["queue_depth"] == 16
     finally:
         node.stop()
 
@@ -492,7 +605,9 @@ def _run_mixed_cluster(tmp_path, late_node=None):
             replica = Replica(
                 i, transport.link(), tmp_path, state, node_cls=node_cls,
                 config=config, processor=make, peers=replicas,
+                duct=_TcpDuct(transport),
             )
+            transport.set_transfer_sink(replica.engine.on_frame)
             transport.serve(replica.node)
             replicas.append(replica)
         for i in transports:
