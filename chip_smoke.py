@@ -90,15 +90,19 @@ Phases (any failure raises and the script exits nonzero):
     version and hashlib.  Each live shape is timed on its first kept
     launch's preimages beside its floors, with round 1's launches x gap.
     Committed req/s and p95 commit latency per kind;
-12. the device ack plane's two kernels (``csrc/ack_plane.cu``: the step's
-    three launches and the sweep) against their plain versions on the card,
-    bit for bit, on seeded batches of 1024, 4096 and 65536 rows at limbs
-    1, 2 and 3 (tests/ack_plane_cases.py: duplicates, several candidates
-    for one virgin slot, conflicting digests, committed, slow, foreign and
-    padding rows): every state array, the packed row outputs, the sweep's
-    totals and tick, and the adoption scratch empty after each step; then
-    the 16x64x25 anchor again with every node's ack plane on the card: 2320
-    events and phase 3's chain, every step counted;
+12. the device ack plane's two kernels (``csrc/ack_plane.cu``: the step,
+    one cooperative launch, and the sweep) against their
+    plain versions on the card, bit for bit, on seeded batches of 1024,
+    4096 and 65536 rows at limbs 1, 2 and 3 (tests/ack_plane_cases.py:
+    duplicates, several candidates for one virgin slot, conflicting
+    digests, committed, slow, foreign and padding rows), and on the
+    crossing case at 16384 and 65536 rows (one virgin slot hit from the
+    grid's first block, the middle, and the last block: the first adopts,
+    the middle falls back, the last applies): every
+    state array, the packed row outputs, the sweep's totals and tick, and
+    the adoption scratch empty after each step; then the 16x64x25 anchor
+    again with every node's ack plane on the card: 2320 events and phase
+    3's chain, every step counted;
 13. the ack-plane rung at the JAX package's size
     (``mirbft_tpu_torch.bench.ackplane_run``: 100,000 clients, frames of
     12,500 rows, sources 1-3, seed 0xACC5, 2048 audited slots), its
@@ -107,19 +111,23 @@ Phases (any failure raises and the script exits nonzero):
     strong; host and device events/s, committed req/s, drain and sweep
     seconds; then each kernel's CUDA-event time on the rung's own batches
     (each source's first frame on the state it met) and the anchor's
-    launch shape, beside its byte bound (bytes / 3.35 TB/s) and its plain
-    version's time, and the launches of the rung's run;
+    launch shape, beside its byte bound (bytes / 3.35 TB/s), its launch
+    floor (an empty kernel launched as the step is, timed the same way)
+    and its plain version's time, and the launches of the rung's run;
 14. the BLS G1 aggregation kernel (``csrc/bls_g1.cu``) against its plain
     version on the card, bit for bit, and its affine points against the
     host fold (``bls_host.aggregate_g1``), on tests/bls_cases.py's seeded
     certificates: absent voters in the middle, a certificate with no vote
     (None), one voter twice, P with -P, the generator, and the launches
-    (4, 4), rung 4's (4, 128), (64, 128) and rung 5's (4, 256); then its
+    (4, 4), rung 4's (4, 128), (64, 128) and rung 5's (4, 256), and
+    launches of exactly 1, 85 and 200 voter slots (widths no split of a
+    certificate's lanes divides: leading, middle and all-absent voters, a
+    doubling and P + -P); then its
     time at (4, 128) and (64, 128) (CUDA events over launches queued
     behind a spin kernel) beside its bound (its integer instructions over
     the INT32 rate, its bytes over 3.35 TB/s), its chain floor (the
-    longest certificate's chain of additions) and the plain version's
-    time;
+    longest certificate's chain of additions) with the kernel's share of
+    it, and the plain version's time;
 15. ladder rung 4 at full scale (``mirbft_tpu_torch.bench.rung4_run``, the
     JAX package's bench.py:763-841: 128 nodes, f = 42, 32 clients x 16
     requests, BatchSize 20, 30 ms link jitter, half of node 120's frames
@@ -227,6 +235,10 @@ ED25519_COMPARED = tuple(sorted(
 DECOMPRESS_CORPUS_ROWS = (1, 3, 7, 8, 1024, 1025, 8192)
 POOL_PROCESSES = 8
 ANCHOR_W_PAD = 128  # the anchor's ack plane: windows of 101 slots, padded
+# Phase 12: the crossing case's batch sizes: the rung's, the largest
+# bucket, and a coalesced flush of 262144 rows, where the last crossing
+# row is a thread's second on an H100's step grid.
+ACK_CROSSING_ROWS = (16384, 65536, 262144)
 # Phase 14: the BLS kernel timed at rung 4's launch and at a full batch.
 BLS_TIMED = ((4, 128), (64, 128))
 # The JAX package's own rung-4 run on a CPU (bench.py:763-841):
@@ -579,18 +591,19 @@ def bls_cases():
     return bls_cases
 
 
-def compare_bls(label, certs, voters) -> tuple:
+def compare_bls(label, certs, voters, width=None) -> tuple:
     """The BLS kernel and its plain version on the card, on one launch's
-    inputs: outputs bit for bit equal, affine points equal to the host
-    fold.  Returns the CPU inputs, the kernel's affine points and the
-    plain version's wall ms (one call, synchronised: its hundreds of
-    thousands of small launches make a second call a waste)."""
+    inputs (``width``: exactly that many voter slots, not padded): outputs
+    bit for bit equal, affine points equal to the host fold.  Returns the
+    CPU inputs, the kernel's affine points and the plain version's wall ms
+    (one call, synchronised: its hundreds of thousands of small launches
+    make a second call a waste)."""
     import torch
 
     from mirbft_tpu_torch.ops import bls_g1
 
     arrays = [torch.from_numpy(a) for a in
-              bls_g1.pack_certificates(certs, voters)]
+              bls_cases().pack(certs, voters, width)]
     dev = [a.cuda() for a in arrays]
     out = bls_g1.aggregate_points(*dev)
     torch.cuda.synchronize()
@@ -692,6 +705,40 @@ def compare_ack(rows: int, limbs: int) -> dict:
     check(all(classes.values()), f"{label}: a row class is empty: {classes}")
     return {"rows": rows, "limbs": limbs, "classes": classes,
             "sweep": totals}
+
+
+def compare_crossing(rows: int) -> tuple:
+    """The crossing case (tests/ack_plane_cases.py) through
+    ``compare_step``: one virgin slot hit from the grid's first block,
+    the middle, and the last rows.  Raises unless the first row adopts
+    and applies, the middle one falls back and the last applies; returns
+    (adopt, applied, fallback) of the three and, for each, which of its
+    thread's rows it is (0 the first; ``ack_plane.step_grid``)."""
+    from mirbft_tpu_torch.ops import ack_plane
+
+    cases = ack_plane_cases()
+    case = cases.make_crossing_case(SEED + rows, rows, 1)
+    kw = dict(weak_q=case["weak_q"], strong_q=case["strong_q"])
+    out, _, _ = compare_step(f"ack step, crossing case ({rows} rows)",
+                             cases.torch_state(case, "cuda"),
+                             cases.torch_batch(case, "cuda"), kw)
+    res = ack_plane.unpack_step(out.cpu())
+    got = [[int(res[k][r]) for k in ("adopt", "applied", "fallback")]
+           for r in cases.crossing_rows(rows)]
+    check(got == [[1, 1, 0], [0, 0, 1], [0, 1, 0]],
+          f"ack step, crossing case ({rows} rows): rows {got}")
+    threads, _ = ack_plane.step_grid(rows)
+    return got, [r // threads for r in cases.crossing_rows(rows)]
+
+
+def launch_floor(rows: int) -> float:
+    """Device ms of the empty kernel launched as the ack step is at
+    ``rows`` rows (``ack_plane.empty_step``: the same grid), timed as
+    the step is (``time_events``): the yardstick a step of one launch is
+    read against."""
+    from mirbft_tpu_torch.ops import ack_plane
+
+    return time_events(lambda: [], lambda: ack_plane.empty_step(rows))
 
 
 def time_events(make_args, launch, reps=20):
@@ -1019,6 +1066,11 @@ def bls_phases(sms: int, t0: float) -> dict:
                   "bls: the empty or the cancelling certificate is not None")
         if shape in BLS_TIMED and shape not in bls_timed:
             bls_timed[shape] = arrays, plain_ms
+    for label, certs, width in bls_cases().width_cases():
+        arrays, points, _ = compare_bls(label, certs, None, width)
+        check(points[2] is None, f"bls {label}: no vote is not None")
+        print(f"  bls {label}: kernel == plain at "
+              f"{tuple(arrays[3].shape)}, == the host fold")
     bls_shapes = []
     for shape in BLS_TIMED:
         arrays, plain_ms = bls_timed[shape]
@@ -1029,6 +1081,7 @@ def bls_phases(sms: int, t0: float) -> dict:
         bound = bls_bounds(arrays[3], sms, bls_clock)
         bls_shapes.append({"shape": list(shape), "ms": ms, "call_ms": call_ms,
                            "plain_ms": plain_ms, "sampled_clock_mhz": sampled,
+                           "chain_floor_share": bound["chain_floor_ms"] / ms,
                            **bound})
         print(f"  bls kernel at {shape}: {ms:.6f} ms (CUDA events, 20 "
               f"launches behind a spin kernel; host call {call_ms:.6f} ms), "
@@ -1044,8 +1097,9 @@ def bls_phases(sms: int, t0: float) -> dict:
               f"time), plain "
               f"{plain_ms:.6f} ms (wall, one call on the card); library_ms "
               "null (no PyTorch call adds G1 points)")
+    launches = len(bls_cases().cases()) + len(bls_cases().width_cases())
     print(f"phase 14 ok: the BLS G1 kernel == plain, bit for bit, and == "
-          f"the host fold on {len(bls_cases().cases())} launches (done at "
+          f"the host fold on {launches} launches (done at "
           f"{time.perf_counter() - t0:.1f} s)")
 
     # -- phase 15: ladder rung 4 at full scale ---------------------------------
@@ -2025,6 +2079,11 @@ def main() -> int:
     for c in ack_cases:
         print(f"  ack plane ({c['rows']} rows, {c['limbs']} limbs): kernel "
               f"== plain; rows {c['classes']}; sweep {c['sweep']}")
+    for rows in ACK_CROSSING_ROWS:
+        crossing, nth = compare_crossing(rows)
+        print(f"  ack step, crossing case ({rows} rows): kernel == plain; "
+              f"rows {crossing} (adopt, applied, fallback) adopt, fall back,"
+              f" apply; each its thread's row {nth} (0 the first)")
     ack_step_fn = ack_plane.ack_step
     ack_step_fn.launches = 0
     ack_step_fn.launches_by_rows.clear()
@@ -2044,7 +2103,8 @@ def main() -> int:
           "device-plane anchor: digests did not all come from the kernel")
     print(
         f"phase 12 ok: the ack plane's step and sweep == plain at "
-        f"{len(ack_cases)} cases (1024/4096/65536 rows x limbs 1/2/3), "
+        f"{len(ack_cases)} cases (1024/4096/65536 rows x limbs 1/2/3) and "
+        f"the crossing case at {ACK_CROSSING_ROWS} rows, "
         f"max_abs_err 0; device-plane anchor {NODES}x{CLIENTS}x{ANCHOR_REQS} "
         f"-> {events} events in {wall:.3f} s, phase 3's chain "
         f"{next(iter(chains.values())).hex()[:16]}..., "
@@ -2118,6 +2178,7 @@ def main() -> int:
         ack_shapes.append({
             "what": f"rung source {source}", "rows": batch.shape[0],
             "state": [c_pad, w_pad, 1], "ms": ms, "plain_ms": plain_ms,
+            "launch_floor_ms": launch_floor(batch.shape[0]),
             "bytes": step_bytes,
             "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
         })
@@ -2146,6 +2207,7 @@ def main() -> int:
             *a, first=anchor_first, **kw)),
         "plain_ms": time_wall(fresh_anchor, lambda *a: ack_plane.ack_step_plain(
             *a, **kw)),
+        "launch_floor_ms": launch_floor(anchor_rows),
         "bytes": step_bytes,
         "bound_ms": step_bytes / HBM_BYTES_PER_S * 1e3,
     })
@@ -2169,15 +2231,24 @@ def main() -> int:
         ack_plane.quorum_sweep_plain(*a, **rung_kw)))
     sweep_bytes = ack_plane.sweep_bytes(*(sweep_state[i] for i in (0, 3, 4)))
     sweep_bound_ms = sweep_bytes / HBM_BYTES_PER_S * 1e3
+    # The empty kernel launched as the sweep is: its grid, an ordinary
+    # launch.
+    sweep_floor_ms = time_events(
+        lambda: [], lambda: ack_plane.empty_sweep(c_pad * w_pad))
     for e in ack_shapes:
         print(f"  ack step, {e['what']}: ({e['rows']} rows) on state "
               f"{e['state']}: kernel {e['ms']:.6f} ms (CUDA events, median "
-              f"of 20, three launches), bound {e['bound_ms']:.6f} ms "
+              f"of 20, one launch), launch floor {e['launch_floor_ms']:.6f} "
+              f"ms (the empty kernel launched as the step is, timed the "
+              f"same way), bound {e['bound_ms']:.6f} ms "
               f"({e['bytes']} bytes / 3.35 TB/s), "
               f"{100 * e['bound_ms'] / e['ms']:.2f}% of bound; plain "
               f"{e['plain_ms']:.6f} ms (wall)")
     print(f"  ack sweep on the rung's final state {[c_pad, w_pad, 1]}: "
-          f"kernel {sweep_ms:.6f} ms, bound {sweep_bound_ms:.6f} ms "
+          f"kernel {sweep_ms:.6f} ms, launch floor {sweep_floor_ms:.6f} ms "
+          f"(the empty kernel launched as the sweep is: "
+          f"{-(-c_pad * w_pad // 256)} blocks of 256, an ordinary launch), "
+          f"bound {sweep_bound_ms:.6f} ms "
           f"({sweep_bytes} bytes / 3.35 TB/s), "
           f"{100 * sweep_bound_ms / sweep_ms:.2f}% of bound; plain "
           f"{sweep_plain_ms:.6f} ms (wall); library_ms null for both (no "
@@ -2185,6 +2256,8 @@ def main() -> int:
     rung_step_ms = statistics.mean(e["ms"] for e in ack_shapes[:3])
     rung_step_bound = statistics.mean(e["bound_ms"] for e in ack_shapes[:3])
     rung_step_plain = statistics.mean(e["plain_ms"] for e in ack_shapes[:3])
+    rung_step_floor = statistics.mean(
+        e["launch_floor_ms"] for e in ack_shapes[:3])
     print(f"phase 13 ok: the ack-plane rung at {n_clients} clients, 0 "
           f"fallback, 0 dropped, 0 divergences, 0 parity mismatches, every "
           f"client weak and strong; step kernel == plain on the rung's three "
@@ -2284,8 +2357,15 @@ def main() -> int:
         "source": "mirbft_tpu_torch/csrc/ack_plane.cu",
         "replaces": "mirbft_tpu/core/device_tracker.py:169",
         "launches": rung_launches["ack_step"],
-        "launches_note": "one count a step (three kernel launches: "
-                         "classify, apply, finish), phase 13's rung",
+        "launches_note": "one count a step, and one kernel launch a step "
+                         "(classify, apply and finish in one cooperative "
+                         "grid), phase 13's rung",
+        "design": "cooperative grid: one launch, a block of 256 threads a "
+                  "256 rows up to the blocks the card holds at once, grid "
+                  "barriers between the phases, a thread's first 8 rows "
+                  "in registers and any later row's class in its output "
+                  "word (a cluster of up to 8 blocks was slower: 8 SMs)",
+        "step_grid_threads": ack_plane.step_grid(ack_shapes[0]["rows"])[0],
         "launches_anchor": sum(anchor_steps.values()),
         "matched_plain": True,
         "max_abs_err": 0,
@@ -2294,11 +2374,11 @@ def main() -> int:
         "bound_ms": rung_step_bound,
         "bound_by": "bytes",
         "library_ms": None,
+        "launch_floor_ms": rung_step_floor,
         "shape": [ack_shapes[0]["rows"], 12],
         "per_shape": ack_shapes,
-        "ptxas": {k: ptxas.get(k) for k in (
-            "mirbft_ack_classify_kernel", "mirbft_ack_apply_kernel",
-            "mirbft_ack_finish_kernel")},
+        "ptxas": {"mirbft_ack_step_kernel":
+                  ptxas.get("mirbft_ack_step_kernel")},
     })
     kernels.append({
         "name": "ack_sweep",
@@ -2313,6 +2393,7 @@ def main() -> int:
         "bound_ms": sweep_bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "launch_floor_ms": sweep_floor_ms,
         "shape": [c_pad, w_pad, 1],
         "ptxas": ptxas.get("mirbft_ack_sweep_kernel"),
     })
@@ -2333,6 +2414,7 @@ def main() -> int:
         "bound_by": bls_head["bound_by"],
         "library_ms": None,
         "chain_floor_ms": bls_head["chain_floor_ms"],
+        "chain_floor_share": bls_head["chain_floor_share"],
         "shape": bls_head["shape"],
         "per_shape": bls["shapes"],
         "rung4_ms": bls["rung4_ms"],

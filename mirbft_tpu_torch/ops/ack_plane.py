@@ -40,7 +40,7 @@ and scatters, on torch tensors):
   host dedupes by slot).
 
 ``ack_step`` and ``quorum_sweep`` dispatch on the tensors' device: a CUDA
-tensor launches the kernels (counted in ``.launches`` and by padded rows,
+tensor launches the kernel, one launch each (counted in ``.launches`` and by padded rows,
 or by slots for the sweep, in ``.launches_by_rows``, under one lock), a
 CPU tensor takes the plain version, any other device raises.  A launch
 that fails raises; there is no other route.
@@ -74,9 +74,6 @@ BATCH_COLS = 12
 
 #: An empty entry of the kernel's per-slot adoption scratch.
 FIRST_NONE = 0x7FFFFFFF
-
-#: Per-row scratch the kernel keeps between its launches (flat slot, bits).
-SCRATCH_COLS = 2
 
 _MASK = 0xFFFFFFFF
 
@@ -286,8 +283,15 @@ def _kernel_library():
     lib = load("ack_plane")
     if lib.mirbft_ack_step.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mirbft_ack_step.argtypes = [ptr] * 11 + [i32] * 6 + [ptr]
+        lib.mirbft_ack_step.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
         lib.mirbft_ack_step.restype = i32
+        lib.mirbft_ack_empty.argtypes = [i32, ptr]
+        lib.mirbft_ack_empty.restype = i32
+        lib.mirbft_ack_sweep_empty.argtypes = [i32, ptr]
+        lib.mirbft_ack_sweep_empty.restype = i32
+        lib.mirbft_ack_step_grid.argtypes = [i32, ctypes.POINTER(i32),
+                                             ctypes.POINTER(i32)]
+        lib.mirbft_ack_step_grid.restype = i32
         lib.mirbft_ack_sweep.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
         lib.mirbft_ack_sweep.restype = i32
         lib.mirbft_ack_error_string.argtypes = [i32]
@@ -340,9 +344,15 @@ def ack_step(agree, nonnull, canon, canon_ok, flags, held, tick, batch, *,
              weak_q: int, strong_q: int, first=None) -> torch.Tensor:
     """Absorb one packed batch (rows, 12) int32 into the state, in place;
     returns the packed (rows,) int32 row outputs.  CUDA tensors take the
-    kernel's three launches on the current stream, with ``first`` the
-    plane's (total,) int32 adoption scratch (``new_first``), which the
-    CUDA route requires; CPU tensors take ``ack_step_plain``."""
+    kernel, one cooperative launch on the current stream: the step's
+    three phases (classify, apply, finish) with a grid barrier between
+    them, each thread holding its rows' slot and class in registers, so
+    nothing is allocated a step but the outputs.  Its bytes are a few
+    hundred kB: its time is the launch's fixed cost and a few round trips
+    to memory; rows past a thread's registers (``step_grid``) carry their
+    class in their own word of the output.  ``first`` is the plane's
+    (total,) int32 adoption scratch (``new_first``), which the CUDA route
+    requires.  CPU tensors take ``ack_step_plain``."""
     c_pad, w_pad, limbs, device = _check_state(
         agree, nonnull, canon, canon_ok, flags, held, tick
     )
@@ -365,16 +375,13 @@ def ack_step(agree, nonnull, canon, canon_ok, flags, held, tick, batch, *,
     out = torch.empty((rows,), dtype=torch.int32, device=device)
     if rows == 0:
         return out
-    scratch = torch.empty((rows, SCRATCH_COLS), dtype=torch.int32,
-                          device=device)
     lib = _kernel_library()
     with torch.cuda.device(device):
         err = lib.mirbft_ack_step(
             batch.data_ptr(), agree.data_ptr(), nonnull.data_ptr(),
             canon.data_ptr(), canon_ok.data_ptr(), flags.data_ptr(),
             held.data_ptr(), tick.data_ptr(), first.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(),
-            rows, c_pad, w_pad, limbs, weak_q, strong_q,
+            out.data_ptr(), rows, c_pad, w_pad, limbs, weak_q, strong_q,
             torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "ack step")
@@ -384,6 +391,57 @@ def ack_step(agree, nonnull, canon, canon_ok, flags, held, tick, batch, *,
 
 ack_step.launches = 0
 ack_step.launches_by_rows = collections.Counter()
+
+
+def _cuda_device(device) -> torch.device:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"a launch floor needs a CUDA device, got {device}")
+    return device
+
+
+def empty_step(rows: int, device="cuda") -> None:
+    """Launch an empty kernel exactly as ``ack_step`` would launch the
+    step at ``rows`` rows (the same cooperative grid), on the current
+    stream: the step's launch floor, for timing beside it.  Not
+    counted."""
+    device = _cuda_device(device)
+    if rows < 1:
+        raise ValueError(f"rows must be at least 1, got {rows}")
+    lib = _kernel_library()
+    with torch.cuda.device(device):
+        err = lib.mirbft_ack_empty(
+            rows, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "empty step")
+
+
+def empty_sweep(total: int, device="cuda") -> None:
+    """Launch an empty kernel exactly as ``quorum_sweep`` launches the
+    sweep over ``total`` slots (an ordinary launch of its grid and
+    block), on the current stream: the sweep's launch floor.  Not
+    counted."""
+    device = _cuda_device(device)
+    if total < 1:
+        raise ValueError(f"total must be at least 1, got {total}")
+    lib = _kernel_library()
+    with torch.cuda.device(device):
+        err = lib.mirbft_ack_sweep_empty(
+            total, torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "empty sweep")
+
+
+def step_grid(rows: int, device="cuda") -> tuple:
+    """(threads, register_rows) of the step's grid at ``rows`` rows on
+    ``device``: row r goes to thread r % threads, and a thread's rows past
+    its first ``register_rows`` carry their class through the output."""
+    device = _cuda_device(device)
+    lib = _kernel_library()
+    threads, register_rows = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = lib.mirbft_ack_step_grid(rows, ctypes.byref(threads),
+                                       ctypes.byref(register_rows))
+    _raise_on(lib, err, "step grid")
+    return threads.value, register_rows.value
 
 
 def quorum_sweep(agree, canon_ok, flags, held, tick, *, weak_q: int,

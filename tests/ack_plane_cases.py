@@ -108,6 +108,42 @@ def make_case(seed: int, rows: int, limbs: int, *, c_pad: int | None = None,
     }
 
 
+def crossing_rows(rows: int) -> tuple:
+    """The rows ``make_crossing_case`` sends to its virgin slot: one in the
+    first block of the CUDA step's grid, one in the middle, and one in the
+    last block (on a card that holds fewer blocks than the batch needs, a
+    thread's second row or later; the host rehearsal runs it so)."""
+    return 3, rows // 2 + 1, rows - 2
+
+
+def make_crossing_case(seed: int, rows: int, limbs: int) -> dict:
+    """``make_case`` with one virgin live slot that no other row touches,
+    hit by the three ``crossing_rows``: the first and the last carry one
+    digest, the middle one another.  The first row adopts its digest and
+    applies, the middle row falls back, the last row applies against the
+    adopted digest: adoption and the crossings held across the grid's
+    blocks."""
+    case = make_case(seed, rows, limbs)
+    rng = np.random.default_rng(seed + 1)
+    w_pad = case["w_pad"]
+    touched = set((case["ci"][case["valid"]].astype(np.int64) * w_pad
+                   + case["w"][case["valid"]]).tolist())
+    virgin = (case["flags"].reshape(-1) == 0) & ~case["canon_ok"].reshape(-1)
+    free = [s for s in np.flatnonzero(virgin) if s not in touched]
+    slot = int(free[0])
+    first_dig, other_dig = rng.integers(0, 1 << 32, size=(2, 8),
+                                        dtype=np.uint32)
+    nodes = quorums(limbs)[0]
+    srcs = rng.choice(nodes, size=3, replace=False)
+    for r, src, dig in zip(crossing_rows(rows), srcs,
+                           (first_dig, other_dig, first_dig)):
+        case["ci"][r], case["w"][r] = slot // w_pad, slot % w_pad
+        case["src"][r], case["dig"][r], case["valid"][r] = src, dig, True
+    case["crossing"] = {"slot": slot, "digest": first_dig,
+                        "srcs": [int(x) for x in srcs]}
+    return case
+
+
 STATE = ("agree", "nonnull", "canon", "canon_ok", "flags", "held", "tick")
 OUTPUTS = ("applied", "fallback", "dropped", "adopt", "weak", "strong",
            "newcount")

@@ -10,7 +10,8 @@ of them: rung 4's (4, 128) (one certificate of 85 votes, f = 42), rung
 and two edge launches: absent voters in the middle of a certificate, a
 certificate with no vote (its sum is the identity: None), one voter twice
 (the addition doubles), P with -P (the identity again) and the
-generator.
+generator.  ``width_cases`` adds launches at widths 1, 85 and 200, which
+no split of a certificate's lanes divides.
 
 Points are the signatures of a few seeds over one statement, and sums of
 those (an affine addition is far cheaper than a signature), so a case
@@ -113,6 +114,48 @@ def cases(seed: int = SEED, full: bool = True) -> list:
         out.append(("(4, 256): rung 5's f = 85, one certificate of 171 "
                     "votes", [quorum_certificate(pool, 171)], 256))
     return out
+
+
+#: Launch widths no lane split divides: one voter, rung 4's 85 votes, and
+#: 200 (``width_cases``; the packer would round each up to a power of two,
+#: ``pack`` keeps it).
+WIDTHS = (1, 85, 200)
+
+
+def width_cases(seed: int = SEED) -> list:
+    """``(label, certs, width)`` for each of ``WIDTHS``: four certificates
+    of exactly ``width`` slots, with leading absent voters, absent voters
+    in the middle, every voter absent, and a doubling (one point twice in
+    a row) beside a cancelling pair (P then -P), the rest drawn from the
+    pool.  At width 1 the first two are one vote each and the last a lone
+    vote."""
+    rng = random.Random(seed + 1)
+    pool = point_pool(24, seed)
+    out = []
+    for width in WIDTHS:
+        votes = [pool[rng.randrange(len(pool))] for _ in range(width)]
+        third = width // 3
+        leading = [None] * third + votes[third:]
+        middle = votes[:third] + [None] * third + votes[2 * third:]
+        double = ([pool[0], pool[0], pool[1], negate(pool[1])]
+                  + votes[4:])[:width]
+        out.append((f"width {width}: leading, middle and all absent "
+                    "voters, a doubling and P + -P",
+                    [leading, middle, [None] * width, double], width))
+    return out
+
+
+def pack(certs: list, voters: int | None = None, width: int | None = None):
+    """``bls_g1.pack_certificates`` as numpy arrays, cut to exactly
+    ``width`` voter slots when it is given (contiguous copies)."""
+    import numpy as np
+
+    from mirbft_tpu_torch.ops import bls_g1
+
+    arrays = bls_g1.pack_certificates(certs, voters or width)
+    if width is None:
+        return arrays
+    return tuple(np.ascontiguousarray(a[:, :width]) for a in arrays)
 
 
 def host_sums(certs: list) -> list:

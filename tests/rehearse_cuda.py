@@ -24,19 +24,23 @@ digest bodies on ragged batches at several buckets against hashlib;
 decompression corpus (tests/ed25519_corpus.py) and on ragged row counts,
 and checks (x, y, ok) against the oracle and, bit for bit, against the
 plain version, and that no group past the rows writes; ``ack`` runs the
-ack plane's step (its three kernels, one host thread a row, on the stub's
-host atomics) and sweep on seeded cases (tests/ack_plane_cases.py) and
+ack plane's step (one cooperative grid of blocks, every block's threads
+at once, each thread a few rows, meeting at the grid barrier, on the
+stub's host atomics) and sweep on seeded cases (tests/ack_plane_cases.py) and
 checks the state, the row outputs and the sweep bit for bit against the
 plain versions, and that the adoption scratch is empty after the step;
-``bls`` runs the G1 aggregation, one host thread a certificate, on the
+``bls`` runs the G1 aggregation, a group of host threads a certificate
+(lane k runs product k of each layer, the products meet at the stub's
+shuffles, the PTX carry chains are host functions), on the
 seeded certificates of tests/bls_cases.py (edge cases, (4, 4), rung 4's
-(4, 128), (64, 128) and (4, 256)) and checks its output bit for bit
+(4, 128), (64, 128) and (4, 256), and the widths 1, 85 and 200) and
+checks its output bit for bit
 against the plain version and its affine points against the host fold.
 The thread counts of the kernels are cut to keep the host threads few (the
 ladder's block to 2 quads, the decompress block to one warp, the
 one-thread body's block to 16 rows, the specialised body's warps to 8
-lanes, the ack plane's block to two warps, the BLS block to 8
-certificates), so the rehearsal runs the
+lanes, the ack plane's blocks to two warps; the BLS block stays one
+warp, a certificate), so the rehearsal runs the
 card's code at a smaller block than the card does.  Exit status 0 when every check passes.
 ``tests/test_torch_rehearse.py`` runs it under pytest.
 """
@@ -120,6 +124,7 @@ struct Block {
 };
 
 inline Dim3 blockDim;
+inline Dim3 gridDim;
 inline int g_warp = 32;  // lanes a warp in this rehearsal
 inline thread_local Dim3 threadIdx;
 inline thread_local Dim3 blockIdx;
@@ -129,6 +134,9 @@ inline void __syncthreads() { g_block->bar.wait(); }
 inline SpinBarrier& warp_bar() { return *g_block->warps[threadIdx.x / g_warp]; }
 inline void __syncwarp(unsigned = 0xffffffffu) { warp_bar().wait(); }
 template <class T> inline T __ldg(const T* p) { return *p; }
+template <class T> inline T __ldcg(const T* p) {
+  return __atomic_load_n(p, __ATOMIC_SEQ_CST);
+}
 inline int32_t __shfl_sync(unsigned, int32_t v, int src, int width = 32) {
   const int t = threadIdx.x, base = t - t % g_warp;
   g_block->slots[t] = v;
@@ -150,14 +158,36 @@ inline unsigned __reduce_max_sync(unsigned, unsigned v) {
   warp_bar().wait();
   return m;
 }
-inline uint32_t __shfl_down_sync(unsigned, uint32_t v, int delta) {
-  const int t = threadIdx.x, base = t - t % g_warp;
+inline uint32_t __shfl_down_sync(unsigned, uint32_t v, int delta,
+                                  int width = 32) {
+  const int t = threadIdx.x, base = t - t % std::min(width, g_warp);
   g_block->slots[t] = v;
   warp_bar().wait();
-  const int src = t + delta < base + g_warp ? t + delta : t;
+  const int src = t + delta < base + std::min(width, g_warp) ? t + delta : t;
   const uint32_t got = static_cast<uint32_t>(g_block->slots[src]);
   warp_bar().wait();
   return got;
+}
+inline uint32_t __shfl_up_sync(unsigned, uint32_t v, int delta,
+                                int width = 32) {
+  const int t = threadIdx.x, base = t - t % std::min(width, g_warp);
+  g_block->slots[t] = v;
+  warp_bar().wait();
+  const int src = t - delta >= base ? t - delta : t;
+  const uint32_t got = static_cast<uint32_t>(g_block->slots[src]);
+  warp_bar().wait();
+  return got;
+}
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  const int t = threadIdx.x, base = t - t % g_warp;
+  g_block->slots[t] = pred;
+  warp_bar().wait();
+  unsigned bits = 0;
+  for (int i = base; i < base + g_warp && i < (int)blockDim.x; ++i) {
+    if (g_block->slots[i]) bits |= 1u << (i - base);
+  }
+  warp_bar().wait();
+  return bits;
 }
 inline uint32_t atomicAdd(uint32_t* p, uint32_t v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
@@ -174,6 +204,59 @@ inline uint32_t atomicOr(uint32_t* p, uint32_t v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }
 inline int __popc(uint32_t v) { return __builtin_popcount(v); }
+
+// The PTX carry chains of bls_g1.cu on the host.
+inline void col_mac(uint32_t* c, uint32_t x, uint32_t y) {
+  const uint64_t prod = static_cast<uint64_t>(x) * y;
+  const uint64_t lo = static_cast<uint64_t>(c[0]) + static_cast<uint32_t>(prod);
+  c[0] = static_cast<uint32_t>(lo);
+  const uint64_t hi = static_cast<uint64_t>(c[1]) + (prod >> 32) + (lo >> 32);
+  c[1] = static_cast<uint32_t>(hi);
+  c[2] += static_cast<uint32_t>(hi >> 32);
+}
+inline void col_add(uint32_t* c, uint32_t lo, uint32_t hi) {
+  const uint64_t s0 = static_cast<uint64_t>(c[0]) + lo;
+  c[0] = static_cast<uint32_t>(s0);
+  const uint64_t s1 = static_cast<uint64_t>(c[1]) + hi + (s0 >> 32);
+  c[1] = static_cast<uint32_t>(s1);
+  c[2] += static_cast<uint32_t>(s1 >> 32);
+}
+inline uint32_t add3(uint32_t* w, uint32_t lo, uint32_t hi) {
+  const uint64_t s0 = static_cast<uint64_t>(w[0]) + lo;
+  w[0] = static_cast<uint32_t>(s0);
+  const uint64_t s1 = static_cast<uint64_t>(w[1]) + hi + (s0 >> 32);
+  w[1] = static_cast<uint32_t>(s1);
+  const uint64_t s2 = static_cast<uint64_t>(w[2]) + (s1 >> 32);
+  w[2] = static_cast<uint32_t>(s2);
+  return static_cast<uint32_t>(s2 >> 32);
+}
+inline uint32_t sub3(uint32_t* w, const uint32_t* b) {
+  uint64_t borrow = 0;
+  for (int j = 0; j < 3; ++j) {
+    const uint64_t x = static_cast<uint64_t>(w[j]) - b[j] - borrow;
+    w[j] = static_cast<uint32_t>(x);
+    borrow = (x >> 32) & 1;
+  }
+  return static_cast<uint32_t>(borrow);
+}
+inline void add12(uint32_t* r, const uint32_t* b) {
+  uint64_t c = 0;
+  for (int j = 0; j < 12; ++j) {
+    c += static_cast<uint64_t>(r[j]) + b[j];
+    r[j] = static_cast<uint32_t>(c);
+    c >>= 32;
+  }
+}
+inline uint32_t sub12(uint32_t* r, const uint32_t* b) {
+  uint64_t borrow = 0;
+  for (int j = 0; j < 12; ++j) {
+    const uint64_t x = static_cast<uint64_t>(r[j]) - b[j] - borrow;
+    r[j] = static_cast<uint32_t>(x);
+    borrow = (x >> 32) & 1;
+  }
+  return borrow ? 0xffffffffu : 0u;
+}
+inline uint32_t lane_mask(bool c) { return c ? 0xffffffffu : 0u; }
 inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, int n) {
   n &= 31;
   return n ? (lo >> n) | (hi << (32 - n)) : lo;
@@ -204,10 +287,41 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// The grid barrier of ack_plane.cu (cooperative_groups' grid sync): every
+// thread of the grid's blocks meets at one barrier.
+inline SpinBarrier* g_grid;
+inline void grid_sync() { g_grid->wait(); }
+
+// Run body() once a thread of a cooperative launch of `grid` blocks: every
+// block's threads at once, as the card keeps every block of such a launch
+// resident.
+template <class F>
+void launch_cooperative(int grid, int threads, F body) {
+  blockDim.x = threads;
+  gridDim.x = grid;
+  SpinBarrier everyone(grid * threads);
+  g_grid = &everyone;
+  std::vector<std::unique_ptr<Block>> blocks;
+  for (int b = 0; b < grid; ++b) blocks.emplace_back(new Block(threads, g_warp, 0));
+  std::vector<std::thread> pool;
+  for (int b = 0; b < grid; ++b) {
+    for (int t = 0; t < threads; ++t) {
+      pool.emplace_back([&, t, b] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        g_block = blocks[b].get();
+        body();
+      });
+    }
+  }
+  for (auto& th : pool) th.join();
+}
+
 // Run body() once a thread, blocks one after another.
 template <class F>
 void launch(int grid, int threads, size_t smem, F body) {
   blockDim.x = threads;
+  gridDim.x = grid;
   for (int b = 0; b < grid; ++b) {
     Block block(threads, g_warp, smem);
     std::vector<std::thread> pool;
@@ -333,23 +447,16 @@ int main(int argc, char** argv) {
   const uint8_t* b = reinterpret_cast<const uint8_t*>(u);
   std::vector<uint8_t> canon_ok(b, b + total), flags(b + total, b + 2 * total),
       held(b + 2 * total, b + 3 * total), tick(b + 3 * total, b + 4 * total);
-  std::vector<int32_t> first(total, kFirstNone), scratch(2 * rows, -7),
-      out(rows, -7);
-  const int grid = (rows + kAckThreads - 1) / kAckThreads;
-  launch(grid, kAckThreads, 0, [&] {
-    mirbft_ack_classify_kernel(batch, agree.data(), nonnull.data(),
-                               canon_ok.data(), flags.data(), first.data(),
-                               scratch.data(), rows, c_pad, w_pad, limbs);
-  });
-  launch(grid, kAckThreads, 0, [&] {
-    mirbft_ack_apply_kernel(batch, agree.data(), nonnull.data(), canon.data(),
-                            canon_ok.data(), first.data(), scratch.data(),
-                            out.data(), rows, limbs);
-  });
-  launch(grid, kAckThreads, 0, [&] {
-    mirbft_ack_finish_kernel(agree.data(), held.data(), tick.data(),
-                             first.data(), scratch.data(), out.data(), rows,
-                             limbs, weak_q, strong_q);
+  std::vector<int32_t> first(total, kFirstNone), out(rows, -7);
+  // The launcher's grid (step_blocks in ack_plane.cu), with a card that
+  // holds 8 blocks at once, so a thread takes several rows, and past
+  // kStepRows of them, rows whose class waits in `out`.
+  const int blocks = std::min(8, (rows + kStepThreads - 1) / kStepThreads);
+  launch_cooperative(blocks, kStepThreads, [&] {
+    mirbft_ack_step_kernel(batch, agree.data(), nonnull.data(), canon.data(),
+                           canon_ok.data(), flags.data(), held.data(),
+                           tick.data(), first.data(), out.data(), rows, c_pad,
+                           w_pad, limbs, weak_q, strong_q);
   });
   std::vector<uint8_t> tick_after_step(tick);
   std::vector<uint32_t> totals(3, 0);
@@ -387,17 +494,17 @@ int main(int argc, char** argv) {
   const uint32_t* zs = ys + coords;
   const int32_t* mask = reinterpret_cast<const int32_t*>(zs + coords);
   std::vector<uint32_t> out(static_cast<size_t>(batch) * 3 * kLimbs, 0xdeadbeefu);
-  launch((batch + kBlsThreads - 1) / kBlsThreads, kBlsThreads, 0, [&] {
-    mirbft_bls_g1_aggregate_kernel(xs, ys, zs, mask, out.data(), batch, width);
+  launch(batch, kBlsThreads, 0, [&] {
+    mirbft_bls_g1_aggregate_kernel(xs, ys, zs, mask, out.data(), width);
   });
   write_all(argv[2], out.data(), out.size() * 4);
   return 0;
 }
 """
 
-ACK_THREADS = 64  # the ack plane's block in the rehearsal: two warps
+ACK_THREADS = 64  # the ack plane's blocks in the rehearsal: two warps
 DEC_THREADS = 32  # decompression's block in the rehearsal: one warp
-BLS_THREADS = 8  # the BLS block in the rehearsal: 8 certificates
+BLS_THREADS = 32  # the BLS block in the rehearsal: one warp, a certificate
 # Host thread counts: the ladder's block cut to 2 quads, decompression's
 # to one warp, the digest kernel's one-thread body to 16 rows a block and
 # its warps to 8 lanes.
@@ -410,6 +517,8 @@ CUTS = {
     "ack_plane": {
         r"constexpr int kAckThreads = \d+;":
             f"constexpr int kAckThreads = {ACK_THREADS};",
+        r"constexpr int kStepThreads = \d+;":
+            f"constexpr int kStepThreads = {ACK_THREADS};",
     },
     "bls_g1": {
         r"constexpr int kBlsThreads = \d+;":
@@ -433,6 +542,10 @@ DEC_RAGGED_ROWS = (1, 3, 7, 13)
 PTX_HELPERS = {
     "sha256": ("__device__ __forceinline__ uint32_t smem_addr(",
                "__device__ __forceinline__ uint32_t rotr("),
+    "ack_plane": ("__device__ __forceinline__ void grid_sync(",
+                  "__device__ __forceinline__ int slot_count("),
+    "bls_g1": ("__device__ __forceinline__ void col_mac(",
+               "// -- field operations"),
 }
 
 
@@ -442,6 +555,7 @@ def host_source(name: str) -> str:
     the block."""
     src = (CSRC / f"{name}.cu").read_text()
     src = src.replace("#include <cuda_runtime.h>", "")
+    src = src.replace("#include <cooperative_groups.h>", "")
     src = src[: src.index("}  // namespace")] + "}  // namespace\n"
     if name in PTX_HELPERS:
         first, end = PTX_HELPERS[name]
@@ -623,19 +737,33 @@ def rehearse_sha256(workdir: Path) -> int:
 #: at one and two limbs, the next at three.
 ACK_CASES = ((1024, 1), (1024, 2), (2048, 3))
 
+#: Rows of the crossing case's rehearsals on the grid of 8 blocks of 64
+#: threads: the last crossing row is a thread's eighth row (the last in
+#: registers) at 4096, its sixteenth (its class carried in `out`) at 8192.
+ACK_CROSSING_ROWS = (4096, 8192)
 
-def rehearse_ack(rows: int, limbs: int, workdir: Path) -> int:
-    """The step's three kernels and the sweep on the host, on a seeded case
+
+def rehearse_ack(rows: int, limbs: int, workdir: Path,
+                 crossing: bool = False) -> int:
+    """The step's cooperative grid and the sweep on the host, on a seeded case
     (tests/ack_plane_cases.py) holding every row class, against the plain
     versions bit for bit: the state, the row outputs, the sweep's tick and
     totals; the adoption scratch must be empty again after the step."""
     import torch
-    from ack_plane_cases import make_case, torch_batch, torch_state
+    from ack_plane_cases import (
+        crossing_rows,
+        make_case,
+        make_crossing_case,
+        torch_batch,
+        torch_state,
+    )
 
     from mirbft_tpu_torch.ops import ack_plane
 
     binary = compile_host_main("ack_plane", ACK_MAIN, workdir)
-    case = make_case(rows * 7 + limbs, rows, limbs)
+    # ``crossing``: the crossing case (``ACK_CROSSING_ROWS``).
+    case = (make_crossing_case if crossing else make_case)(
+        rows * 7 + limbs, rows, limbs)
     total = case["c_pad"] * case["w_pad"]
     header = np.array(
         [rows, case["c_pad"], case["w_pad"], limbs, case["weak_q"],
@@ -689,6 +817,13 @@ def rehearse_ack(rows: int, limbs: int, workdir: Path) -> int:
     want["totals"] = totals.numpy().astype(np.uint32)
     bad = [name for name in want if not np.array_equal(got[name], want[name])]
     classes = ack_plane.unpack_step(out)
+    if crossing:
+        pattern = [[bool(classes[k][r]) for k in ("adopt", "applied",
+                                                  "fallback")]
+                   for r in crossing_rows(rows)]
+        if pattern != [[True, True, False], [False, False, True],
+                       [False, True, False]]:
+            bad.append(f"crossing rows {pattern}")
     print(f"ack plane, {rows} rows x {limbs} limbs on the host: "
           + ", ".join(f"{k} {int(v.to(torch.bool).sum())}"
                       for k, v in classes.items())
@@ -698,19 +833,23 @@ def rehearse_ack(rows: int, limbs: int, workdir: Path) -> int:
     return 1 if bad else 0
 
 
-def rehearse_bls(cases: list, workdir: Path) -> int:
-    """The aggregation kernel on the host, one host thread a certificate,
+def rehearse_bls(cases: list, workdir: Path, exact: bool = False) -> int:
+    """The aggregation kernel on the host, a group of host threads a
+    certificate,
     on seeded certificates (tests/bls_cases.py), against the plain version
     bit for bit and, as affine points, against the host oracle."""
     import torch
-    from bls_cases import host_sums
+    from bls_cases import host_sums, pack
 
     from mirbft_tpu_torch.ops import bls_g1
 
     binary = compile_host_main("bls_g1", BLS_MAIN, workdir)
     status = 0
     for label, certs, voters in cases:
-        xs, ys, zs, mask = bls_g1.pack_certificates(certs, voters)
+        # ``exact``: the cases are tests/bls_cases.py's width cases, whose
+        # third item is the launch's width itself.
+        xs, ys, zs, mask = (pack(certs, width=voters) if exact
+                            else pack(certs, voters))
         batch, width = mask.shape
         blob = b"".join([np.array([batch, width], dtype=np.int32).tobytes(),
                          xs.tobytes(), ys.tobytes(), zs.tobytes(),
@@ -751,10 +890,13 @@ def main(argv=None) -> int:
         if "ack" in args.what:
             for rows, limbs in ACK_CASES:
                 status |= rehearse_ack(rows, limbs, workdir)
+            for rows in ACK_CROSSING_ROWS:
+                status |= rehearse_ack(rows, 1, workdir, crossing=True)
         if "bls" in args.what:
-            from bls_cases import cases
+            from bls_cases import cases, width_cases
 
             status |= rehearse_bls(cases(), workdir)
+            status |= rehearse_bls(width_cases(), workdir, exact=True)
         if "decompress" in args.what:
             from ed25519_corpus import decompression_corpus
 

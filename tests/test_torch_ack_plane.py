@@ -16,7 +16,9 @@ import torch
 from ack_plane_cases import (
     OUTPUTS,
     STATE,
+    crossing_rows,
     make_case,
+    make_crossing_case,
     row_classes,
     state_numpy,
     torch_batch,
@@ -100,6 +102,45 @@ def test_sweep_plain_equals_the_jax_program(mesh, rows, limbs):
     assert totals.tolist() == [int(weak), int(strong), int(committed)]
     assert int(weak) > 0 and int(strong) > 0 and int(committed) > 0
     np.testing.assert_array_equal(state[6].numpy(), np.asarray(tick))
+
+
+@pytest.mark.parametrize("limbs", [1, 3])
+def test_adoption_across_the_cluster_equals_the_jax_program(mesh, limbs):
+    """The crossing case (tests/ack_plane_cases.py) at 4096 rows: one
+    virgin slot hit by a row of the CUDA step's first block, a row in the
+    middle with another digest, and a row of the last block with the first
+    digest.  Every state array and row output equal to the JAX program's;
+    the first row adopts, the middle one falls back, the last applies
+    against the adopted digest.  tests/test_torch_chip.py holds the kernel
+    to the same pattern at 16384 and 65536 rows."""
+    rows = 4096
+    case = make_crossing_case(rows * 10 + limbs + 7, rows, limbs)
+    step, _sweep = _programs(mesh, case)
+    want_state, want_out = _reference_step(step, case)
+    state = torch_state(case)
+    out = ack_plane.ack_step(
+        *state, torch_batch(case), weak_q=case["weak_q"],
+        strong_q=case["strong_q"],
+    )
+    got_state = state_numpy(state)
+    got_out = {k: v.numpy() for k, v in ack_plane.unpack_step(out).items()}
+    for name in STATE:
+        np.testing.assert_array_equal(got_state[name], want_state[name],
+                                      err_msg=name)
+    for name in OUTPUTS:
+        np.testing.assert_array_equal(
+            got_out[name].astype(np.int64), want_out[name].astype(np.int64),
+            err_msg=name,
+        )
+    first, middle, last = crossing_rows(rows)
+    assert [bool(want_out["adopt"][r]) for r in (first, middle, last)] == [
+        True, False, False]
+    assert [bool(want_out["applied"][r]) for r in (first, middle, last)] == [
+        True, False, True]
+    assert bool(want_out["fallback"][middle])
+    slot = case["crossing"]["slot"]
+    np.testing.assert_array_equal(
+        got_state["canon"].reshape(-1, 8)[slot], case["crossing"]["digest"])
 
 
 def test_adoption_follows_batch_order():

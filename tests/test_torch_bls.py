@@ -81,6 +81,41 @@ def test_aggregate_plain_equals_the_jax_program(pool, case):
         assert points[2] == pool[1]
 
 
+@pytest.fixture(scope="module")
+def width_reference():
+    """tests/bls_cases.py's width cases through the JAX program in one
+    compiled call: each certificate right-aligned in 256 slots, since
+    leading absent voters leave (X : Y : Z) as it is (the identity plus
+    the identity is the identity), so a certificate of w slots gives the
+    same canonical (X, Y, Z) as at width w.  Returns {width: (certs,
+    canonical points)}."""
+    cases = bls_cases.width_cases()
+    padded = [[None] * (256 - width) + cert
+              for _label, certs, width in cases for cert in certs]
+    xs, ys, zs, mask = jax_inputs(padded, 256)
+    got = jax_canonical(ref_bls_g1._aggregate(xs, ys, zs, mask))
+    return {width: (certs, got[4 * i: 4 * i + 4])
+            for i, (_label, certs, width) in enumerate(cases)}
+
+
+@pytest.mark.parametrize("width", bls_cases.WIDTHS)
+def test_aggregate_plain_at_widths_no_lane_split_divides(width_reference,
+                                                         width):
+    """Four certificates of exactly 1, 85 or 200 slots (leading, middle
+    and all-absent voters, a doubling and P + -P): the plain version's
+    canonical (X, Y, Z) equal to the JAX program's, and the affine points
+    to the host fold.  tests/test_torch_chip.py holds the kernel to the
+    plain version on the same launches."""
+    certs, want = width_reference[width]
+    arrays = [torch.from_numpy(a) for a in bls_cases.pack(certs, width=width)]
+    assert tuple(arrays[3].shape) == (4, width)
+    got = bls_g1.canonical(bls_g1.aggregate_plain(*arrays))
+    assert got == want
+    points = [bls_g1.to_affine(xyz) for xyz in got]
+    assert points == bls_cases.host_sums(certs)
+    assert points[2] is None
+
+
 @pytest.mark.slow
 def test_aggregate_plain_equals_the_compiled_jax_program(pool):
     """The same at (4, 8) against the jitted program (the XLA compile)."""

@@ -302,7 +302,7 @@ ACK_CASES = [(1024, 1), (1024, 2), (4096, 3), (65536, 1)]
 @pytest.mark.parametrize("rows,limbs", ACK_CASES,
                          ids=[f"rows{r}-limbs{l}" for r, l in ACK_CASES])
 def test_ack_plane_kernels_equal_their_plain_versions(card, rows, limbs):
-    """The step's three launches and the sweep on seeded cases holding
+    """The step's one launch and the sweep on seeded cases holding
     every row class (tests/ack_plane_cases.py), against the plain versions
     on the same card, bit for bit: every state array, the packed row
     outputs, the sweep's totals and tick; the adoption scratch is empty
@@ -335,6 +335,144 @@ def test_ack_plane_kernels_equal_their_plain_versions(card, rows, limbs):
     assert torch.equal(kernel_state[6], plain_state[6])
     assert (ack_plane.ack_step.launches,
             ack_plane.quorum_sweep.launches) == (before[0] + 1, before[1] + 1)
+
+
+#: (rows, where the crossing case's last row falls on an H100's step
+#: grid): "first" a thread's first row, "register" a later row the thread
+#: keeps in registers, "output" a row past those, whose class waits in its
+#: output word between the phases.
+ACK_CROSSING = [(16384, "first"), (65536, "first"), (262144, "register"),
+                (2097152, "output")]
+
+
+@pytest.mark.parametrize("rows,where", ACK_CROSSING,
+                         ids=[f"rows{r}" for r, _ in ACK_CROSSING])
+def test_ack_step_adoption_across_the_cluster(card, rows, where):
+    """The crossing case (tests/ack_plane_cases.py): one virgin slot hit by
+    a row of the grid's first block, a row in the middle with another
+    digest, and one of the last rows with the first digest, at every
+    place a row can sit on the step's grid (``where``).  Kernel == plain
+    bit for bit; the first row adopts, the middle one falls back, the last
+    applies."""
+    from ack_plane_cases import crossing_rows, make_crossing_case, torch_batch
+    from ack_plane_cases import torch_state
+    from mirbft_tpu_torch.ops import ack_plane
+
+    threads, register_rows = ack_plane.step_grid(rows, card)
+    nth = crossing_rows(rows)[-1] // threads
+    assert where == ("first" if nth == 0 else
+                     "register" if nth < register_rows else "output"), (
+        threads, register_rows, nth)
+    case = make_crossing_case(rows * 3 + 1, rows, 1)
+    kw = dict(weak_q=case["weak_q"], strong_q=case["strong_q"])
+    kernel_state = torch_state(case, card)
+    plain_state = torch_state(case, card)
+    batch = torch_batch(case, card)
+    first = ack_plane.new_first(case["c_pad"] * case["w_pad"], card)
+    out = ack_plane.ack_step(*kernel_state, batch, first=first, **kw)
+    assert torch.equal(out, ack_plane.ack_step_plain(*plain_state, batch, **kw))
+    for got, expected in zip(kernel_state, plain_state):
+        assert torch.equal(got, expected)
+    assert bool((first == ack_plane.FIRST_NONE).all())
+    res = ack_plane.unpack_step(out.cpu())
+    first_row, middle, last = crossing_rows(rows)
+    assert [bool(res["adopt"][r]) for r in (first_row, middle, last)] == [
+        True, False, False]
+    assert [bool(res["applied"][r]) for r in (first_row, middle, last)] == [
+        True, False, True]
+
+
+def _width_one_tracker(clients: int, device: str, flush_rows: int):
+    from mirbft_tpu_torch.core.client_tracker import ClientTracker
+    from mirbft_tpu_torch.core.msgbuffers import NodeBuffers
+    from mirbft_tpu_torch.core.persisted import Persisted
+
+    state = pb.NetworkState(
+        config=pb.NetworkConfig(nodes=[0, 1, 2, 3], f=1, number_of_buckets=4,
+                                checkpoint_interval=5, max_epoch_length=50),
+        clients=[pb.NetworkClient(id=cid, width=1, low_watermark=0)
+                 for cid in range(clients)],
+    )
+    persisted = Persisted()
+    persisted.add_c_entry(pb.CEntry(seq_no=0, checkpoint_value=b"genesis",
+                                    network_state=state))
+    my = pb.InitialParameters(id=0, buffer_size=1 << 20)
+    tracker = ClientTracker(persisted, NodeBuffers(my), my,
+                            ack_plane="device", ack_device=device,
+                            ack_flush_rows=flush_rows)
+    tracker.reinitialize()
+    return tracker
+
+
+#: (clients, padded rows of the one coalesced step, which of its thread's
+#: rows the last ack is on an H100's step grid at least).
+COALESCED = [(40000, 131072, 0), (87000, 262144, 1)]
+
+
+@pytest.mark.parametrize("clients,rows,nth", COALESCED,
+                         ids=[f"rows{r}" for _, r, _ in COALESCED])
+def test_device_plane_coalesced_flush_past_the_largest_bucket(card, clients,
+                                                               rows, nth):
+    """Three sources ack every one of ``clients`` width-1 clients, and the
+    tracker's ``ack_flush_rows`` coalesces the three frames into one step
+    of ``rows`` padded rows (past the 65536-row bucket) through
+    ``DeviceClientPlane``.  Client 0's first ack is row 0 (it adopts); its
+    ack from source 3, the batch's last row, carries another digest and
+    falls back (the scalar path then holds its slot).  Against the same storm on the plane's plain version: one
+    step each, the same counters, state and sweep; the oracle finds
+    nothing."""
+    import numpy as np
+
+    from mirbft_tpu_torch.core.device_tracker import batch_rows
+    from mirbft_tpu_torch.obsv import shadow
+    from mirbft_tpu_torch.ops import ack_plane
+
+    n = 3 * clients
+    assert batch_rows(n) == rows
+    threads, _ = ack_plane.step_grid(rows, card)
+    assert (n - 1) // threads >= nth, (threads, n)
+    rng = np.random.default_rng(clients)
+    digests = rng.integers(0, 256, size=(clients, 32), dtype=np.uint8)
+    other = bytes(rng.integers(0, 256, size=32, dtype=np.uint8))
+    frames = {}
+    for source in (1, 2, 3):
+        order = (np.arange(clients) if source == 1
+                 else rng.permutation(clients))
+        if source == 3:
+            order = np.concatenate([order[order != 0], [0]])
+        frames[source] = [
+            pb.Msg(type=pb.RequestAck(
+                client_id=int(c), req_no=0,
+                digest=other if (source, c) == (3, 0)
+                else digests[c].tobytes()))
+            for c in order.tolist()]
+    planes = {}
+    for device in ("cuda", "cpu"):
+        tracker = _width_one_tracker(clients, device, flush_rows=n)
+        before = (ack_plane.ack_step.launches,
+                  ack_plane.ack_step.launches_by_rows[rows])
+        for source in (1, 2, 3):
+            tracker.step_ack_many(source, frames[source])
+        plane = tracker._device
+        if device == "cuda":
+            assert (ack_plane.ack_step.launches,
+                    ack_plane.ack_step.launches_by_rows[rows]) == (
+                        before[0] + 1, before[1] + 1)
+            assert shadow.audit_tracker(tracker) == []
+        planes[device] = (
+            plane.batches, plane.acks_applied, plane.acks_fallback,
+            {k: v.copy() for k, v in plane.host_snapshot().items()},
+            plane.quorum_sweep(),
+        )
+    cuda, cpu = planes["cuda"], planes["cpu"]
+    assert cuda[:3] == cpu[:3] == (1, n - 1, 1)
+    for name, array in cuda[3].items():
+        np.testing.assert_array_equal(array, cpu[3][name], err_msg=name)
+    # Client 0's conflicting ack, replayed on the scalar path, takes its
+    # slot off the dense plane; every other client is weak and strong.
+    assert cuda[4] == cpu[4] == {"weak_certs": clients - 1,
+                                 "strong_certs": clients - 1,
+                                 "committed": 0}
 
 
 def test_device_plane_tracker_on_the_card(card):
@@ -410,6 +548,26 @@ def test_bls_kernel_equals_its_plain_version(card, index):
     assert torch.equal(out.cpu(), bls_g1.aggregate_plain(*arrays)), label
     points = [bls_g1.to_affine(xyz) for xyz in bls_g1.canonical(out)]
     assert points[: len(certs)] == bls_cases.host_sums(certs), label
+
+
+@pytest.mark.parametrize("index", range(3), ids=["width1", "width85",
+                                                  "width200"])
+def test_bls_kernel_at_widths_no_lane_split_divides(card, index):
+    """tests/bls_cases.py's width cases (1, 85 and 200 slots, not padded:
+    leading, middle and all-absent voters, a doubling, P + -P): the
+    kernel's output bit for bit equal to the plain version's, the affine
+    points to the host fold."""
+    import bls_cases
+
+    from mirbft_tpu_torch.ops import bls_g1
+
+    label, certs, width = bls_cases.width_cases()[index]
+    arrays = [torch.from_numpy(a) for a in bls_cases.pack(certs, width=width)]
+    out = bls_g1.aggregate_points(*(a.to(card) for a in arrays))
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), bls_g1.aggregate_plain(*arrays)), label
+    points = [bls_g1.to_affine(xyz) for xyz in bls_g1.canonical(out)]
+    assert points == bls_cases.host_sums(certs), label
 
 
 def test_bls_aggregate_raises_rather_than_folding_on_the_host(card,

@@ -49,11 +49,25 @@ def test_both_digest_bodies_equal_hashlib_on_the_host(gxx, tmp_path):
 )
 def test_ack_plane_equals_its_plain_version_on_the_host(gxx, tmp_path, rows,
                                                         limbs):
-    """The step's three kernels, one host thread a row, and the sweep, on a
-    seeded case holding every row class: state, row outputs, sweep tick
-    and totals bit for bit against the plain versions, and the adoption
-    scratch empty again after the step."""
+    """The step's one cooperative grid (host threads meeting at the grid
+    barrier, a few rows a thread) and the sweep, on a seeded case holding
+    every row class: state, row outputs, sweep tick and totals bit for bit
+    against the plain versions, and the adoption scratch empty again after
+    the step."""
     assert rehearse_cuda.rehearse_ack(rows, limbs, tmp_path) == 0
+
+
+@pytest.mark.parametrize("rows", rehearse_cuda.ACK_CROSSING_ROWS)
+def test_ack_step_adoption_across_a_threads_rows_on_the_host(gxx, tmp_path,
+                                                            rows):
+    """The crossing case (tests/ack_plane_cases.py) on the rehearsal's grid
+    of 8 blocks of 64 threads: at 4096 rows 8 a thread, all in registers;
+    at 8192 rows 16 a thread, the last 8 carrying their class through the
+    output.  The virgin slot's first row (a thread's first) adopts, the
+    middle one falls back and the last (a thread's eighth, then its
+    sixteenth) applies, state and row outputs bit for bit against the
+    plain version."""
+    assert rehearse_cuda.rehearse_ack(rows, 1, tmp_path, crossing=True) == 0
 
 
 @pytest.mark.parametrize("index", range(4),
@@ -61,14 +75,27 @@ def test_ack_plane_equals_its_plain_version_on_the_host(gxx, tmp_path, rows,
                               "rung4-4x128"])
 def test_bls_aggregate_equals_its_plain_version_on_the_host(gxx, tmp_path,
                                                            index):
-    """tests/bls_cases.py's small cases, one host thread a certificate:
-    the output bit for bit equal to the plain version's, the affine
-    points to the host fold (``rehearse_cuda.py bls`` adds (64, 128) and
-    (4, 256))."""
+    """tests/bls_cases.py's small cases, a group of host threads a
+    certificate: the output bit for bit equal to the plain version's, the
+    affine points to the host fold (``rehearse_cuda.py bls`` adds (64,
+    128) and (4, 256))."""
     from bls_cases import cases
 
     assert rehearse_cuda.rehearse_bls([cases(full=False)[index]],
                                       tmp_path) == 0
+
+
+@pytest.mark.parametrize("index", range(3), ids=["width1", "width85",
+                                                  "width200"])
+def test_bls_aggregate_at_widths_no_lane_split_divides_on_the_host(
+        gxx, tmp_path, index):
+    """tests/bls_cases.py's width cases (1, 85 and 200 slots, unpadded),
+    a group of host threads a certificate: bit for bit equal to the plain
+    version, the affine points to the host fold."""
+    from bls_cases import width_cases
+
+    assert rehearse_cuda.rehearse_bls([width_cases()[index]], tmp_path,
+                                      exact=True) == 0
 
 
 @pytest.mark.parametrize("name", ["ed25519", "sha256", "ack_plane", "bls_g1"])
