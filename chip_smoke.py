@@ -113,7 +113,11 @@ Phases (any failure raises and the script exits nonzero):
     (each source's first frame on the state it met) and the anchor's
     launch shape, beside its byte bound (bytes / 3.35 TB/s), its launch
     floor (an empty kernel launched as the step is, timed the same way)
-    and its plain version's time, and the launches of the rung's run;
+    and its plain version's time, and the launches of the rung's run; the
+    sweep also against its plain version, twice in a row and one launch
+    each, on tests/ack_plane_cases.py's sweep planes (8193 to 262,145
+    slots at limbs 1-4, every slot class, an all-certified plane of 4096
+    slots a block, arrays off 16 bytes);
 14. the BLS G1 aggregation kernel (``csrc/bls_g1.cu``) against its plain
     version on the card, bit for bit, and its affine points against the
     host fold (``bls_host.aggregate_g1``), on tests/bls_cases.py's seeded
@@ -682,6 +686,36 @@ def compare_sweep(label, kernel_state, plain_state, kw) -> list:
           f"{label}: sweep totals {totals} != {plain_totals}")
     check(torch.equal(kernel_state[6], plain_state[6]),
           f"{label}: sweep tick differs")
+    return totals
+
+
+def compare_sweep_plane(slots: int, limbs: int, kind: str) -> list:
+    """One of tests/ack_plane_cases.py's ``SWEEP_ON_CARD`` planes through
+    the sweep's kernel and its plain version on the card, twice in a row
+    (the second after the first's ticket reset); raises unless the totals
+    and ticks are equal each time and each sweep counted exactly one
+    launch.  Returns the totals."""
+    import torch
+
+    from mirbft_tpu_torch.ops import ack_plane
+
+    cases = ack_plane_cases()
+    case, kernel, plain = cases.sweep_on_card(SEED + slots + limbs, slots,
+                                              limbs, kind, "cuda")
+    kw = dict(weak_q=case["weak_q"], strong_q=case["strong_q"])
+    label = f"ack sweep ({slots} slots, {limbs} limbs, {kind})"
+    for rep in range(2):
+        before = ack_plane.quorum_sweep.launches
+        totals = ack_plane.quorum_sweep(*kernel, **kw).tolist()
+        check(ack_plane.quorum_sweep.launches == before + 1,
+              f"{label}: {ack_plane.quorum_sweep.launches - before} launches")
+        want = ack_plane.quorum_sweep_plain(*plain, **kw).tolist()
+        check(totals == want,
+              f"{label}, sweep {rep + 1}: totals {totals} != {want}")
+        check(torch.equal(kernel[4], plain[4]),
+              f"{label}, sweep {rep + 1}: tick differs")
+    if kind == "certified":
+        check(totals == [slots, slots, 0], f"{label}: totals {totals}")
     return totals
 
 
@@ -2220,6 +2254,8 @@ def main() -> int:
     )
     check(sweep_totals == [n_clients, n_clients, 0],
           f"ack sweep, the rung's final state: totals {sweep_totals}")
+    sweep_cases = [(plane, compare_sweep_plane(*plane))
+                   for plane in ack_plane_cases().SWEEP_ON_CARD]
     sweep_args = [sweep_state[i] for i in (0, 3, 4, 5, 6)]
 
     def fresh_sweep():
@@ -2235,6 +2271,7 @@ def main() -> int:
     # launch.
     sweep_floor_ms = time_events(
         lambda: [], lambda: ack_plane.empty_sweep(c_pad * w_pad))
+    sweep_grid = ack_plane.sweep_grid(c_pad * w_pad)
     for e in ack_shapes:
         print(f"  ack step, {e['what']}: ({e['rows']} rows) on state "
               f"{e['state']}: kernel {e['ms']:.6f} ms (CUDA events, median "
@@ -2244,10 +2281,14 @@ def main() -> int:
               f"({e['bytes']} bytes / 3.35 TB/s), "
               f"{100 * e['bound_ms'] / e['ms']:.2f}% of bound; plain "
               f"{e['plain_ms']:.6f} ms (wall)")
+    for (slots, limbs, plane), totals in sweep_cases:
+        print(f"  ack sweep ({slots} slots, {limbs} limbs, {plane}): kernel "
+              f"== plain twice in a row, one launch each; totals {totals}")
     print(f"  ack sweep on the rung's final state {[c_pad, w_pad, 1]}: "
           f"kernel {sweep_ms:.6f} ms, launch floor {sweep_floor_ms:.6f} ms "
           f"(the empty kernel launched as the sweep is: "
-          f"{-(-c_pad * w_pad // 256)} blocks of 256, an ordinary launch), "
+          f"{sweep_grid[0]} blocks of {sweep_grid[1]}, {sweep_grid[2]} "
+          f"slots a thread, an ordinary launch), "
           f"bound {sweep_bound_ms:.6f} ms "
           f"({sweep_bytes} bytes / 3.35 TB/s), "
           f"{100 * sweep_bound_ms / sweep_ms:.2f}% of bound; plain "
@@ -2262,7 +2303,8 @@ def main() -> int:
           f"fallback, 0 dropped, 0 divergences, 0 parity mismatches, every "
           f"client weak and strong; step kernel == plain on the rung's three "
           f"batches and at the anchor's shape, sweep kernel == plain on the "
-          f"rung's final state; step {rung_step_ms:.6f} ms a launch "
+          f"rung's final state and on {len(sweep_cases)} seeded planes; "
+          f"step {rung_step_ms:.6f} ms a launch "
           f"(mean of the rung's three sources) x {rung_launches['ack_step']}"
           f" launches, sweep {sweep_ms:.6f} ms x "
           f"{rung_launches['ack_sweep']} (done at "
@@ -2395,6 +2437,7 @@ def main() -> int:
         "library_ms": None,
         "launch_floor_ms": sweep_floor_ms,
         "shape": [c_pad, w_pad, 1],
+        "grid": list(sweep_grid),
         "ptxas": ptxas.get("mirbft_ack_sweep_kernel"),
     })
     bls_head = bls["shapes"][0]

@@ -292,7 +292,9 @@ def _kernel_library():
         lib.mirbft_ack_step_grid.argtypes = [i32, ctypes.POINTER(i32),
                                              ctypes.POINTER(i32)]
         lib.mirbft_ack_step_grid.restype = i32
-        lib.mirbft_ack_sweep.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
+        lib.mirbft_ack_sweep_grid.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+        lib.mirbft_ack_sweep_grid.restype = i32
+        lib.mirbft_ack_sweep.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
         lib.mirbft_ack_sweep.restype = i32
         lib.mirbft_ack_error_string.argtypes = [i32]
         lib.mirbft_ack_error_string.restype = ctypes.c_char_p
@@ -417,8 +419,8 @@ def empty_step(rows: int, device="cuda") -> None:
 
 def empty_sweep(total: int, device="cuda") -> None:
     """Launch an empty kernel exactly as ``quorum_sweep`` launches the
-    sweep over ``total`` slots (an ordinary launch of its grid and
-    block), on the current stream: the sweep's launch floor.  Not
+    sweep over ``total`` slots (an ordinary launch of its grid and block,
+    ``sweep_grid``), on the current stream: the sweep's launch floor.  Not
     counted."""
     device = _cuda_device(device)
     if total < 1:
@@ -444,12 +446,49 @@ def step_grid(rows: int, device="cuda") -> tuple:
     return threads.value, register_rows.value
 
 
+def sweep_grid(total: int, device="cuda") -> tuple:
+    """(blocks, threads a block, slots a thread) of the sweep's grid over
+    ``total`` slots: a thread takes groups of consecutive slots, and a
+    plane past the grid's largest takes several groups a thread."""
+    device = _cuda_device(device)
+    lib = _kernel_library()
+    blocks, threads, slots = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.mirbft_ack_sweep_grid(total, ctypes.byref(blocks),
+                                    ctypes.byref(threads), ctypes.byref(slots))
+    _raise_on(lib, err, "sweep grid")
+    return blocks.value, threads.value, slots.value
+
+
+_SWEEP_SCRATCH: dict = {}
+_SWEEP_SCRATCH_LOCK = threading.Lock()
+
+
+def _sweep_scratch(device: torch.device, stream) -> torch.Tensor:
+    """The sweep's scratch for ``device`` and ``stream``: one int32 ticket
+    counter, then three partials a block for the largest grid
+    (``sweep_grid`` of the largest plane).  Made once, when first asked
+    for, with the counter zeroed; each sweep leaves the counter at 0
+    again (its last block resets it) and overwrites the partials it
+    reads, so nothing is zeroed or allocated a call.  One a stream: sweeps
+    on one stream run in turn, and sweeps on two never share one."""
+    key = (device.index, stream.cuda_stream)
+    with _SWEEP_SCRATCH_LOCK:
+        scratch = _SWEEP_SCRATCH.get(key)
+        if scratch is None:
+            blocks, _threads, _slots = sweep_grid(0x7FFFFFFF, device)
+            scratch = _SWEEP_SCRATCH[key] = torch.zeros(
+                (1 + 3 * blocks,), dtype=torch.int32, device=device)
+    return scratch
+
+
 def quorum_sweep(agree, canon_ok, flags, held, tick, *, weak_q: int,
                  strong_q: int) -> torch.Tensor:
     """Tally the plane and rewrite ``tick`` in place; returns a (3,) int32
     tensor of the weak, strong and committed totals.  CUDA tensors take the
-    sweep kernel on the current stream; CPU tensors take
-    ``quorum_sweep_plain``."""
+    sweep kernel on the current stream: one launch and nothing else
+    queued (the totals come from ``torch.empty``; the ticket counter and
+    the blocks' partials are the stream's scratch, ``_sweep_scratch``).
+    CPU tensors take ``quorum_sweep_plain``."""
     if agree.dim() != 3:
         raise ValueError(f"agree must be (c_pad, w_pad, limbs), got "
                          f"{tuple(agree.shape)}")
@@ -471,11 +510,13 @@ def quorum_sweep(agree, canon_ok, flags, held, tick, *, weak_q: int,
     totals = torch.empty((3,), dtype=torch.int32, device=device)
     lib = _kernel_library()
     with torch.cuda.device(device):
+        stream = torch.cuda.current_stream()
+        scratch = _sweep_scratch(device, stream)
         err = lib.mirbft_ack_sweep(
             agree.data_ptr(), canon_ok.data_ptr(), flags.data_ptr(),
             held.data_ptr(), tick.data_ptr(), totals.data_ptr(),
-            total, limbs, weak_q, strong_q,
-            torch.cuda.current_stream().cuda_stream,
+            scratch.data_ptr() + 4, scratch.data_ptr(), total, limbs,
+            weak_q, strong_q, stream.cuda_stream,
         )
     _raise_on(lib, err, "quorum sweep")
     _count_launch(quorum_sweep, total)

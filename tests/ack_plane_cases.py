@@ -144,6 +144,145 @@ def make_crossing_case(seed: int, rows: int, limbs: int) -> dict:
     return case
 
 
+#: The sweep's seeded planes, (slots, limbs): slot counts that are not a
+#: multiple of the CUDA sweep's group of 8 slots, limbs 1, 2 and 4 (the
+#: kernel's vector loads of the masks) and 3 (its scalar limbs).
+SWEEP_CASES = ((8193, 1), (8193, 2), (8193, 4), (8195, 3), (262145, 1))
+
+#: Slots of the all-certified plane that gives each block of the CUDA
+#: sweep's grid at least 4096 slots: on the card (1024 blocks of 256
+#: threads, at most) and in the host rehearsal (tests/rehearse_cuda.py: 8
+#: blocks of 64 threads).
+CERTIFIED_SLOTS = {"card": 4096 * 1024, "rehearsal": 4096 * 8}
+
+
+def _low_bits(count: np.ndarray, limbs: int) -> np.ndarray:
+    """(slots, limbs) uint32 masks with the lowest ``count`` voters set."""
+    out = np.zeros((len(count), limbs), dtype=np.uint32)
+    for limb in range(limbs):
+        n = np.clip(count - 32 * limb, 0, 32).astype(np.uint64)
+        out[:, limb] = ((np.uint64(1) << n) - np.uint64(1)).astype(np.uint32)
+    return out
+
+
+def make_sweep_case(seed: int, slots: int, limbs: int, *,
+                    certified: bool = False) -> dict:
+    """A plane of ``slots`` slots (c_pad = slots, w_pad = 1) for the sweep
+    alone.  It holds every class: committed (with and without the slow
+    flag), slow, live and held, live and not held, and canon_ok false with
+    no flag; canon_ok is set at random on flagged slots too, which the
+    sweep must ignore.  The live slots' vote counts spread from none to
+    every voter, with some exactly at each quorum and one below it.
+    ``certified``: every slot live, canonical and holding every voter, so
+    every slot counts weak and strong."""
+    rng = np.random.default_rng(seed)
+    nodes, weak_q, strong_q = quorums(limbs)
+    if certified:
+        flags = np.zeros(slots, dtype=np.uint8)
+        canon_ok = np.ones(slots, dtype=bool)
+        agree = _low_bits(np.full(slots, nodes), limbs)
+    else:
+        flags = rng.choice(np.array(
+            [0, 0, 0, 0, 0, COMMITTED, SLOW, COMMITTED | SLOW],
+            dtype=np.uint8), slots)
+        canon_ok = rng.random(slots) < 0.7
+        words = [rng.integers(0, 1 << 32, size=(slots, limbs),
+                              dtype=np.uint32) for _ in range(2)]
+        # Densities 0, 1/4, 1/2, 3/4 and 1 of the voters, then exact
+        # counts at the quorums.
+        kind = rng.integers(0, 6, size=slots)[:, None]
+        agree = np.select(
+            [kind == 0, kind == 1, kind == 2, kind == 3, kind == 4],
+            [np.zeros_like(words[0]), words[0] & words[1], words[0],
+             words[0] | words[1], _low_bits(np.full(slots, nodes), limbs)],
+            _low_bits(rng.choice(np.array(
+                [weak_q - 1, weak_q, strong_q - 1, strong_q]), slots), limbs),
+        )
+        if nodes % 32:
+            agree[:, -1] &= np.uint32((1 << (nodes % 32)) - 1)
+    held = rng.random(slots) < 0.4
+    tick = rng.integers(0, 3, size=slots).astype(np.uint8)
+    return {
+        "c_pad": slots, "w_pad": 1, "limbs": limbs,
+        "weak_q": weak_q, "strong_q": strong_q,
+        "agree": agree.reshape(slots, 1, limbs),
+        "canon_ok": canon_ok.reshape(slots, 1),
+        "flags": flags.reshape(slots, 1),
+        "held": held.reshape(slots, 1),
+        "tick": tick.reshape(slots, 1),
+    }
+
+
+SWEEP_STATE = ("agree", "canon_ok", "flags", "held", "tick")
+
+#: The sweep's planes on a card, (slots, limbs, kind): the seeded planes
+#: ("mixed"), the all-certified plane that gives each of the grid's 1024
+#: blocks 4096 slots, and two planes whose arrays start off 16 bytes
+#: ("bytes": the byte arrays one byte in, so every slot takes byte loads;
+#: "masks": the masks four bytes in, so the groups read scalar limbs).
+SWEEP_ON_CARD = tuple(
+    (slots, limbs, "mixed") for slots, limbs in SWEEP_CASES
+) + ((CERTIFIED_SLOTS["card"], 1, "certified"), (8193, 1, "bytes"),
+     (8193, 2, "masks"))
+
+
+def sweep_tensors(case: dict, device="cpu") -> list:
+    """The sweep's five arrays of a case (``make_sweep_case``, or
+    ``make_case``'s state) as the port's tensors, in ``quorum_sweep``'s
+    order."""
+    import torch
+
+    out = []
+    for name in SWEEP_STATE:
+        a = case[name]
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out.append(torch.from_numpy(np.ascontiguousarray(a)).to(device))
+    return out
+
+
+def offset_copy(t, elements: int):
+    """A contiguous copy of tensor ``t`` that starts ``elements`` elements
+    into a fresh allocation (the caching allocator's blocks start on 512
+    bytes), so its data pointer is off 16 bytes."""
+    import torch
+
+    store = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    view = store[elements:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def sweep_on_card(seed: int, slots: int, limbs: int, kind: str,
+                  device) -> tuple:
+    """One of ``SWEEP_ON_CARD``'s planes: (case, the kernel's tensors, the
+    plain version's tensors), equal, the kernel's placed as ``kind`` says."""
+    case = make_sweep_case(seed, slots, limbs, certified=kind == "certified")
+    kernel = sweep_tensors(case, device)
+    plain = sweep_tensors(case, device)
+    if kind == "bytes":
+        kernel[1:] = [offset_copy(t, 1) for t in kernel[1:]]
+    elif kind == "masks":
+        kernel[0] = offset_copy(kernel[0], 1)
+    return case, kernel, plain
+
+
+def sweep_classes(case: dict) -> dict:
+    """How many slots of each class a sweep case holds (a case must
+    exercise every one)."""
+    fl = case["flags"].reshape(-1)
+    ok = case["canon_ok"].reshape(-1)
+    held = case["held"].reshape(-1)
+    live = (fl == 0) & ok
+    return {
+        "committed": int(((fl & COMMITTED) != 0).sum()),
+        "slow": int((fl == SLOW).sum()),
+        "live_held": int((live & held).sum()),
+        "live_unheld": int((live & ~held).sum()),
+        "not_canonical": int(((fl == 0) & ~ok).sum()),
+    }
+
+
 STATE = ("agree", "nonnull", "canon", "canon_ok", "flags", "held", "tick")
 OUTPUTS = ("applied", "fallback", "dropped", "adopt", "weak", "strong",
            "newcount")

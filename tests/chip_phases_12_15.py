@@ -12,7 +12,9 @@ the ack plane's kernels == plain on three seeded cases, the device-plane anchor
 (events, wall, steps, chain), the ack-plane rung (``bench.ackplane_run``)
 and the step's device time on the rung's three batches and at the
 anchor's shape, the host's cost of one step call (its launch, at the
-anchor's shape), then ``bls_phases`` (the BLS kernel == plain, timed, and
+anchor's shape), the sweep's device time on the rung's final state beside
+its launch floor (``ack_plane.empty_sweep``) and the host's cost of one
+sweep call, then ``bls_phases`` (the BLS kernel == plain, timed, and
 rung 4; ``--ack-only`` leaves them out).  Run in two trees in turns (one,
 the other, the other, one, ...) in one call, it compares their kernels and
 end-to-end numbers on one card.  The last line starts ``RESULT``.
@@ -39,17 +41,17 @@ from mirbft_tpu_torch.testengine.crypto_plane import (  # noqa: E402
 )
 
 
-def host_call_us(state, batch, first, kw, reps=400) -> float:
-    """Host microseconds from a call of ``ack_step`` to its return (the
-    wrapper's checks, allocation and launches; the kernel runs behind):
-    the median of ``reps`` calls on one state, in batches of 40 with the
-    card drained between them so the launch queue never fills."""
+def host_call_us(call, reps=400) -> float:
+    """Host microseconds from ``call()`` (a wrapper call: its checks,
+    allocations and launches; the kernel runs behind) to its return: the
+    median of ``reps`` calls, in batches of 40 with the card drained
+    between them so the launch queue never fills."""
     times = []
     for _ in range(reps // 40):
         torch.cuda.synchronize()
         for _ in range(40):
             t = time.perf_counter()
-            ack_plane.ack_step(*state, batch, first=first, **kw)
+            call()
             times.append(time.perf_counter() - t)
     torch.cuda.synchronize()
     return statistics.median(times) * 1e6
@@ -84,8 +86,8 @@ def main() -> int:
     rung = port_bench.ackplane_run(Registry(), device="cuda")
     res["rung"] = {k: rung[k] for k in (
         "host_events_per_sec", "device_events_per_sec",
-        "committed_reqs_per_sec", "drain_seconds", "fallback_rows",
-        "divergences", "step_launches")}
+        "committed_reqs_per_sec", "drain_seconds", "sweep_seconds",
+        "fallback_rows", "divergences", "step_launches")}
     c_pad, w_pad = rung["plane"]["c_pad"], rung["plane"]["w_pad"]
     kw = dict(weak_q=2, strong_q=3)
     times = {}
@@ -110,8 +112,27 @@ def main() -> int:
         lambda: [t.clone() for t in state] + [batch],
         lambda *a: ack_plane.ack_step(*a, first=first, **akw))
     res["step_ms"] = times
-    res["step_host_call_us"] = host_call_us(state, batch, first, akw)
+    res["step_host_call_us"] = host_call_us(
+        lambda: ack_plane.ack_step(*state, batch, first=first, **akw))
+    # The sweep on the rung's final state (every live slot certified),
+    # held against its plain version there, then timed beside its launch
+    # floor, with the host's cost of one sweep call.
+    sweep_state, _ = cs.rung_step_inputs(rung["clients"], 3, c_pad, w_pad)
+    sweep_state[0][:] = 0b1110
+    cs.compare_sweep("sweep, the rung's final state",
+                     [t.clone() for t in sweep_state],
+                     [t.clone() for t in sweep_state], kw)
+    sweep_args = [sweep_state[i] for i in (0, 3, 4, 5, 6)]
+    res["sweep_ms"] = cs.time_events(
+        lambda: [t.clone() for t in sweep_args],
+        lambda *a: ack_plane.quorum_sweep(*a, **kw))
+    res["sweep_floor_ms"] = cs.time_events(
+        lambda: [], lambda: ack_plane.empty_sweep(c_pad * w_pad))
+    res["sweep_host_call_us"] = host_call_us(
+        lambda: ack_plane.quorum_sweep(*sweep_args, **kw))
     print("phase 13", json.dumps(res["rung"]), json.dumps(times),
+          f"sweep {res['sweep_ms']:.6f} ms, floor "
+          f"{res['sweep_floor_ms']:.6f} ms",
           f"at {time.perf_counter() - t0:.1f} s", flush=True)
     if args.ack_only:
         print("RESULT", json.dumps(res))

@@ -59,6 +59,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ack_plane_cases import CERTIFIED_SLOTS, SWEEP_CASES
+
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
@@ -90,6 +92,8 @@ struct uint4 { uint32_t x, y, z, w; };
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
   return uint4{a, b, c, d};
 }
+struct uint2 { uint32_t x, y; };
+inline uint2 make_uint2(uint32_t a, uint32_t b) { return uint2{a, b}; }
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 using std::min;
 typedef int cudaError_t;
@@ -292,6 +296,11 @@ inline void mbar_wait(uint64_t* bar, uint32_t parity) {
 inline SpinBarrier* g_grid;
 inline void grid_sync() { g_grid->wait(); }
 
+// The sweep's acquire-release ticket (ack_plane.cu's draw_ticket).
+inline uint32_t draw_ticket(uint32_t* ticket) {
+  return __atomic_fetch_add(ticket, 1u, __ATOMIC_ACQ_REL);
+}
+
 // Run body() once a thread of a cooperative launch of `grid` blocks: every
 // block's threads at once, as the card keeps every block of such a launch
 // resident.
@@ -459,11 +468,14 @@ int main(int argc, char** argv) {
                            w_pad, limbs, weak_q, strong_q);
   });
   std::vector<uint8_t> tick_after_step(tick);
-  std::vector<uint32_t> totals(3, 0);
-  launch((total + kAckThreads - 1) / kAckThreads, kAckThreads, 0, [&] {
-    mirbft_ack_sweep_kernel(agree.data(), canon_ok.data(), flags.data(),
-                            held.data(), tick.data(), totals.data(), total,
-                            limbs, weak_q, strong_q);
+  std::vector<uint32_t> totals(3, 0xdeadbeefu), ticket(1, 0);
+  std::vector<uint32_t> partials(3 * sweep_blocks(total), 0xdeadbeefu);
+  const SweepPlane plane{agree.data(), canon_ok.data(), flags.data(),
+                         held.data(), tick.data(), total, limbs, weak_q,
+                         strong_q};
+  launch(sweep_blocks(total), kSweepThreads, 0, [&] {
+    mirbft_ack_sweep_kernel(plane, partials.data(), ticket.data(),
+                            totals.data());
   });
   FILE* f = std::fopen(argv[2], "wb");
   std::fwrite(agree.data(), 4, agree.size(), f);
@@ -475,6 +487,58 @@ int main(int argc, char** argv) {
   std::fwrite(first.data(), 4, total, f);
   std::fwrite(tick.data(), 1, total, f);
   std::fwrite(totals.data(), 4, 3, f);
+  std::fclose(f);
+  return 0;
+}
+"""
+
+SWEEP_MAIN = r"""
+// argv: input file (8 ints: total, limbs, weak_q, strong_q, misalign, 0,
+// 0, 0; agree as uint32; canon_ok, flags, held, tick as bytes), output
+// file: for each of two sweeps in a row on one ticket counter, the ticks
+// after it and its totals; then the counter.  Every array starts on 16
+// bytes, except that misalign 1 starts the byte arrays one byte later (the
+// slot-by-slot path) and misalign 2 the masks four bytes later (the
+// groups' scalar limbs).
+int main(int argc, char** argv) {
+  std::vector<char> in = read_all(argv[1]);
+  const int32_t* p = reinterpret_cast<const int32_t*>(in.data());
+  const int total = p[0], limbs = p[1], weak_q = p[2], strong_q = p[3];
+  const int misalign = p[4];
+  const uint32_t* u = reinterpret_cast<const uint32_t*>(p + 8);
+  const size_t words = static_cast<size_t>(total) * limbs;
+  std::vector<uint4> mask_store(words / 4 + 2);
+  uint32_t* agree = reinterpret_cast<uint32_t*>(mask_store.data()) +
+                    (misalign == 2 ? 1 : 0);
+  std::memcpy(agree, u, 4 * words);
+  const uint8_t* b = reinterpret_cast<const uint8_t*>(u + words);
+  std::vector<std::vector<uint4>> byte_store;
+  auto bytes = [&](int k) {
+    byte_store.emplace_back(total / 16 + 2);
+    uint8_t* at = reinterpret_cast<uint8_t*>(byte_store.back().data()) +
+                  (misalign == 1 ? 1 : 0);
+    std::memcpy(at, b + static_cast<size_t>(k) * total, total);
+    return at;
+  };
+  uint8_t* canon_ok = bytes(0);
+  uint8_t* flags = bytes(1);
+  uint8_t* held = bytes(2);
+  uint8_t* tick = bytes(3);
+  const SweepPlane plane{agree, canon_ok, flags, held, tick, total, limbs,
+                         weak_q, strong_q};
+  const int blocks = sweep_blocks(total);
+  std::vector<uint32_t> partials(3 * blocks, 0xdeadbeefu), ticket(1, 0);
+  FILE* f = std::fopen(argv[2], "wb");
+  for (int rep = 0; rep < 2; ++rep) {
+    std::vector<uint32_t> totals(3, 0xdeadbeefu);
+    launch(blocks, kSweepThreads, 0, [&] {
+      mirbft_ack_sweep_kernel(plane, partials.data(), ticket.data(),
+                              totals.data());
+    });
+    std::fwrite(tick, 1, total, f);
+    std::fwrite(totals.data(), 4, 3, f);
+  }
+  std::fwrite(ticket.data(), 4, 1, f);
   std::fclose(f);
   return 0;
 }
@@ -503,6 +567,7 @@ int main(int argc, char** argv) {
 """
 
 ACK_THREADS = 64  # the ack plane's blocks in the rehearsal: two warps
+SWEEP_MAX_BLOCKS = 8  # the sweep's largest grid in the rehearsal
 DEC_THREADS = 32  # decompression's block in the rehearsal: one warp
 BLS_THREADS = 32  # the BLS block in the rehearsal: one warp, a certificate
 # Host thread counts: the ladder's block cut to 2 quads, decompression's
@@ -515,8 +580,10 @@ CUTS = {
             f"constexpr int kDecThreads = {DEC_THREADS};",
     },
     "ack_plane": {
-        r"constexpr int kAckThreads = \d+;":
-            f"constexpr int kAckThreads = {ACK_THREADS};",
+        r"constexpr int kSweepThreads = \d+;":
+            f"constexpr int kSweepThreads = {ACK_THREADS};",
+        r"constexpr int kSweepMaxBlocks = \d+;":
+            f"constexpr int kSweepMaxBlocks = {SWEEP_MAX_BLOCKS};",
         r"constexpr int kStepThreads = \d+;":
             f"constexpr int kStepThreads = {ACK_THREADS};",
     },
@@ -833,6 +900,70 @@ def rehearse_ack(rows: int, limbs: int, workdir: Path,
     return 1 if bad else 0
 
 
+#: The sweep's rehearsals: tests/ack_plane_cases.py's planes, each with
+#: every array on 16 bytes, then two of them with the byte arrays one byte
+#: off (slot by slot) and with the masks four bytes off (scalar limbs).
+SWEEP_REHEARSALS = tuple(
+    [(slots, limbs, False, 0) for slots, limbs in SWEEP_CASES]
+    + [(CERTIFIED_SLOTS["rehearsal"], 1, True, 0), (8193, 1, False, 1),
+       (8193, 2, False, 2)]
+)
+
+
+def rehearse_sweep(slots: int, limbs: int, workdir: Path,
+                   certified: bool = False, misalign: int = 0) -> int:
+    """The sweep kernel alone on the host (blocks of two warps, at most 8
+    of them, a thread a group of 8 slots, grid-stride past them), twice in
+    a row on one ticket counter, on a seeded plane of
+    tests/ack_plane_cases.py: the ticks and totals of each sweep bit for
+    bit against ``quorum_sweep_plain`` run twice, and the counter back at
+    0 after each."""
+    from ack_plane_cases import (
+        make_sweep_case,
+        sweep_classes,
+        sweep_tensors,
+    )
+
+    from mirbft_tpu_torch.ops import ack_plane
+
+    binary = compile_host_main("ack_plane", SWEEP_MAIN, workdir)
+    case = make_sweep_case(slots * 3 + limbs, slots, limbs,
+                           certified=certified)
+    header = np.array([slots, limbs, case["weak_q"], case["strong_q"],
+                       misalign, 0, 0, 0], dtype=np.int32)
+    blob = b"".join([header.tobytes(), case["agree"].tobytes()] + [
+        case[name].astype(np.uint8).tobytes()
+        for name in ("canon_ok", "flags", "held", "tick")])
+    (workdir / "sweep.in").write_bytes(blob)
+    subprocess.run([str(binary), str(workdir / "sweep.in"),
+                    str(workdir / "sweep.out")], check=True)
+    raw = (workdir / "sweep.out").read_bytes()
+    tensors = sweep_tensors(case)
+    bad = []
+    for rep in range(2):
+        at = rep * (slots + 12)
+        tick = np.frombuffer(raw[at:at + slots], dtype=np.uint8)
+        totals = np.frombuffer(raw[at + slots:at + slots + 12],
+                               dtype=np.uint32)
+        want = ack_plane.quorum_sweep_plain(
+            *tensors, weak_q=case["weak_q"], strong_q=case["strong_q"])
+        if not np.array_equal(tick, tensors[4].numpy().ravel()):
+            bad.append(f"sweep {rep + 1}: tick")
+        if totals.tolist() != want.tolist():
+            bad.append(f"sweep {rep + 1}: totals {totals.tolist()} != "
+                       f"{want.tolist()}")
+    ticket = int(np.frombuffer(raw[-4:], dtype=np.uint32)[0])
+    if ticket:
+        bad.append(f"ticket counter {ticket} after the sweeps")
+    label = ("certified" if certified else "mixed") + (
+        ["", ", byte arrays 1 byte off", ", masks 4 bytes off"][misalign])
+    print(f"ack sweep, {slots} slots x {limbs} limbs ({label}) on the host,"
+          f" twice: classes {sweep_classes(case)}; totals "
+          f"{totals.tolist()}: "
+          + ("tick, totals == plain, counter 0" if not bad else f"{bad}"))
+    return 1 if bad else 0
+
+
 def rehearse_bls(cases: list, workdir: Path, exact: bool = False) -> int:
     """The aggregation kernel on the host, a group of host threads a
     certificate,
@@ -892,6 +1023,9 @@ def main(argv=None) -> int:
                 status |= rehearse_ack(rows, limbs, workdir)
             for rows in ACK_CROSSING_ROWS:
                 status |= rehearse_ack(rows, 1, workdir, crossing=True)
+            for slots, limbs, certified, misalign in SWEEP_REHEARSALS:
+                status |= rehearse_sweep(slots, limbs, workdir, certified,
+                                         misalign)
         if "bls" in args.what:
             from bls_cases import cases, width_cases
 

@@ -14,13 +14,19 @@ import pytest
 import torch
 
 from ack_plane_cases import (
+    CERTIFIED_SLOTS,
     OUTPUTS,
     STATE,
+    SWEEP_CASES,
+    SWEEP_STATE,
     crossing_rows,
     make_case,
     make_crossing_case,
+    make_sweep_case,
     row_classes,
     state_numpy,
+    sweep_classes,
+    sweep_tensors,
     torch_batch,
     torch_state,
 )
@@ -102,6 +108,42 @@ def test_sweep_plain_equals_the_jax_program(mesh, rows, limbs):
     assert totals.tolist() == [int(weak), int(strong), int(committed)]
     assert int(weak) > 0 and int(strong) > 0 and int(committed) > 0
     np.testing.assert_array_equal(state[6].numpy(), np.asarray(tick))
+
+
+SWEEP_PLANES = [(slots, limbs, False) for slots, limbs in SWEEP_CASES] + [
+    (CERTIFIED_SLOTS["rehearsal"], 1, True), (CERTIFIED_SLOTS["card"], 1, True)]
+
+
+@pytest.mark.parametrize(
+    "slots,limbs,certified", SWEEP_PLANES,
+    ids=[f"slots{s}-limbs{l}" + ("-certified" if c else "")
+         for s, l, c in SWEEP_PLANES],
+)
+def test_sweep_plain_equals_the_jax_program_on_the_sweep_planes(
+        mesh, slots, limbs, certified):
+    """The sweep alone on tests/ack_plane_cases.py's sweep planes (slot
+    counts past a multiple of 16, limbs 1 to 4, every slot class; the
+    all-certified planes that give each block of the CUDA grid 4096
+    slots in the rehearsal and on the card), twice in a row: the totals
+    and the rewritten tick equal to the JAX program's each time."""
+    case = make_sweep_case(slots * 3 + limbs, slots, limbs,
+                           certified=certified)
+    kw = dict(c_pad=slots, w_pad=1, limbs=limbs, weak_q=case["weak_q"],
+              strong_q=case["strong_q"])
+    sweep = ref_tracker._build_sweep_kernel(mesh, **kw)
+    if not certified:
+        assert all(sweep_classes(case).values()), sweep_classes(case)
+    arrays = [case[name] for name in SWEEP_STATE]
+    tensors = sweep_tensors(case)
+    for _ in range(2):
+        weak, strong, committed, tick = sweep(*arrays)
+        totals = ack_plane.quorum_sweep(
+            *tensors, weak_q=case["weak_q"], strong_q=case["strong_q"])
+        assert totals.tolist() == [int(weak), int(strong), int(committed)]
+        np.testing.assert_array_equal(tensors[4].numpy(), np.asarray(tick))
+        arrays[4] = np.asarray(tick)
+    if certified:
+        assert totals.tolist() == [slots, slots, 0]
 
 
 @pytest.mark.parametrize("limbs", [1, 3])

@@ -18,6 +18,7 @@ import random
 import pytest
 import torch
 
+from ack_plane_cases import SWEEP_ON_CARD
 from ed25519_corpus import decompression_corpus
 from mirbft_tpu_torch import pb
 from mirbft_tpu_torch.crypto import ed25519_host
@@ -380,6 +381,40 @@ def test_ack_step_adoption_across_the_cluster(card, rows, where):
         True, False, False]
     assert [bool(res["applied"][r]) for r in (first_row, middle, last)] == [
         True, False, True]
+
+
+@pytest.mark.parametrize("slots,limbs,kind", SWEEP_ON_CARD,
+                         ids=[f"slots{s}-limbs{l}-{k}"
+                              for s, l, k in SWEEP_ON_CARD])
+def test_ack_sweep_kernel_equals_plain_twice_one_launch_each(card, slots,
+                                                             limbs, kind):
+    """tests/ack_plane_cases.py's ``SWEEP_ON_CARD`` planes (slots past a
+    multiple of 16, limbs 1-4, the all-certified plane of 4096 slots a
+    block, arrays off 16 bytes): the sweep kernel against its plain
+    version on the same card, twice in a row (the second sweep after the
+    first's ticket reset), the totals and the rewritten tick bit for bit
+    each time, exactly one launch counted a sweep, and the grid the
+    wrapper reports."""
+    from ack_plane_cases import sweep_classes, sweep_on_card
+    from mirbft_tpu_torch.ops import ack_plane
+
+    case, kernel, plain = sweep_on_card(slots * 5 + limbs, slots, limbs,
+                                        kind, card)
+    if kind != "certified":
+        assert all(sweep_classes(case).values())
+    kw = dict(weak_q=case["weak_q"], strong_q=case["strong_q"])
+    blocks, threads, group = ack_plane.sweep_grid(slots, card)
+    assert (threads, group) == (256, 8)
+    assert blocks == min(1024, -(-slots // (threads * group)))
+    for _ in range(2):
+        before = ack_plane.quorum_sweep.launches
+        totals = ack_plane.quorum_sweep(*kernel, **kw)
+        assert ack_plane.quorum_sweep.launches == before + 1
+        want = ack_plane.quorum_sweep_plain(*plain, **kw)
+        assert totals.tolist() == want.tolist()
+        assert torch.equal(kernel[4], plain[4])
+    if kind == "certified":
+        assert totals.tolist() == [slots, slots, 0]
 
 
 def _width_one_tracker(clients: int, device: str, flush_rows: int):

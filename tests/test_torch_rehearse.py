@@ -70,6 +70,27 @@ def test_ack_step_adoption_across_a_threads_rows_on_the_host(gxx, tmp_path,
     assert rehearse_cuda.rehearse_ack(rows, 1, tmp_path, crossing=True) == 0
 
 
+@pytest.mark.parametrize(
+    "slots,limbs,certified,misalign", rehearse_cuda.SWEEP_REHEARSALS,
+    ids=[f"slots{s}-limbs{l}" + ("-certified" if c else "")
+         + ["", "-bytes-off", "-masks-off"][m]
+         for s, l, c, m in rehearse_cuda.SWEEP_REHEARSALS],
+)
+def test_ack_sweep_equals_its_plain_version_twice_on_the_host(
+        gxx, tmp_path, slots, limbs, certified, misalign):
+    """The sweep kernel alone, a thread a group of 8 slots (vector loads
+    where the arrays are aligned, slot by slot in a plane's last
+    part-group and where the byte arrays are not, scalar limbs at 3 limbs
+    and where the masks are not), grid-stride past the rehearsal's 8
+    blocks, each block's partials summed by the block that draws the last
+    ticket: two sweeps in a row on one counter, ticks and totals bit for
+    bit against the plain version each time, the counter back at 0.  The
+    certified plane gives every block 4096 slots, all weak and strong:
+    past the 10-bit fields of the first port's packed counts."""
+    assert rehearse_cuda.rehearse_sweep(slots, limbs, tmp_path, certified,
+                                        misalign) == 0
+
+
 @pytest.mark.parametrize("index", range(4),
                          ids=["edges-4x4", "edges-4x8", "random-4x4",
                               "rung4-4x128"])
