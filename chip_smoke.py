@@ -175,7 +175,33 @@ Phases (any failure raises and the script exits nonzero):
     and caught up through ``TransferEngine``: a snapshot installed, 0
     chunks rejected, its KvStore equal, committed reads served from it.
     Read and write p50/p95/p99, goodput, the transfer's bytes, chunks and
-    wall, and the card's idle share.
+    wall, and the card's idle share;
+18. the observability plane on the card: (a) ``python -m
+    mirbft_tpu_torch.obsv --nodes 4 --trace-dir DIR`` (its entry point, in
+    this process) on the SHA-256 kernel, whose events and phase table
+    (simulated ms) must equal the same run's with ``--device cpu``; its
+    four per-node traces merged onto four lanes and their critical-path
+    ledger one row a committed flow; (b) the live rung's shape on
+    cuda-pipelined with every node traced and serving its exporter on an
+    ephemeral port (``Config.metrics_port=0``, the address back over the
+    node's pipe): while it runs, ``/metrics`` (the SHA-256 kernel's
+    launches, > 0 on every node), ``/status`` and ``/healthz`` on every
+    node, ``/dump`` once (a flight segment on disk) and a 404; after it
+    the four per-process traces merged with the clock offsets of the
+    transport's hellos and ``--critpath`` on the directory, the ledger at
+    least the committed flows less the tracer's evictions; (c) one 50
+    req/s step of phase 16's configuration traced, per-node traces and
+    the loadgen's commit records in one directory, and the critical-path
+    attribution by latency band printed (both Ed25519 kernels and the
+    SHA-256 kernel launched);
+19. the soak (``mirbft_tpu_torch.bench.soak_run``, the JAX package's
+    bench.py:229-245, 1511-1735: 4 nodes over loopback TCP, on-disk WAL
+    and request store, cuda-pipelined, 4 clients, BatchSize 10, a window
+    of 4, 30 s) with the resource sampler on the card: commits, 0
+    divergences, the card's allocator series not empty, 0 failed sampler
+    ticks, 0 frames dropped, every digest on the card; each series' leak
+    verdict; ``obsv --diff`` of its artifact against itself exits 0 and
+    against a copy with one verdict set ``growing`` exits nonzero.
 
 It then prints the kernels as one JSON line, the card's name and power
 limit, and, last, the result line the chip check reads.  Without a CUDA
@@ -1409,6 +1435,329 @@ def service_phases(t0: float) -> dict:
                 ingress_err=ing_err, replayed=sorted(replayed))
 
 
+def http_get(address, path: str) -> tuple:
+    """(status, body) of one GET on a node's exporter; an HTTP error
+    status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    host, port = address
+    try:
+        with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                    timeout=10) as resp:
+            return resp.status, resp.read().decode("utf-8")
+    except urllib.error.HTTPError as err:
+        return err.code, err.read().decode("utf-8")
+
+
+def prom_value(text: str, name: str, **labels) -> float:
+    """The value of one series in a Prometheus text exposition (0 when
+    the series is absent)."""
+    for line in text.splitlines():
+        if not line.startswith(name + "{") and not line.startswith(name + " "):
+            continue
+        head, _, value = line.rpartition(" ")
+        got = dict(re.findall(r'(\w+)="([^"]*)"', head))
+        if all(got.get(k) == v for k, v in labels.items()):
+            return float(value)
+    return 0.0
+
+
+def run_obsv_cli(argv: list) -> tuple:
+    """``python -m mirbft_tpu_torch.obsv ARGV`` in this process (so the
+    wrappers' counts see its launches): (exit code, standard output)."""
+    import contextlib
+
+    from mirbft_tpu_torch.obsv.__main__ import main as obsv_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = obsv_main(argv)
+    return rc, out.getvalue()
+
+
+def engine_table(text: str) -> tuple:
+    """The run line's events and simulated ms, and the phase table, of an
+    ``obsv`` engine run's output."""
+    run = re.search(r"-> (\d+) events, sim (\d+) ms", text)
+    table = text.split("consensus phase latency (simulated ms):\n", 1)[1]
+    return int(run.group(1)), int(run.group(2)), table.split("\n\n", 1)[0]
+
+
+def committed_flows(traces: list) -> int:
+    """Distinct sequence numbers with a ``seq.committed`` milestone."""
+    return len({
+        event["args"]["seq"]
+        for trace in traces for event in trace["traceEvents"]
+        if event.get("ph") == "i" and event.get("name") == "seq.committed"
+    })
+
+
+def epoch_changes(traces: list) -> dict:
+    """Each node's epoch milestones in a run's traces: node -> [(name,
+    epoch, seconds from the run's first event)]."""
+    from mirbft_tpu_torch.obsv.merge import aligned_events
+
+    shifted, _plans = aligned_events(traces)
+    if not shifted:
+        return {}
+    base = min(abs_us for abs_us, _node, _event in shifted)
+    out: dict = {}
+    for abs_us, node, event in sorted(shifted, key=lambda x: x[0]):
+        name = event.get("name", "")
+        if event.get("ph") == "i" and name.startswith("epoch."):
+            out.setdefault(node, []).append(
+                (name, event["args"]["epoch"],
+                 round((abs_us - base) / 1e6, 3)))
+    return out
+
+
+def obsv_phases(t0: float) -> dict:
+    """Phases 18 and 19: the observability plane on the card (the engine
+    CLI, a traced live cluster behind its exporters, a traced ingress step
+    and its critical path), then the soak and its diff gate.  Returns what
+    the kernels line reads."""
+    import copy
+    import shutil
+    import tempfile
+
+    from mirbft_tpu_torch import bench as port_bench
+    from mirbft_tpu_torch.obsv import critpath, merge
+    from mirbft_tpu_torch.ops import ed25519
+    from mirbft_tpu_torch.ops.sha256 import sha256_digest_words
+
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-obsv-"))
+    try:
+        # -- phase 18a: the instrumented engine run, card against CPU ----------
+        runs = {}
+        for device in ("cpu", "cuda"):
+            trace_dir = root / f"engine-{device}"
+            sha256_digest_words.launches = 0
+            began = time.perf_counter()
+            rc, text = run_obsv_cli(["--nodes", "4", "--trace-dir",
+                                     str(trace_dir), "--device", device])
+            check(rc == 0, f"obsv --device {device}: exit {rc}")
+            runs[device] = (engine_table(text), sha256_digest_words.launches,
+                            time.perf_counter() - began, trace_dir)
+        (events, sim_ms, table), engine_launches, engine_s, trace_dir = (
+            runs["cuda"])
+        check(runs["cpu"][0] == runs["cuda"][0],
+              f"obsv: the card's run {runs['cuda'][0]} != the CPU's "
+              f"{runs['cpu'][0]}")
+        check(engine_launches > 0, "obsv: the SHA-256 kernel never launched")
+        paths = sorted(trace_dir.glob("node*.trace.json"))
+        traces = [json.loads(p.read_text()) for p in paths]
+        merged = merge.merge_files(paths, out_path=root / "engine.json")
+        lanes = {e["pid"] for e in merged["traceEvents"] if e.get("ph") != "M"}
+        flows = committed_flows(traces)
+        ledger = critpath.build_ledger(traces)
+        check(len(paths) == 4 and lanes == {0, 1, 2, 3},
+              f"obsv: merged lanes {lanes} of {len(paths)} traces")
+        check(len(ledger) == flows > 0,
+              f"obsv: {len(ledger)} ledger rows for {flows} committed flows")
+        for line in table.splitlines():
+            print(f"  {line}")
+        print(f"phase 18a ok: python -m mirbft_tpu_torch.obsv --nodes 4 on "
+              f"the card: {events} events, sim {sim_ms} ms, the phase table "
+              f"(simulated ms) equal to --device cpu's; {engine_launches} "
+              f"SHA-256 launches in {engine_s:.3f} s (the CPU run "
+              f"{runs['cpu'][2]:.3f} s); 4 per-node traces merged into "
+              f"{len(merged['traceEvents'])} events on lanes {sorted(lanes)};"
+              f" ledger {len(ledger)} rows = {flows} committed flows "
+              f"(done at {time.perf_counter() - t0:.1f} s)")
+
+        # -- phase 18b: the live rung traced, behind its exporters -------------
+        live_dir = root / "live"
+        live_dir.mkdir()
+
+        def scrape(addresses):
+            got = {n: {path: http_get(address, path)
+                       for path in ("/metrics", "/status", "/healthz")}
+                   for n, address in sorted(addresses.items())}
+            got["dump"] = http_get(addresses[0], "/dump")
+            got["missing"] = http_get(addresses[0], "/missing")
+            return got
+
+        live = port_bench.live_cluster_rate(
+            "cuda-pipelined", device="cuda", trace_dir=str(live_dir),
+            on_running=scrape)
+        scraped = live["scraped"]
+        check(scraped is not None, "live traced: the run ended before the "
+              "endpoints were read")
+        scraped_launches = {}
+        for n in range(port_bench.LIVE.nodes):
+            code, text = scraped[n]["/metrics"]
+            check(code == 200, f"live node {n}: /metrics {code}")
+            scraped_launches[n] = prom_value(
+                text, "mirbft_crypto_flush_total", plane="hash", path="device")
+            code, text = scraped[n]["/status"]
+            check(code == 200 and "epoch_tracker" in text,
+                  f"live node {n}: /status {code} {text[:80]!r}")
+            code, text = scraped[n]["/healthz"]
+            check(code == 200 and json.loads(text) == {
+                "ok": True, "ready": True, "node_id": n},
+                  f"live node {n}: /healthz {code} {text!r}")
+        check(all(v > 0 for v in scraped_launches.values()),
+              f"live traced: SHA-256 launches on /metrics {scraped_launches}")
+        code, text = scraped["dump"]
+        dump_path = json.loads(text).get("path") if code == 200 else None
+        check(dump_path is not None and Path(dump_path).exists(),
+              f"live node 0: /dump {code} {text!r}")
+        check(scraped["missing"][0] == 404,
+              f"live node 0: an unknown path gave {scraped['missing'][0]}")
+        live_merged = merge.merge_files(live["traces"],
+                                        out_path=live_dir / "merged.json")
+        live_lanes = {e["pid"] for e in live_merged["traceEvents"]
+                      if e.get("ph") != "M"}
+        check(live_lanes == set(range(port_bench.LIVE.nodes)),
+              f"live traced: merged lanes {live_lanes}")
+        rc, text = run_obsv_cli(["--critpath", str(live_dir)])
+        check(rc == 0, f"live traced: obsv --critpath exit {rc}")
+        live_ledger, n_traces = critpath.ledger_from_dir(str(live_dir))
+        live_flows = max(live["committed_seqs"])
+        evicted = sum(live["abandoned_flows"])
+        check(n_traces == port_bench.LIVE.nodes
+              and len(live_ledger) >= live_flows - evicted,
+              f"live traced: {len(live_ledger)} ledger rows from {n_traces} "
+              f"traces, {live_flows} committed flows, {evicted} evicted")
+        live_launches = live["wrapper_launches"]
+        check(live_launches == live["launches"] > 0,
+              f"live traced: wrappers {live_launches}, processors "
+              f"{live['launches']}")
+        for line in text.splitlines()[2:-1]:
+            print(f"  {line}")
+        # The nodes share this host's CLOCK_MONOTONIC, so the exact offsets
+        # are 0; the hellos' estimates absorb each hello's latency.
+        same_clock = []
+        for path in live["traces"]:
+            trace = json.loads(Path(path).read_text())
+            for event in trace["traceEvents"]:
+                if event.get("ph") == "M" and event.get("name") == "clock_sync":
+                    event["args"]["offsets_ns"] = {
+                        peer: 0 for peer in event["args"]["offsets_ns"]}
+            same_clock.append(trace)
+        print("  live traced, the same ledger with every offset 0 (one host, "
+              "one clock):")
+        for line in critpath.attribution_table(critpath.attribute(
+                critpath.build_ledger(same_clock))).splitlines():
+            print(f"  {line}")
+        print(f"  live traced: clock offsets (ns, the hellos' estimates; one "
+              f"host) {live['clock_offsets_ns']}; SHA-256 launches on "
+              f"/metrics at {port_bench.LIVE_SCRAPE_AFTER_S} s "
+              f"{ {n: int(v) for n, v in scraped_launches.items()} }; /dump "
+              f"wrote {dump_path}")
+        print(f"phase 18b ok: the live rung on cuda-pipelined, traced, "
+              f"{live['rate']:.3f} req/s to the "
+              f"{port_bench.LIVE.target_commits}th commit, p95 "
+              f"{live['p95_ms']:.3f} ms, frames dropped "
+              f"{live['frames_dropped']}; /metrics, /status, /healthz on "
+              f"every node, /dump once, 404 past them; 4 traces merged into "
+              f"{len(live_merged['traceEvents'])} events; ledger "
+              f"{len(live_ledger)} rows >= {live_flows} committed flows - "
+              f"{evicted} evicted; {live_launches} SHA-256 launches "
+              f"(done at {time.perf_counter() - t0:.1f} s)")
+
+        # -- phase 18c: one traced 50 req/s ingress step, its critical path ----
+        ing_dir = root / "ingress"
+        ing_dir.mkdir()
+        sha256_digest_words.launches = 0
+        ed25519.decompress.launches = ed25519.ladder.launches = 0
+        ing = port_bench.ingress_run(device="cuda", rates=(50.0,),
+                                     trace_dir=str(ing_dir))
+        ing_launches = {
+            "sha256_digest": sha256_digest_words.launches,
+            "ed25519_decompress": ed25519.decompress.launches,
+            "ed25519_ladder": ed25519.ladder.launches,
+        }
+        step = ing["steps"][0]["step"]
+        check(step.committed > 0 and step.timed_out == 0,
+              f"ingress traced: committed {step.committed}, timed out "
+              f"{step.timed_out}")
+        check(all(v > 0 for v in ing_launches.values())
+              and ing["host_digests"] == 0
+              and ing_launches["sha256_digest"] == ing["hash_launches"],
+              f"ingress traced: launches {ing_launches}, digests host "
+              f"{ing['host_digests']} in {ing['hash_launches']} launches")
+        check(all(s["verify_errors"] == 0 and s["dropped_overflow"] == 0
+                  for s in ing["ingress"].values()),
+              f"ingress traced: {ing['ingress']}")
+        rc, text = run_obsv_cli(["--critpath", str(ing_dir)])
+        check(rc == 0, f"ingress traced: obsv --critpath exit {rc}")
+        ing_ledger, _ = critpath.ledger_from_dir(str(ing_dir))
+        attribution = critpath.attribute(ing_ledger)
+        check(len(ing_ledger) >= len(step.records) - ing["abandoned_flows"]
+              and attribution,
+              f"ingress traced: {len(ing_ledger)} ledger rows for "
+              f"{len(step.records)} commits, {ing['abandoned_flows']} "
+              "evicted")
+        for line in critpath.attribution_table(attribution).splitlines():
+            print(f"  {line}")
+        tail = [b for b in attribution if b["band"] in ("p95-p99", "p99-p100")]
+        ing_traces = [json.loads(p.read_text())
+                      for p in sorted(ing_dir.glob("trace*.json"))]
+        for node, changes in sorted(epoch_changes(ing_traces).items()):
+            print(f"  ingress traced, node {node} epoch milestones (name, "
+                  f"epoch, s from the first event): {changes}")
+        print(f"  ingress traced, the p95 and above: "
+              f"{[(b['band'], b['count'], round(b['total_us_mean']), b['dominant_phase'], b['dominant_node']) for b in tail]}; "
+              f"the nodes' epochs after it {ing['steps'][0]['epochs']}")
+        print(f"phase 18c ok: one 50 req/s step of phase 16's configuration "
+              f"traced: {step.committed} committed, p50 {step.p50_ms:.3f} ms "
+              f"p95 {step.p95_ms:.3f} ms; ledger {len(ing_ledger)} rows of "
+              f"{len(step.records)} commits joined to the 4 nodes' "
+              f"milestones; launches {ing_launches} "
+              f"(done at {time.perf_counter() - t0:.1f} s)")
+
+        # -- phase 19: the soak and the diff gate -------------------------------
+        sha256_digest_words.launches = 0
+        soak = port_bench.soak_run()
+        soak_launches = sha256_digest_words.launches
+        check(soak["commits"] > 0, "soak: nothing committed")
+        check(soak["divergence"] == 0,
+              f"soak: {soak['divergence']} divergences")
+        check(soak["device_samples"] > 0,
+              "soak: the card's allocator series is empty")
+        check(soak["failed_ticks"] == 0,
+              f"soak: {soak['failed_ticks']} failed sampler ticks, last "
+              f"{soak['last_error']}")
+        check(sum(soak["frames_dropped"]) == 0,
+              f"soak: frames dropped {soak['frames_dropped']}")
+        check(soak["host_digests"] == 0
+              and soak_launches == soak["launches"] > 0,
+              f"soak: launches {soak_launches}, processors "
+              f"{soak['launches']}, host digests {soak['host_digests']}")
+        for name, verdict in sorted(soak["leak"].items()):
+            print(f"  soak {name}: {verdict['verdict']} (confidence "
+                  f"{verdict['confidence']:.3f}, {verdict['rel_pct_per_min']:.3f}"
+                  f" %/min, r2 {verdict['r2']:.3f}, n {verdict['n']}, "
+                  f"first {verdict['first']}, last {verdict['last']})")
+        clean = root / "soak.json"
+        clean.write_text(json.dumps({"soak": soak}))
+        rc_clean, _ = run_obsv_cli(["--diff", str(clean), str(clean)])
+        bad = copy.deepcopy(soak)
+        first = sorted(bad["leak"])[0]
+        bad["leak"][first]["verdict"] = "growing"
+        grown = root / "soak-growing.json"
+        grown.write_text(json.dumps({"soak": bad}))
+        rc_grown, text = run_obsv_cli(["--diff", str(clean), str(grown)])
+        check(rc_clean == 0, f"soak: obsv --diff on itself exit {rc_clean}")
+        check(rc_grown != 0 and "LEAK" in text,
+              f"soak: obsv --diff with {first} growing exit {rc_grown}")
+        print(f"phase 19 ok: the soak, {port_bench.SOAK_NODES} nodes on "
+              f"cuda-pipelined over loopback TCP with on-disk stores, "
+              f"{soak['seconds']} s: {soak['commits']} commits, "
+              f"{soak['samples']} samples ({soak['device_samples']} of the "
+              f"card's allocator), 0 failed ticks, 0 divergences, 0 frames "
+              f"dropped; {soak_launches} SHA-256 launches, "
+              f"{soak['device_digests']} digests; obsv --diff exit 0 on "
+              f"itself, {rc_grown} with {first} set growing "
+              f"(done at {time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(engine=engine_launches, live=live_launches,
+                ingress=ing_launches, soak=soak_launches)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="PATH",
@@ -2312,6 +2661,7 @@ def main() -> int:
 
     bls = bls_phases(sms, t0)
     service = service_phases(t0)
+    observed = obsv_phases(t0)
 
     head = per_shape[0]
     kernels = [{
@@ -2324,6 +2674,10 @@ def main() -> int:
         "launches_live": live_launches,
         "launches_ingress": service["ingress_launches"]["sha256_digest"],
         "launches_app": service["app_launches"]["sha256_digest"],
+        "launches_obsv_engine": observed["engine"],
+        "launches_live_traced": observed["live"],
+        "launches_ingress_traced": observed["ingress"]["sha256_digest"],
+        "launches_soak": observed["soak"],
         "live_shapes": [
             [*shape, n] for shape, n in sorted(live_shapes.items())
         ],
@@ -2354,6 +2708,7 @@ def main() -> int:
             "replaces": replaces,
             "launches": rung3_launches[name],
             "launches_ingress": service["ingress_launches"][name],
+            "launches_ingress_traced": observed["ingress"][name],
             "ingress_rows_replayed": service["replayed"],
             "matched_plain": ed_err == 0 and service["ingress_err"] == 0,
             "max_abs_err": max(ed_err, service["ingress_err"]),

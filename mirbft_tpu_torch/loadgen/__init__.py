@@ -18,9 +18,9 @@
 - ``kv``: ``KvWorkload`` drives the replicated KV service's own API
   (mixed reads/writes per ClientModel) and reports the user-visible
   read/write latency split (docs/APP.md).
-
-The JAX package's ``knee`` (the capacity search) is not ported yet: it
-needs ``obsv/critpath.py`` (ROADMAP queue 1).
+- ``knee``: the capacity search — ramp + binary-search the max
+  sustainable rate whose p95 meets the SLO, emitting the
+  ``mirbft-capacity/1`` artifact the diff gate tracks PR-over-PR.
 
 ``InProcessCluster`` runs its nodes on the ``cuda-pipelined`` processor
 on ``cuda`` unless the caller passes ``device="cpu"`` (the digest
@@ -39,6 +39,7 @@ from .clients import (  # noqa: F401
 )
 from .generator import LoadGenerator, StepResult, percentile_ms  # noqa: F401
 from .inproc import InProcessCluster  # noqa: F401
+from .knee import KneeResult, find_knee  # noqa: F401
 from .kv import KvStepResult, KvWorkload  # noqa: F401
 from .slo import (  # noqa: F401
     SCHEMA,

@@ -15,12 +15,11 @@ and rotated over a small fixed set of names, so:
   a worker that is killed with no chance to run cleanup leaves a
   recent segment behind for the supervisor to reap.
 
-``postmortem(<dir>)`` loads every node's newest segment and converts
-each to a Chrome trace carrying the same ``clock_sync`` metadata the live
-tracer emits, for ``obsv/merge.py`` to join into one cross-node,
-clock-aligned causal timeline ending at the failure.  The trace merger is
-not ported yet (ROADMAP queue 1, item 1): ``postmortem`` raises there,
-after loading and converting the dumps.
+``python -m mirbft_tpu_torch.obsv --postmortem <dir>`` loads every node's
+newest segment, converts each to a Chrome trace carrying the same
+``clock_sync`` metadata the live tracer emits, and routes them through
+``obsv/merge.py`` — one cross-node, clock-aligned causal timeline
+ending at the failure.
 """
 
 from __future__ import annotations
@@ -306,16 +305,6 @@ def annotate_dump(path, **extra):
     return True
 
 
-def merge_traces(traces):
-    """Join per-node traces into one clock-aligned timeline: the JAX
-    package's ``obsv/merge.py``, which is not ported yet."""
-    raise NotImplementedError(
-        "obsv/merge.py (the trace merger) is not ported yet (ROADMAP "
-        "queue 1, item 1): the flight dumps load and convert, but do not "
-        "merge"
-    )
-
-
 def render_timeline(merged, limit=200):
     """Human-readable tail of a merged postmortem trace.
 
@@ -350,13 +339,13 @@ def postmortem(dump_dir, out_path=None, limit=200):
 
     Returns ``{"nodes", "dumps", "merged", "timeline"}``; writes the
     merged Chrome trace to ``out_path`` when given.  Raises
-    FileNotFoundError when the directory holds no parseable dumps, and
-    NotImplementedError while the trace merger (``obsv/merge.py``) is not
-    ported.
+    FileNotFoundError when the directory holds no parseable dumps.
     """
     dumps = load_dumps(dump_dir)
     if not dumps:
         raise FileNotFoundError(f"no flight dumps under {dump_dir!r}")
+    from .merge import merge_traces
+
     ordered = sorted(dumps.items(), key=lambda item: str(item[0]))
     traces = [dump_to_trace(dump) for _node, (_path, dump) in ordered]
     merged = merge_traces(traces)

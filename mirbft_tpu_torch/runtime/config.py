@@ -60,9 +60,9 @@ class Config:
     # Optional callable(state_event) invoked inside the serializer before
     # each event application (the tracing hook).
     event_interceptor: object = None
-    # HTTP observability endpoint (GET /metrics, /status, /healthz).
-    # The exporter (obsv/exporter.py) is not ported yet: a Node built
-    # with a port set raises NotImplementedError.
+    # HTTP observability endpoint (GET /metrics, /status, /healthz, /dump).
+    # Off by default; set a port to serve (0 binds an ephemeral port,
+    # read back via Node.metrics_address).  See obsv/exporter.py.
     metrics_port: int | None = None
     metrics_host: str = "127.0.0.1"
     # Action-executor selection for runtime embedders that build their

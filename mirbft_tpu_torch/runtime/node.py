@@ -7,9 +7,6 @@ through one queue into the single protocol thread, which owns the
 StateMachine exclusively.  Accumulated Actions are handed to the consumer
 through a one-slot outbox; each handoff is marked with an ActionsReceived
 event so recorded logs tie results to the actions that caused them.
-
-Not ported yet, and raising ``NotImplementedError`` where asked for: the
-HTTP exporter (``Config.metrics_port``; ROADMAP queue 1, item 1).
 """
 
 from __future__ import annotations
@@ -131,11 +128,6 @@ class Node:
     """Thread-safe facade over the serializer thread."""
 
     def __init__(self, config: Config, wal_storage, req_storage):
-        if config.metrics_port is not None:
-            raise NotImplementedError(
-                "Config.metrics_port: the HTTP exporter (obsv/exporter.py) "
-                "is not ported yet (ROADMAP queue 1, item 1)"
-            )
         self.config = config
         self._inbox: queue.Queue = queue.Queue()
         self._outbox: queue.Queue = queue.Queue(maxsize=1)
@@ -163,6 +155,18 @@ class Node:
             )
         self._waiters: list[_Waiter] = []
         self.app_stream = None  # set by attach_app
+        self._exporter = None
+        if config.metrics_port is not None:
+            from ..obsv.exporter import ObsvExporter
+
+            self._exporter = ObsvExporter(
+                host=config.metrics_host,
+                port=config.metrics_port,
+                registry_fn=self._live_registry,
+                status_fn=self._status_json,
+                node_id=config.id,
+                dump_fn=self._flight_dump,
+            )
         self._wal_storage = wal_storage
         self._req_storage = req_storage
         self._thread = threading.Thread(
@@ -312,7 +316,7 @@ class Node:
 
     def stop(self) -> None:
         """Idempotent, concurrency-safe shutdown: the first caller tears
-        down (serializer joined); later and concurrent
+        down (serializer joined, exporter closed); later and concurrent
         callers wait for that teardown rather than racing it."""
         with self._stop_lock:
             if not self._stop_done:
@@ -322,6 +326,7 @@ class Node:
                 # sentinel must always reach the serializer.
                 self._inbox.put(("stop",))
             self._thread.join(timeout=10)
+            self._close_exporter()
             if self.app_stream is not None:
                 self.app_stream.close()
 
@@ -353,6 +358,44 @@ class Node:
             "retired": machine.retired,
             "pending": pending,
         }
+
+    @property
+    def metrics_address(self):
+        """``(host, port)`` of the HTTP endpoint, or None when disabled."""
+        return self._exporter.address if self._exporter is not None else None
+
+    def set_ready(self, ready: bool) -> None:
+        """Flip the /healthz readiness flag (no-op without an exporter).
+        A cluster worker reports not-ready between boot and transport
+        wiring so a supervisor's handshake observes a true mesh."""
+        if self._exporter is not None:
+            self._exporter.ready = ready
+
+    # -- HTTP endpoint plumbing (runs on exporter request threads) -----------
+
+    def _live_registry(self):
+        return hooks.metrics if hooks.enabled else None
+
+    def _status_json(self):
+        if self._stopped.is_set():
+            return None
+        try:
+            status = self.status(timeout=2.0)
+        except NodeStopped:
+            return None
+        return status.to_json() if status is not None else None
+
+    def _flight_dump(self, reason="endpoint"):
+        """Flush the wired flight recorder; None when none is wired
+        (the exporter maps that to 503)."""
+        recorder = hooks.recorder if hooks.enabled else None
+        if recorder is None:
+            return None
+        return recorder.flush(reason)
+
+    def _close_exporter(self):
+        if self._exporter is not None:
+            self._exporter.close()
 
     def _put(self, item) -> None:
         if self._stopped.is_set() and item[0] != "stop":
@@ -529,6 +572,9 @@ class Node:
             self._stopped.set()
             for waiter in self._waiters:
                 waiter.expired.set()
+            # Serializer death (clean stop or crash) takes the scrape
+            # surface down with it.
+            self._close_exporter()
 
     def _flush_outbox(self, actions) -> None:
         from ..core.actions import Actions

@@ -744,10 +744,21 @@ def test_kv_workload_step_feeds_slo_artifact_and_diff(tmp_path):
         assert key in entry, key
     assert doc["meta"]["cluster"] == "inproc"
 
-    # The JAX package's slo.artifact makes the same document of the step
-    # (its obsv --diff reads it; the port's obsv/diff.py is not ported).
+    # The JAX package's slo.artifact makes the same document of the step.
     ref_doc = ref_slo.artifact([step], cluster="inproc", nodes=4, sessions=2)
     assert doc == ref_doc
+
+    # The bench payload embeds the doc under loadgen_app; obsv --diff
+    # must flatten the read/write splits into gated series, as the JAX
+    # package's does (exactly).
+    from mirbft_tpu.obsv.diff import extract_series as ref_extract_series
+    from mirbft_tpu_torch.obsv.diff import extract_series
+
+    series = extract_series({"unit": 1.0, "loadgen_app": doc})
+    assert series == ref_extract_series({"unit": 1.0, "loadgen_app": doc})
+    assert "loadgen_app.step.kv-smoke.read_p50_ms" in series
+    assert "loadgen_app.step.kv-smoke.write_p99_ms" in series
+    assert "loadgen_app.step.kv-smoke.write_goodput_per_sec" in series
 
 
 # ---------------------------------------------------------------------------

@@ -379,13 +379,26 @@ def test_recorder_ring_keeps_the_newest_and_counts_at_flush(tmp_path):
     assert dump_to_trace(dump) == ref_recorder.dump_to_trace(dump)
 
 
-def test_postmortem_loads_dumps_then_names_the_missing_merger(tmp_path):
-    for node in (0, 1):
+def test_postmortem_merges_four_nodes_dumps(tmp_path):
+    """``postmortem`` loads every node's newest dump, converts each with
+    its clock offsets and merges them onto one lane a node, as the JAX
+    package's does on the same dumps (exactly)."""
+    for node in range(4):
         rec = FlightRecorder(node, dump_dir=str(tmp_path), autoflush_every=0)
+        rec.set_clock_offsets({peer: 250 * node for peer in range(4)
+                               if peer != node})
         rec.record_milestone("commit", args={"seq": node})
+        rec.record_event("apply", args={"seq": node})
         rec.flush()
-    assert set(load_dumps(str(tmp_path))) == {0, 1}
-    with pytest.raises(NotImplementedError, match="queue 1, item 1"):
-        postmortem(str(tmp_path))
+    assert set(load_dumps(str(tmp_path))) == {0, 1, 2, 3}
+    out = tmp_path / "merged.json"
+    result = postmortem(str(tmp_path), out_path=str(out))
+    ref = ref_recorder.postmortem(str(tmp_path))
+    assert result["nodes"] == ref["nodes"] == [0, 1, 2, 3]
+    assert result["merged"] == ref["merged"] == json.loads(out.read_text())
+    assert result["timeline"] == ref["timeline"]
+    lanes = {e["pid"] for e in result["merged"]["traceEvents"]
+             if e.get("ph") == "i"}
+    assert lanes == {0, 1, 2, 3}
     with pytest.raises(FileNotFoundError):
         postmortem(str(tmp_path / "empty"))

@@ -20,6 +20,7 @@ from mirbft_tpu_torch.core import device_tracker
 from mirbft_tpu_torch.core.state_machine import StateMachine
 from mirbft_tpu_torch.crypto import ed25519_host
 from mirbft_tpu_torch.crypto import qc as port_qc
+from mirbft_tpu_torch.obsv.__main__ import main as obsv_main
 from mirbft_tpu_torch.ops import bls_g1 as port_bls_g1
 from mirbft_tpu_torch.ops import ed25519 as port_ed25519
 from mirbft_tpu_torch.ops import sha256 as port_sha256
@@ -189,6 +190,8 @@ def _cluster(**kw):
         lambda: _cluster(app="kv"),
         port_bench.ingress_run,
         port_bench.app_run,
+        lambda: obsv_main(["--nodes", "1", "--clients", "1", "--reqs", "1"]),
+        lambda: port_bench.soak_run(0.5),
     ],
     ids=[
         "kernel_plane", "sha256_many", "sha256_chunked", "to_tensors",
@@ -198,7 +201,7 @@ def _cluster(**kw):
         "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
         "default_config_processor", "batch_verifier", "kernel_authority",
         "inprocess_cluster", "inprocess_kv_cluster", "ingress_run",
-        "app_run",
+        "app_run", "obsv_cli_run", "soak_run",
     ],
 )
 def test_entry_points_raise_without_a_card(no_card, entry):
@@ -232,6 +235,9 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         lambda: _processor(device="cpu"),
         lambda: signing.batch_verifier("cpu"),
         lambda: _cluster(device="cpu"),
+        lambda: obsv_main(["--nodes", "1", "--clients", "1", "--reqs", "1",
+                           "--device", "cpu"]),
+        lambda: port_bench.soak_run(0.5, 0.1, device="cpu"),
     ],
     ids=[
         "kernel_plane", "sha256_many", "to_tensors", "recorder",
@@ -240,6 +246,7 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "sha256_chain_checksum", "kernel_microbench", "microbench_warmup",
         "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
         "default_config_processor", "batch_verifier", "inprocess_cluster",
+        "obsv_cli_run", "soak_run",
     ],
 )
 def test_entry_points_run_on_the_cpu_when_asked(no_card, entry):

@@ -458,15 +458,46 @@ def test_build_processor_kinds_and_tpu_names(tmp_path):
         store.close()
 
 
-@pytest.mark.parametrize(
-    "knob, item",
-    [({"metrics_port": 0}, "1")],
-    ids=["metrics_port"],
-)
-def test_unported_node_features_raise(knob, item):
-    state = standard_initial_network_state(1, [1])
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Node.start_new(Config(id=0, **knob), state)
+def test_metrics_port_serves_the_exporter():
+    """``Config.metrics_port=0`` starts the exporter on an ephemeral port:
+    ``/metrics``, ``/status``, ``/healthz`` and a 404 answer as the JAX
+    node's do, and ``stop()`` closes the socket."""
+    import json
+    import socket
+    import urllib.error
+    import urllib.request
+
+    from mirbft_tpu_torch.obsv import hooks as port_hooks
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(f"http://{host}:{port}{path}",
+                                        timeout=5) as resp:
+                return resp.status, resp.read().decode("utf-8")
+        except urllib.error.HTTPError as err:
+            return err.code, ""
+
+    metrics, _ = port_hooks.enable()
+    node = None
+    try:
+        metrics.counter("mirbft_wal_appends_total").inc(3)
+        node = Node.start_new(Config(id=0, metrics_port=0),
+                              standard_initial_network_state(1, [0]))
+        host, port = node.metrics_address
+        code, text = get("/metrics")
+        assert code == 200 and "mirbft_wal_appends_total 3" in text
+        code, text = get("/status")
+        assert code == 200 and json.loads(text)
+        code, text = get("/healthz")
+        assert code == 200
+        assert json.loads(text) == {"ok": True, "ready": True, "node_id": 0}
+        assert get("/nope")[0] == 404
+    finally:
+        port_hooks.disable()
+        if node is not None:
+            node.stop()
+    with pytest.raises(OSError):
+        socket.create_connection((host, port), timeout=1).close()
 
 
 def test_shadow_stride_wires_the_divergence_oracle():
