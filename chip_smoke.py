@@ -1570,8 +1570,17 @@ def obsv_phases(t0: float) -> dict:
         live_dir = root / "live"
         live_dir.mkdir()
 
+        status_s = {}  # each node's /status round trip
+
+        def timed_get(n, address, path):
+            began = time.perf_counter()
+            answer = http_get(address, path)
+            if path == "/status":
+                status_s[n] = round(time.perf_counter() - began, 6)
+            return answer
+
         def scrape(addresses):
-            got = {n: {path: http_get(address, path)
+            got = {n: {path: timed_get(n, address, path)
                        for path in ("/metrics", "/status", "/healthz")}
                    for n, address in sorted(addresses.items())}
             got["dump"] = http_get(addresses[0], "/dump")
@@ -1651,7 +1660,8 @@ def obsv_phases(t0: float) -> dict:
               f"{port_bench.LIVE.target_commits}th commit, p95 "
               f"{live['p95_ms']:.3f} ms, frames dropped "
               f"{live['frames_dropped']}; /metrics, /status, /healthz on "
-              f"every node, /dump once, 404 past them; 4 traces merged into "
+              f"every node (/status round trips s {status_s}), /dump once, "
+              f"404 past them; 4 traces merged into "
               f"{len(live_merged['traceEvents'])} events; ledger "
               f"{len(live_ledger)} rows >= {live_flows} committed flows - "
               f"{evicted} evicted; {live_launches} SHA-256 launches "
@@ -1756,6 +1766,221 @@ def obsv_phases(t0: float) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     return dict(engine=engine_launches, live=live_launches,
                 ingress=ing_launches, soak=soak_launches)
+
+
+def chaos_reference():
+    """tests/chaos_reference.py: the JAX package's deterministic chaos
+    campaign at seed 0, pinned (rows and breaker walks)."""
+    tests = str(Path(__file__).resolve().parent / "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import chaos_reference
+
+    return chaos_reference
+
+
+CHAOS_WORDS = 6  # words of a violation the pin keeps
+#: The live campaigns' one classified failure (ROADMAP queue 3): the
+#: rebooted node catches up without a chunk from its corrupting donor.
+LIVE_CLASSIFIED = {
+    "transfer-corrupt-stream": "transfer attack touched no frames (vacuous)",
+}
+SIGNED_SCENARIOS = ("corrupt-propose-signed", "signed-verifier-dies")
+
+
+def chaos_launches() -> dict:
+    """``chaos.runner.kernel_launches()`` under the kernels line's names."""
+    from mirbft_tpu_torch.chaos.runner import kernel_launches
+
+    got = kernel_launches()
+    return {"sha256_digest": got["launches_sha256"],
+            "ed25519_decompress": got["launches_ed25519_decompress"],
+            "ed25519_ladder": got["launches_ed25519_ladder"],
+            "bls_aggregate": got["launches_bls_g1"]}
+
+
+def chaos_row(result) -> tuple:
+    return (result.passed, result.events, result.sim_ms, result.commits,
+            " ".join(result.violation.split()[:CHAOS_WORDS]))
+
+
+def chaos_table(title: str, results, wall_s: float, live: bool) -> None:
+    print(f"  {title} ({wall_s:.3f} s): scenario, verdict, events, "
+          f"{'wall ms' if live else 'sim ms'}, commits, launches sha256 / "
+          "decompress / ladder / bls")
+    for r in results:
+        c = r.counters
+        print(f"    {r.name:<30} {'ok  ' if r.passed else 'FAIL'} "
+              f"{r.events:>6} {r.sim_ms:>7} {r.commits:>5}  "
+              f"{c['launches_sha256']} / {c['launches_ed25519_decompress']} / "
+              f"{c['launches_ed25519_ladder']} / {c['launches_bls_g1']}"
+              + (f" per node {c['digest_launches']}" if live else "")
+              + (f" [{r.violation[:90]}]" if r.violation else ""))
+
+
+def chaos_phases(t0: float) -> dict:
+    """Phases 20-21: the chaos campaign on the card, and the live flood
+    A/B.  Returns each kernel's launches in each phase."""
+    import dataclasses
+
+    from mirbft_tpu_torch import bench as port_bench
+    from mirbft_tpu_torch.chaos import (
+        adversary_matrix,
+        live_adversary_matrix,
+        live_matrix,
+        live_smoke_matrix,
+        matrix,
+        run_campaign,
+        run_live_campaign,
+        run_scenario,
+    )
+    from mirbft_tpu_torch.chaos.runner import zero_kernel_launches
+    from mirbft_tpu_torch.chaos.scenarios import SLOW_TIMEOUT_S, _flaky_plane
+    from mirbft_tpu_torch.testengine.crypto_plane import DevicePlaneError
+
+    pin = chaos_reference()
+
+    # -- phase 20a-b: the deterministic matrices, pinned, on the kernels ------
+    zero_kernel_launches()
+    det = {}
+    for label, scenarios, rows in (
+        ("matrix", matrix(), pin.MATRIX),
+        ("adversary_matrix", adversary_matrix(), pin.ADVERSARY),
+    ):
+        start = time.perf_counter()
+        campaign = run_campaign(scenarios, seed=0, device="cuda")
+        wall = time.perf_counter() - start
+        chaos_table(f"phase 20a {label}() at seed 0 on the card",
+                    campaign.results, wall, live=False)
+        got = {r.name: chaos_row(r) for r in campaign.results}
+        want = {name: pin.LATE_DIGEST.get(name, row)
+                for name, row in rows.items()}
+        check(got == want, f"chaos {label}: rows differ from the pin: "
+              f"{ {n: (got.get(n), w) for n, w in want.items() if got.get(n) != w} }")
+        for r in campaign.results:
+            c = r.counters
+            # The fallback counters are 0 by construction (the planes have
+            # no host route); the gate holds the port to it.
+            check(c["host_digests"] == 0
+                  and c.get("fallback_digests", 0) == 0
+                  and c.get("sig_fallbacks", 0) == 0,
+                  f"chaos {r.name}: host digests {c['host_digests']}, "
+                  f"fallbacks {c.get('fallback_digests')} "
+                  f"{c.get('sig_fallbacks')}")
+            # A short read is a real launch the plane does not keep.
+            check(c["launches_sha256"] >= c["digest_launches"] > 0,
+                  f"chaos {r.name}: SHA-256 launches {c['launches_sha256']}"
+                  f", plane {c['digest_launches']}")
+            if r.name in SIGNED_SCENARIOS:
+                check(c["launches_ed25519_ladder"] > 0
+                      and c["launches_ed25519_decompress"] > 0,
+                      f"chaos {r.name}: no Ed25519 launch")
+            if r.name == "forged-aggregate-cert":
+                check(c["launches_bls_g1"] > 0,
+                      f"chaos {r.name}: no BLS launch")
+            if r.name in pin.BREAKER:
+                prefix = "sig_" if r.name == "signed-verifier-dies" else ""
+                walk = {"trips": c[f"{prefix}breaker_trips"],
+                        "probes": c[f"{prefix}breaker_probes"],
+                        "state": c[f"{prefix}breaker"],
+                        "errors": c[f"{prefix}device_errors"],
+                        "timeouts": c.get(f"{prefix}device_timeouts", 0)}
+                check(walk == pin.BREAKER[r.name],
+                      f"chaos {r.name}: breaker walk {walk}, pinned "
+                      f"{pin.BREAKER[r.name]}")
+                retries = c[f"{prefix}device_retries"]
+                if r.name in ("device-digest-dies",
+                              "device-digest-short-read",
+                              "signed-verifier-dies"):
+                    check(retries > 0, f"chaos {r.name}: no retry")
+                print(f"  phase 20b {r.name}: breaker {walk}, "
+                      f"{retries} rows re-launched on the kernel, 0 host")
+        det[label] = len(campaign.results)
+    det_launches = chaos_launches()
+    print(f"phase 20a-b ok: {det['matrix']} + {det['adversary_matrix']} "
+          f"scenarios equal the JAX campaign's pinned rows (the two "
+          f"reference failures included), the device faults ridden out on "
+          f"the kernels with the pinned breaker walks (hang deadline "
+          f"{SLOW_TIMEOUT_S} s); launches {det_launches} "
+          f"(done at {time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 20c: a persistent fault raises ---------------------------------
+    dead = dataclasses.replace(
+        {s.name: s for s in matrix()}["device-digest-dies"],
+        name="device-digest-dead",
+        hash_plane=_flaky_plane("die", fail_from=1, fail_until=10 ** 9))
+    try:
+        run_scenario(dead, seed=11, device="cuda")
+    except DevicePlaneError as err:
+        raised = str(err)
+    else:
+        raised = None
+    check(raised is not None and "attempts failed" in raised,
+          f"chaos: a persistent fault did not raise ({raised})")
+    print(f"phase 20c ok: a device that stays dead raises DevicePlaneError: "
+          f"{raised}")
+
+    # -- phase 20d: the live campaigns on cuda replicas -----------------------
+    zero_kernel_launches()
+    live_runs = {}
+    for label, scenarios, processor in (
+        ("live_matrix", live_matrix(), "cuda"),
+        ("live_adversary_matrix", live_adversary_matrix(), "cuda"),
+        ("live_smoke_matrix", live_smoke_matrix(), "cuda-pipelined"),
+    ):
+        start = time.perf_counter()
+        campaign = run_live_campaign(scenarios, seed=0, processor=processor,
+                                     device="cuda")
+        wall = time.perf_counter() - start
+        chaos_table(f"phase 20d {label}() at seed 0 on {processor}",
+                    campaign.results, wall, live=True)
+        for r in campaign.results:
+            c = r.counters
+            check(r.passed or (r.name in LIVE_CLASSIFIED
+                               and LIVE_CLASSIFIED[r.name] in r.violation),
+                  f"live {r.name} on {processor}: {r.violation}")
+            check(all(n > 0 for n in c["digest_launches"])
+                  and c["launches_sha256"] > 0,
+                  f"live {r.name}: SHA-256 launches per node "
+                  f"{c['digest_launches']}, wrapper {c['launches_sha256']}")
+            if r.name in SIGNED_SCENARIOS:
+                check(c["launches_ed25519_ladder"] > 0
+                      and c["launches_ed25519_decompress"] > 0,
+                      f"live {r.name}: no Ed25519 launch")
+            if r.name == "forged-aggregate-cert":
+                check(c["launches_bls_g1"] > 0,
+                      f"live {r.name}: no BLS launch")
+        live_runs[label] = (sum(r.passed for r in campaign.results),
+                            len(campaign.results), wall)
+    live_launches = chaos_launches()
+    print(f"phase 20d ok: live campaigns passed {live_runs} (passed, run, "
+          f"wall s); every failure the classified one; no fork, no request "
+          f"committed twice; launches {live_launches} "
+          f"(done at {time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 21: the live flood A/B -----------------------------------------
+    attack = port_bench.live_attack_run("cuda")
+    flood_launches = (attack["clean"]["wrapper_launches"]
+                      + attack["flood"]["wrapper_launches"])
+    check(attack["flooded"] > 0 and attack["clean_flooded"] == 0,
+          f"flood: flooded {attack['flooded']}, clean "
+          f"{attack['clean_flooded']}")
+    for half in ("clean", "flood"):
+        run = attack[half]
+        check(run["host_digests"] == 0
+              and run["device_digests"] == run["hash_requests"],
+              f"flood {half}: {run['device_digests']} digests launched for "
+              f"{run['hash_requests']} requests, {run['host_digests']} host")
+    print(f"phase 21 ok: the live flood A/B on cuda (x{attack['copies']} "
+          f"copies): clean {attack['clean_rate']:.3f} req/s p95 "
+          f"{attack['clean_p95_ms']:.3f} ms; flooded "
+          f"{attack['flood_rate']:.3f} req/s p95 "
+          f"{attack['flood_p95_ms']:.3f} ms, {attack['flooded']} flooded "
+          f"submissions; commits {attack['clean']['commits']} / "
+          f"{attack['flood']['commits']}, 0 duplicates, one chain prefix, "
+          f"0 host digests; {flood_launches} SHA-256 launches "
+          f"(done at {time.perf_counter() - t0:.1f} s)")
+    return dict(det=det_launches, live=live_launches, flood=flood_launches)
 
 
 def main() -> int:
@@ -2662,6 +2887,7 @@ def main() -> int:
     bls = bls_phases(sms, t0)
     service = service_phases(t0)
     observed = obsv_phases(t0)
+    chaos = chaos_phases(t0)
 
     head = per_shape[0]
     kernels = [{
@@ -2678,6 +2904,9 @@ def main() -> int:
         "launches_live_traced": observed["live"],
         "launches_ingress_traced": observed["ingress"]["sha256_digest"],
         "launches_soak": observed["soak"],
+        "launches_chaos": chaos["det"]["sha256_digest"],
+        "launches_chaos_live": chaos["live"]["sha256_digest"],
+        "launches_flood": chaos["flood"],
         "live_shapes": [
             [*shape, n] for shape, n in sorted(live_shapes.items())
         ],
@@ -2709,6 +2938,8 @@ def main() -> int:
             "launches": rung3_launches[name],
             "launches_ingress": service["ingress_launches"][name],
             "launches_ingress_traced": observed["ingress"][name],
+            "launches_chaos": chaos["det"][name],
+            "launches_chaos_live": chaos["live"][name],
             "ingress_rows_replayed": service["replayed"],
             "matched_plain": ed_err == 0 and service["ingress_err"] == 0,
             "max_abs_err": max(ed_err, service["ingress_err"]),
@@ -2804,6 +3035,8 @@ def main() -> int:
         "launches": bls["launches"],
         "launches_note": "phase 15's rung 4 (one launch a batch of pending "
                          "certificates)",
+        "launches_chaos": chaos["det"]["bls_aggregate"],
+        "launches_chaos_live": chaos["live"]["bls_aggregate"],
         "matched_plain": True,
         "max_abs_err": 0,
         "ms": bls_head["ms"],

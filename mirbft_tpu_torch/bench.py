@@ -308,6 +308,12 @@ LIVE_KINDS = (
     "serial", "cuda", "pool", "cuda-pool", "pipelined", "cuda-pipelined",
 )
 
+# The live flood A/B (the JAX package's bench.py:222-228): the paper's
+# request-duplication flood at the client seam, every submission delivered
+# (1 + copies) times to every node.  The dedup tax is the goodput and p95
+# delta against a clean run of the same kind in the same call.
+LIVE_ATTACK_COPIES = 3
+
 
 # -- the kernel microbenchmark ------------------------------------------------
 
@@ -479,7 +485,7 @@ def _p95(values: list):
 
 
 def _live_node(n: int, kind: str, device: str, settings: LiveSettings,
-               root: str, conn, trace_dir=None) -> None:
+               root: str, conn, trace_dir=None, flood_copies=0) -> None:
     """One node of the live rung, in a process of its own, steered by the
     parent over ``conn``: it sends ``("address", address)``, receives every
     node's address, connects and sends ``("ready", None)``; on ``"go"`` it
@@ -489,9 +495,11 @@ def _live_node(n: int, kind: str, device: str, settings: LiveSettings,
     commit, on the monotonic clock that every process shares) and, on
     ``"stop"``, shuts down and sends ``("result", {...})``.  A failure
     sends ``("error", traceback)``.  With ``trace_dir`` the node runs
-    traced (see ``live_cluster_rate``)."""
+    traced, and with ``flood_copies`` every proposal is made ``1 +
+    flood_copies`` times (see ``live_cluster_rate``)."""
     try:
-        _run_live_node(n, kind, device, settings, root, conn, trace_dir)
+        _run_live_node(n, kind, device, settings, root, conn, trace_dir,
+                       flood_copies)
     except BaseException:  # noqa: BLE001 — reported to the parent
         try:
             conn.send(("error", f"node {n}:\n{traceback.format_exc()}"))
@@ -502,7 +510,7 @@ def _live_node(n: int, kind: str, device: str, settings: LiveSettings,
 
 
 def _run_live_node(n, kind, device, settings, root, conn,
-                   trace_dir=None) -> None:
+                   trace_dir=None, flood_copies=0) -> None:
     from . import pb
     from .obsv import hooks
     from .obsv.recorder import FlightRecorder
@@ -617,19 +625,22 @@ def _run_live_node(n, kind, device, settings, root, conn,
             for req_no in range(settings.reqs_per_client)
         }
         propose_times: dict = {}
+        flooded = [0]  # copies proposed past the first
 
         def propose(pending):
             for client_id, req_no in sorted(pending):
                 propose_times.setdefault(
                     (client_id, req_no), time.perf_counter()
                 )
-                try:
-                    node.propose(pb.Request(
-                        client_id=client_id, req_no=req_no,
-                        data=b"%d" % req_no,
-                    ))
-                except (NodeStopped, ValueError):
-                    pass
+                request = pb.Request(
+                    client_id=client_id, req_no=req_no, data=b"%d" % req_no,
+                )
+                for _copy in range(1 + flood_copies):
+                    try:
+                        node.propose(request)
+                    except (NodeStopped, ValueError):
+                        pass
+                flooded[0] += flood_copies
 
         propose(expected)
         reached = False
@@ -673,6 +684,7 @@ def _run_live_node(n, kind, device, settings, root, conn,
         ]),
         "hash_requests": requested[0],
         "frames_dropped": drops,
+        "flooded": flooded[0],
         "summary": summary,
     }
     if tracer is not None:
@@ -728,7 +740,7 @@ def _receive(conn, tag: str, timeout_s: float, n: int):
 
 def live_cluster_rate(kind: str, *, device="cuda",
                       settings: LiveSettings = LIVE, trace_dir=None,
-                      on_running=None) -> dict:
+                      on_running=None, flood_copies=0) -> dict:
     """Committed requests per second of a real loopback TCP cluster under
     executor ``kind``, measured from the first proposal until any node has
     committed ``settings.target_commits`` requests; ``LIVE`` is the JAX
@@ -763,7 +775,14 @@ def live_cluster_rate(kind: str, *, device="cuda",
     proposal, while the nodes run; its value is returned as ``scraped``.
     Each node writes ``trace_dir/trace<n>.json`` when it stops, and the
     result gains ``traces`` and, per node, the clock offsets, the
-    tracer's abandoned flows and the sequences it traced as committed."""
+    tracer's abandoned flows and the sequences it traced as committed.
+
+    ``flood_copies`` > 0 turns the client seam hostile, as the JAX
+    package's rung does (bench.py:1100-1116): every node's process
+    proposes every request ``1 + flood_copies`` times to its node, on
+    the first pass and on every retry, and ``flooded`` counts the copies
+    past the first.  Dedup must absorb them: the gates above hold under
+    the flood."""
     from .ops.batching import resolve_device
     from .ops.sha256 import _kernel_library
     from .runtime.processor import PROCESSOR_KINDS, _CudaHashMixin
@@ -783,7 +802,7 @@ def live_cluster_rate(kind: str, *, device="cuda",
             process = context.Process(
                 target=_live_node,
                 args=(n, kind, str(device), settings, root, theirs,
-                      trace_dir),
+                      trace_dir, flood_copies),
                 name=f"torch-live-node-{n}", daemon=True,
             )
             process.start()
@@ -865,6 +884,7 @@ def live_cluster_rate(kind: str, *, device="cuda",
         "shared_prefix": shared,
         "hash_requests": sum(node["hash_requests"] for node in nodes),
         "frames_dropped": drops,
+        "flooded": sum(node["flooded"] for node in nodes),
         "p95_ms": max(nodes, key=lambda node: node["commits"])["p95_ms"],
     }
     if trace_dir is not None:
@@ -908,6 +928,37 @@ def live_cluster_rate(kind: str, *, device="cuda",
             )
     return result
 
+
+def live_attack_run(kind: str = "cuda", *, device="cuda",
+                    settings: LiveSettings = LIVE) -> dict:
+    """The live flood A/B (the JAX package's bench.py:1177-1189): the same
+    executor ``kind`` first under honest clients, then under a
+    client-seam duplication flood (every submission delivered ``1 +
+    LIVE_ATTACK_COPIES`` times to every node, the Mir paper's
+    request-duplication attack).  Both halves are ``live_cluster_rate``
+    runs and hold its gates: no request committed twice, one chain prefix
+    and, for a ``cuda*`` kind, every digest launched on the kernel and
+    none on the host.  Returns each half's goodput (``rate``), p95 commit
+    latency and flooded submissions, and both halves' results."""
+    clean = live_cluster_rate(kind, device=device, settings=settings)
+    flood = live_cluster_rate(
+        kind, device=device, settings=settings,
+        flood_copies=LIVE_ATTACK_COPIES,
+    )
+    if flood["flooded"] <= 0:
+        raise AssertionError(f"live flood ({kind}): no copy was proposed")
+    return {
+        "kind": kind,
+        "copies": LIVE_ATTACK_COPIES,
+        "clean_rate": clean["rate"],
+        "clean_p95_ms": clean["p95_ms"],
+        "clean_flooded": clean["flooded"],
+        "flood_rate": flood["rate"],
+        "flood_p95_ms": flood["p95_ms"],
+        "flooded": flood["flooded"],
+        "clean": clean,
+        "flood": flood,
+    }
 
 # -- ladder rung 4 --------------------------------------------------------------
 #

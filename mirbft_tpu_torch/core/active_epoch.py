@@ -399,8 +399,13 @@ class ActiveEpoch:
 
     def bucket_backlog(self) -> list:
         """In-flight (allocated-but-uncommitted) sequence count per
-        bucket over the active window."""
+        bucket over the active window.  An empty window (every sequence of
+        an epoch at its end garbage-collected) has none; the JAX package
+        reads its low watermark regardless and its serializer dies on the
+        IndexError (ROADMAP queue 3)."""
         backlog = [0] * len(self.buckets)
+        if not self.sequences:
+            return backlog
         for seq_no in range(self.low_watermark(), self.high_watermark() + 1):
             state = self.sequence(seq_no).state
             if state not in (SeqState.UNINITIALIZED, SeqState.COMMITTED):

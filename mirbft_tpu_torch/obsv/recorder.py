@@ -75,6 +75,7 @@ class FlightRecorder:
         self._counted = {kind: 0 for kind in _KINDS}
         self._counted_overwritten = 0
         self._lock = threading.Lock()
+        self._flush_lock = threading.Lock()
         self.last_dump_path = None
         if dump_dir:
             os.makedirs(dump_dir, exist_ok=True)
@@ -163,6 +164,15 @@ class FlightRecorder:
         Returns the segment path, or None when no ``dump_dir`` is set.
         Counter deltas since the last flush land on the registry here.
         """
+        # One flush at a time, in the order of their sequence numbers: two
+        # flushes of one segment name (seq k and k + SEGMENT_KEEP, say the
+        # exporter's /dump and a serializer's autoflush) would otherwise
+        # share its temporary file, and the later rename finds it gone
+        # (ROADMAP queue 3).
+        with self._flush_lock:
+            return self._flush(reason)
+
+    def _flush(self, reason):
         dump = self.snapshot(reason)
         self._count(dump)
         if not self.dump_dir:

@@ -130,6 +130,9 @@ class Node:
     def __init__(self, config: Config, wal_storage, req_storage):
         self.config = config
         self._inbox: queue.Queue = queue.Queue()
+        # The exporter's status asks: answered before the next inbox item,
+        # so a scrape does not wait behind a start burst's backlog.
+        self._status_asks: queue.SimpleQueue = queue.SimpleQueue()
         self._outbox: queue.Queue = queue.Queue(maxsize=1)
         self._stopped = threading.Event()
         self._stop_lock = threading.Lock()
@@ -377,13 +380,19 @@ class Node:
         return hooks.metrics if hooks.enabled else None
 
     def _status_json(self):
+        """The exporter's ``/status``: asked ahead of the inbox's backlog
+        (``status()`` keeps its place in the inbox), so the answer waits
+        for the serializer's current item only; None after 2 s."""
         if self._stopped.is_set():
             return None
+        reply: queue.Queue = queue.Queue(maxsize=1)
+        self._status_asks.put(reply)
+        self._inbox.put(("wake",))  # an idle serializer answers at once
         try:
-            status = self.status(timeout=2.0)
-        except NodeStopped:
+            status = reply.get(timeout=2.0)
+        except queue.Empty:
             return None
-        return status.to_json() if status is not None else None
+        return status.to_json()
 
     def _flight_dump(self, reason="endpoint"):
         """Flush the wired flight recorder; None when none is wired
@@ -485,6 +494,7 @@ class Node:
             while True:
                 self._flush_outbox(actions)
                 self._notify_waiters()
+                self._answer_status_asks()
                 item = self._inbox.get()
                 kind = item[0]
                 if kind == "stop":
@@ -589,6 +599,16 @@ class Node:
             actions.concat(handoff)
             return
         self._apply(pb.StateEvent(type=pb.EventActionsReceived()), actions)
+
+    def _answer_status_asks(self) -> None:
+        from ..status import state_machine_status
+
+        while True:
+            try:
+                reply = self._status_asks.get_nowait()
+            except queue.Empty:
+                return
+            reply.put(state_machine_status(self._machine))
 
     def _notify_waiters(self) -> None:
         live = []

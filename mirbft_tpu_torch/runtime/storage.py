@@ -339,6 +339,12 @@ class FileWal:
                         time.perf_counter() - start
                     )
 
+    def persisted(self) -> bool:
+        """Whether the log holds an entry and everything written is
+        fsynced: a restart from this WAL then has a log to load."""
+        with self._lock:
+            return bool(self._entries) and not self._needs_sync
+
     def sync_token(self) -> int:
         """Group-commit: register a durability request covering everything
         written so far; redeem with ``wait(token)``."""

@@ -22,6 +22,20 @@ Two planes:
 - ``AsyncKernelHashPlane`` computes every digest with the SHA-256 kernel
   (ops.sha256).  It has no host route: a digest comes off the kernel, or
   the plane raises.
+
+The kernel plane keeps the JAX planes' fault seam when it is given a
+``CircuitBreaker``: a launch that raises a device fault
+(``LAUNCH_FAULTS``), reads back fewer digest rows than it launched, or
+(with ``timeout_s``) overruns its deadline counts against the breaker.
+Where the JAX plane recomputes such a batch on the host, this one
+re-launches the same packed batch on the kernel when the breaker grants a
+probe, and raises ``DevicePlaneError`` when it denies one or after
+``LAUNCH_ATTEMPTS`` attempts.  Values are identical either way, so events
+and chains do not move.  On the card the guard waits for each launch's
+readback, so an asynchronous device fault raises inside it; a sticky CUDA
+error fails every attempt, and the plane raises.  Without a breaker (the
+default) there is no seam: launches stay asynchronous and a fault raises
+where it surfaces, at the launch or at the readback.
 """
 
 from __future__ import annotations
@@ -45,6 +59,78 @@ from ..ops.sha256 import sha256_digest_words, words_to_digests
 #: Padded bytes a launch carries: 8192 rows of the 1-block bucket, 256 rows
 #: of the 128-block bucket (``AsyncKernelHashPlane.rows_for``).
 _CHUNK_BYTES = 1 << 21
+
+#: Attempts a kernel launch gets: the first call and two probes, so the
+#: chaos scenarios' failure window of calls [1, 3) on a hair-trigger
+#: breaker is ridden out inside one launch.
+LAUNCH_ATTEMPTS = 3
+
+
+class DevicePlaneError(Exception):
+    """A kernel launch failed, read back short, or was denied by an open
+    circuit breaker."""
+
+
+#: What the seam counts as a device fault: the kernels' CUDA errors (torch
+#: raises them as RuntimeError) and a short read.  Anything else is a
+#: fault of the program and raises at once.
+LAUNCH_FAULTS = (RuntimeError, DevicePlaneError)
+
+
+def guarded_launch(plane, launch, rows: int, what: str):
+    """Run ``launch()`` under ``plane.breaker``; returns its output and
+    the instant the returning attempt began.  A ``LAUNCH_FAULTS`` raise
+    or an output of fewer than ``rows`` rows is a failure
+    (``plane.device_errors``), re-launched while the breaker grants a
+    probe, at most ``LAUNCH_ATTEMPTS`` times in all
+    (``plane.device_retries`` counts the rows re-launched).  An open
+    breaker that denies the attempt raises ``DevicePlaneError``; so does
+    the last failed attempt.  Success or timeout is the caller's to
+    record (``record_outcome``).  A plane without a breaker just calls
+    ``launch()``."""
+    breaker = plane.breaker
+    if breaker is None:
+        return launch(), time.perf_counter()
+    error = None
+    for attempt in range(LAUNCH_ATTEMPTS):
+        if not breaker.allow():
+            raise DevicePlaneError(
+                f"{what}: breaker {breaker.state} denied attempt "
+                f"{attempt + 1}"
+                + (f" after {error}" if error is not None else "")
+            ) from error
+        if attempt:
+            plane.device_retries += rows
+        start = time.perf_counter()
+        try:
+            out = launch()
+            if len(out) < rows:
+                raise DevicePlaneError(
+                    f"short read: {len(out)} of {rows} rows"
+                )
+        except LAUNCH_FAULTS as err:
+            breaker.record_failure()
+            plane.device_errors += 1
+            error = err
+            continue
+        return out, start
+    raise DevicePlaneError(
+        f"{what}: {LAUNCH_ATTEMPTS} attempts failed, last: {error}"
+    ) from error
+
+
+def record_outcome(plane, start: float) -> None:
+    """Judge a launch that returned in full: a wall since ``start`` over
+    ``plane.timeout_s`` keeps its values but counts against the breaker
+    (``plane.device_timeouts``); anything else is a success."""
+    if plane.breaker is None:
+        return
+    timeout_s = plane.timeout_s
+    if timeout_s is not None and time.perf_counter() - start > timeout_s:
+        plane.breaker.record_failure()
+        plane.device_timeouts += 1
+    else:
+        plane.breaker.record_success()
 
 
 class _Lazy:
@@ -145,11 +231,29 @@ class AsyncKernelHashPlane(CoalescingHashPlane):
     ``device="cpu"`` runs the same plane on the kernel's plain version
     (the tests); the default is the card, and without one the plane
     raises.
+
+    ``launch`` is the digest call, ``fn(blocks, n_blocks) -> words``
+    (``ops.sha256.sha256_digest_words``, or a chaos fault wrapped around
+    it); ``breaker`` and ``timeout_s`` judge each call (module
+    docstring).  With a breaker a launch waits for its readback, so a
+    device fault and the deadline are judged before the next launch
+    consults the breaker.
     """
 
-    def __init__(self, chunk_rows: int = 8192, device="cuda"):
+    def __init__(self, chunk_rows: int = 8192, device="cuda", launch=None,
+                 breaker=None, timeout_s=None):
         super().__init__()
         self.device = resolve_device(device)
+        self.launch = launch if launch is not None else sha256_digest_words
+        self.breaker = breaker
+        self.timeout_s = timeout_s
+        # Fault accounting (status.crypto_plane_status): failed attempts,
+        # deadline overruns, rows re-launched, and rows computed off the
+        # kernel (always 0: the plane has no host route).
+        self.device_errors = 0
+        self.device_timeouts = 0
+        self.device_retries = 0
+        self.fallback_digests = 0
         self.max_chunk_rows = chunk_rows
         # block bucket -> [(global index, preimage)], and its chunk rows
         self._buckets: dict[int, list] = {}
@@ -219,24 +323,40 @@ class AsyncKernelHashPlane(CoalescingHashPlane):
             [msg for _i, msg in group], block_floor=bucket, batch_floor=rows
         )
         blocks, n_blocks = to_tensors(packed, self.device)
+        launched = blocks.shape[0]
+        cid = self._next_chunk
         if self.device.type == "cuda":
             began = torch.cuda.Event(enable_timing=True)
             ended = torch.cuda.Event(enable_timing=True)
-            began.record()
-            words = sha256_digest_words(blocks, n_blocks)
-            ended.record()
-            host = torch.empty(words.shape, dtype=words.dtype, pin_memory=True)
-            host.copy_(words, non_blocking=True)
             copied = torch.cuda.Event()
-            copied.record()
+
+            def launch():
+                began.record()
+                words = self.launch(blocks, n_blocks)
+                ended.record()
+                host = torch.empty(
+                    words.shape, dtype=words.dtype, pin_memory=True
+                )
+                host.copy_(words, non_blocking=True)
+                copied.record()
+                if self.breaker is not None:
+                    copied.synchronize()  # the readback under the guard
+                return host
+
+            host, attempt_start = guarded_launch(
+                self, launch, launched, f"digest launch {cid}"
+            )
             events = (began, ended, copied)
         else:
-            host = sha256_digest_words(blocks, n_blocks)
+            host, attempt_start = guarded_launch(
+                self, lambda: self.launch(blocks, n_blocks), launched,
+                f"digest launch {cid}",
+            )
             events = None
+        record_outcome(self, attempt_start)
         launch_s = time.perf_counter() - start
         self.launch_s += launch_s
         indices = [i for i, _msg in group]
-        cid = self._next_chunk
         self._next_chunk += 1
         self._inflight[cid] = (host, events, indices, launch_s)
         for i in indices:

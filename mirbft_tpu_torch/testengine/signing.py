@@ -18,7 +18,11 @@ different (client, req_no) fails verification.
 Planes:
 
 - ``SignaturePlane(host_verifier)``: the host oracle (crypto.ed25519_host),
-  the plane the device planes are held against;
+  the plane the device planes are held against; ``SignaturePlane(
+  batch_verifier(device))`` runs the same lazy plane on the kernels,
+  under the digest plane's fault seam when given a ``breaker``
+  (``timeout_s``: a failed batch is re-verified on the kernels while the
+  breaker grants a probe, never on the host);
 - ``AsyncSignaturePlane``: waves launched on the Ed25519 kernels at every
   simulated-time boundary, verdicts read back lazily through CUDA events;
 - ``SpeculativeSignaturePlane``: requests admitted at once, their
@@ -44,6 +48,7 @@ from ..ops.ed25519 import (
     verify_batch,
     verify_batch_pallas,
 )
+from .crypto_plane import guarded_launch, record_outcome
 
 SIG_LEN = 64
 PK_LEN = 32
@@ -217,8 +222,20 @@ class SignaturePlane:
     replicas receive it.  Deterministic: verdicts depend only on the data.
     """
 
-    def __init__(self, verifier=host_verifier):
+    def __init__(self, verifier=host_verifier, breaker=None, timeout_s=None):
         self.verifier = verifier
+        # The digest plane's fault seam (crypto_plane.guarded_launch): a
+        # verifier batch that raises, reads back short or overruns
+        # ``timeout_s`` counts against the breaker, and a failed batch is
+        # verified again by the same verifier while the breaker grants a
+        # probe.  ``fallback_verifies`` stays 0: there is no host route.
+        # Without a breaker there is no seam: a fault raises as it comes.
+        self.breaker = breaker
+        self.timeout_s = timeout_s
+        self.device_errors = 0
+        self.device_timeouts = 0
+        self.device_retries = 0
+        self.fallback_verifies = 0
         self._pending: list = []  # [(client_id, req_no, data)]
         self._verdicts: dict = {}
         self.flush_sizes: list[int] = []
@@ -255,7 +272,11 @@ class SignaturePlane:
         self._pending = []
         self.flush_sizes.append(len(batch))
         start = time.perf_counter()
-        verdicts = self.verifier(batch)
+        verdicts, attempt_start = guarded_launch(
+            self, lambda: self.verifier(batch), len(batch),
+            f"verify flush {len(self.flush_sizes) - 1}",
+        )
+        record_outcome(self, attempt_start)
         wall = time.perf_counter() - start
         self.flush_wall_s.append(wall)
         if hooks.enabled:

@@ -4,7 +4,9 @@ Ed25519 kernels equal to their plain versions and the RFC 8032 oracle
 (decompression also on the corpus that takes each of its branches), and
 the signed engine run on them equal to the host-oracle run; the ack
 plane's two kernels; and the BLS G1 aggregation kernel equal to its plain
-version and the host fold, with no host fold behind it.
+version and the host fold, with no host fold behind it; and the live
+chaos campaign's two signed scenarios, whose Ed25519 kernels' plain
+versions are too slow on a CPU for the live protocol's timers.
 
 Marked ``gpu``: each test skips, with its reason, where no CUDA card is
 present (the kernel has no CPU mode).  Run them on a machine with a card:
@@ -709,3 +711,41 @@ def test_kv_cluster_smoke_on_the_card(card):
     launches = sum(p.launches for p in procs)
     assert launches > 0
     assert port.sha256_digest_words.launches - before == launches
+
+
+# -- the live chaos campaign's signed scenarios ------------------------------------
+
+
+def test_live_signed_mode_verifier_death_recovers_on_the_card(card):
+    """``tests/test_chaos_live.py:177`` on the card: the signature kernels
+    die mid-run (calls [1, 2) of the flaky verifier), the breaker trips,
+    a probe verifies the batch again on the Ed25519 kernels and re-closes
+    it, commits continue, and the forged-request probe is rejected (inside
+    the run).  No verdict comes from the host."""
+    from mirbft_tpu_torch.chaos import live_matrix, run_live_scenario
+
+    scenario = {s.name: s for s in live_matrix()}["signed-verifier-dies"]
+    result = run_live_scenario(scenario, seed=2, budget_s=60.0, device=card)
+    assert result.passed, result.violation
+    assert result.counters["sig_device_errors"] >= 1
+    assert result.counters["sig_device_retries"] >= 1
+    assert result.counters["sig_fallbacks"] == 0
+    assert result.counters["launches_ed25519_ladder"] > 0
+    assert all(result.counters["digest_launches"])
+    assert result.commits > 0
+
+
+def test_live_adversary_corruption_rejected_on_the_card(card):
+    """``tests/test_chaos_live.py:196`` on the card: corrupted proposal
+    deliveries over real TCP die at the signed ingress on the Ed25519
+    kernels (rejections == corruptions) while honest copies commit."""
+    from mirbft_tpu_torch.chaos import live_adversary_matrix, run_live_scenario
+
+    scenario = {s.name: s for s in live_adversary_matrix()}[
+        "corrupt-propose-signed"]
+    result = run_live_scenario(scenario, seed=0, budget_s=60.0, device=card)
+    assert result.passed, result.violation
+    assert result.counters["corrupted"] > 0
+    assert result.counters["rejections"] == result.counters["corrupted"]
+    assert result.counters["launches_ed25519_ladder"] > 0
+    assert result.commits > 0

@@ -402,3 +402,58 @@ def test_postmortem_merges_four_nodes_dumps(tmp_path):
     assert lanes == {0, 1, 2, 3}
     with pytest.raises(FileNotFoundError):
         postmortem(str(tmp_path / "empty"))
+
+
+def test_overlapping_flushes_of_one_segment_name(tmp_path, monkeypatch):
+    """ROADMAP queue 3: a flush (seq 0) still writing while two more run
+    (seq 1, and seq 2, which shares seq 0's segment name), as the
+    exporter's ``/dump`` and a serializer's autoflush overlapped in
+    ``chip_smoke.py`` phase 18b.  The JAX recorder writes seq 0 and seq
+    2 through one temporary file, so seq 0's rename finds it gone and
+    raises (a serializer's autoflush dies so); the port's flushes run one
+    at a time and the newest dump is seq 2's."""
+    import threading
+
+    def overlap(recorder_cls, out):
+        rec = recorder_cls(0, dump_dir=str(out))
+        rec.record_event("e")
+        first = {}
+        entered, release = threading.Event(), threading.Event()
+        real_dump = json.dump
+
+        def gated_dump(obj, fh, *args, **kwargs):
+            if threading.current_thread() is first.get("thread"):
+                entered.set()
+                release.wait(10)
+            real_dump(obj, fh, *args, **kwargs)
+
+        errors = []
+
+        def flush(times):
+            try:
+                for _ in range(times):
+                    rec.flush("test")
+            except OSError as err:
+                errors.append(err)
+
+        monkeypatch.setattr(json, "dump", gated_dump)
+        try:
+            a = threading.Thread(target=flush, args=(1,))
+            first["thread"] = a
+            a.start()
+            assert entered.wait(10)
+            b = threading.Thread(target=flush, args=(2,))
+            b.start()
+            b.join(1.0)  # the JAX recorder's two flushes are done by now
+            release.set()
+            a.join(10)
+            b.join(10)
+        finally:
+            monkeypatch.setattr(json, "dump", real_dump)
+        return errors, load_dumps(str(out))
+
+    errors, _dumps = overlap(ref_recorder.FlightRecorder, tmp_path / "ref")
+    assert len(errors) == 1 and isinstance(errors[0], FileNotFoundError)
+    errors, dumps = overlap(FlightRecorder, tmp_path / "port")
+    assert errors == []
+    assert dumps[0][1]["flush_seq"] == 2

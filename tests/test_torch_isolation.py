@@ -2,7 +2,7 @@
 package, its entry points refuse to run on a card that is not there, and
 the device ack plane and the BLS aggregation raise instead of falling back
 to the host.  The live service (signed ingress, the app layer, state
-transfer, the load generator and the chaos invariants) is held to the same
+transfer, the load generator and the chaos campaign) is held to the same
 rules: no jax, no JAX package, no host route unless named."""
 
 import ast
@@ -16,6 +16,13 @@ import pytest
 import torch
 
 from mirbft_tpu_torch import bench as port_bench
+from mirbft_tpu_torch.chaos import (
+    live_smoke_matrix,
+    run_live_scenario,
+    run_scenario,
+    smoke_matrix,
+)
+from mirbft_tpu_torch.chaos.__main__ import main as chaos_main
 from mirbft_tpu_torch.core import device_tracker
 from mirbft_tpu_torch.core.state_machine import StateMachine
 from mirbft_tpu_torch.crypto import ed25519_host
@@ -152,6 +159,14 @@ def _processor(kind=None, **kwargs):
     )
 
 
+#: The live rung at a size the CPU runs in seconds.
+TINY_LIVE = port_bench.LiveSettings(
+    clients=2, reqs_per_client=10, target_commits=20, batch_size=1,
+    tick_s=0.05, fsync_floor_s=0.0, deadline_s=60.0, checkpoint_interval=20,
+    suspect_ticks=100,
+)
+
+
 def _chain_block():
     return torch.zeros((4, 16), dtype=torch.int32)
 
@@ -192,6 +207,11 @@ def _cluster(**kw):
         port_bench.app_run,
         lambda: obsv_main(["--nodes", "1", "--clients", "1", "--reqs", "1"]),
         lambda: port_bench.soak_run(0.5),
+        lambda: chaos_main(["--smoke"]),
+        lambda: chaos_main(["--live", "--smoke"]),
+        lambda: run_scenario(smoke_matrix()[0]),
+        lambda: run_live_scenario(live_smoke_matrix()[0]),
+        port_bench.live_attack_run,
     ],
     ids=[
         "kernel_plane", "sha256_many", "sha256_chunked", "to_tensors",
@@ -201,7 +221,9 @@ def _cluster(**kw):
         "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
         "default_config_processor", "batch_verifier", "kernel_authority",
         "inprocess_cluster", "inprocess_kv_cluster", "ingress_run",
-        "app_run", "obsv_cli_run", "soak_run",
+        "app_run", "obsv_cli_run", "soak_run", "chaos_cli_run",
+        "chaos_cli_live_run", "run_scenario", "run_live_scenario",
+        "live_attack_run",
     ],
 )
 def test_entry_points_raise_without_a_card(no_card, entry):
@@ -238,6 +260,13 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         lambda: obsv_main(["--nodes", "1", "--clients", "1", "--reqs", "1",
                            "--device", "cpu"]),
         lambda: port_bench.soak_run(0.5, 0.1, device="cpu"),
+        lambda: chaos_main(["--smoke", "--device", "cpu", "--only",
+                            "partition"]),
+        lambda: run_scenario(smoke_matrix()[0], device="cpu"),
+        lambda: run_live_scenario(live_smoke_matrix()[1], budget_s=60.0,
+                                  device="cpu"),
+        lambda: port_bench.live_attack_run(
+            "cuda", device="cpu", settings=TINY_LIVE),
     ],
     ids=[
         "kernel_plane", "sha256_many", "to_tensors", "recorder",
@@ -246,7 +275,8 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "sha256_chain_checksum", "kernel_microbench", "microbench_warmup",
         "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
         "default_config_processor", "batch_verifier", "inprocess_cluster",
-        "obsv_cli_run", "soak_run",
+        "obsv_cli_run", "soak_run", "chaos_cli_run", "run_scenario",
+        "run_live_scenario", "live_attack_run",
     ],
 )
 def test_entry_points_run_on_the_cpu_when_asked(no_card, entry):
@@ -342,7 +372,8 @@ def test_ack_plane_has_no_host_fallback():
 
 
 #: The live node as a replicated service: signed ingress, the app layer,
-#: state transfer, the load generator and the chaos invariants.
+#: state transfer, the load generator, and the chaos campaign with the
+#: circuit breaker.
 SERVICE_MODULES = [
     "crypto/ed25519_batch.py", "runtime/ingress.py", "runtime/transfer.py",
     "runtime/storage.py", "app/__init__.py", "app/kvstore.py",
@@ -350,6 +381,8 @@ SERVICE_MODULES = [
     "loadgen/__init__.py", "loadgen/arrivals.py", "loadgen/clients.py",
     "loadgen/generator.py", "loadgen/inproc.py", "loadgen/kv.py",
     "loadgen/slo.py", "chaos/__init__.py", "chaos/invariants.py",
+    "chaos/faults.py", "chaos/scenarios.py", "chaos/runner.py",
+    "chaos/live.py", "chaos/__main__.py", "resilience.py",
 ]
 
 

@@ -15,11 +15,9 @@ phase table of the same seeded run in each package.  Last, the port's
 live rung traced at a small size: its exporters scraped mid-run, its
 per-process traces stamped with the hellos' clock offsets, their ledger.
 
-Not mirrored:
-
-- ``tests/test_obsv.py:296`` (``test_chaos_recovery_metric_matches_report``)
-  drives ``mirbft_tpu.chaos.runner``, which the port has not ported yet
-  (ROADMAP queue 1, the ``chaos/`` item).
+``tests/test_obsv.py:296`` (``test_chaos_recovery_metric_matches_report``)
+drives the chaos runner; its mirror is in ``tests/test_torch_chaos_mirrors.py``
+with the chaos runner's other mirrors.
 
 Every case that enables a package's process-global hooks disables them in
 a ``finally``.

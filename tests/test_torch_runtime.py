@@ -500,6 +500,44 @@ def test_metrics_port_serves_the_exporter():
         socket.create_connection((host, port), timeout=1).close()
 
 
+def test_status_endpoint_answers_ahead_of_a_backlog():
+    """ROADMAP queue 3: a node's ``/status`` (``_status_json``, what the
+    exporter calls) with 3 s of events queued ahead of it.  The JAX node
+    puts the ask at the back of the serializer's inbox and gives up after
+    its 2-s deadline (None, the exporter's 503), as a live node did in the
+    start burst of the traced live rung on the card; the port's node
+    answers before the serializer's next item."""
+    def ask_behind_a_backlog(node_cls, config_cls, initial_state):
+        slow = threading.Event()
+
+        def interceptor(_event):
+            if slow.is_set():
+                time.sleep(0.02)
+
+        node = node_cls.start_new(
+            config_cls(id=0, event_interceptor=interceptor),
+            initial_state(1, [0]),
+        )
+        try:
+            assert node.status(timeout=5.0) is not None  # initialised
+            slow.set()
+            for _ in range(150):  # 150 events x 20 ms
+                node.tick()
+            began = time.perf_counter()
+            answer = node._status_json()
+            return answer, time.perf_counter() - began
+        finally:
+            slow.clear()
+            node.stop()
+
+    jax_answer, jax_s = ask_behind_a_backlog(
+        JaxNode, JaxConfig, jax_initial_state)
+    answer, port_s = ask_behind_a_backlog(
+        Node, Config, standard_initial_network_state)
+    assert jax_answer is None and jax_s >= 2.0
+    assert answer is not None and port_s < 1.0, port_s
+
+
 def test_shadow_stride_wires_the_divergence_oracle():
     """With hooks on, Config.shadow_stride installs a ShadowSampler at that
     stride (as the JAX package's Node does), and audit_divergence runs the

@@ -12,9 +12,11 @@ chains, frames and staged snapshot files byte for byte equal to the JAX
 module's on seeded inputs, and one fetch of the port's engine from the JAX
 package's donor.  Every comparison is exact.
 
-Not mirrored: the multi-process join and remove under partition and the
-live corrupt-stream run on real sockets (tests/test_transfer_engine.py:609,
-629, 646), which need the unported cluster/ and chaos/live.py."""
+The live corrupt-stream run on real sockets
+(tests/test_transfer_engine.py:646) is mirrored in
+tests/test_torch_chaos_mirrors.py.  Not mirrored: the multi-process join
+and remove under partition (:609, :629), which need the unported
+cluster/."""
 
 import types
 
