@@ -201,7 +201,28 @@ Phases (any failure raises and the script exits nonzero):
     divergences, the card's allocator series not empty, 0 failed sampler
     ticks, 0 frames dropped, every digest on the card; each series' leak
     verdict; ``obsv --diff`` of its artifact against itself exits 0 and
-    against a copy with one verdict set ``growing`` exits nonzero.
+    against a copy with one verdict set ``growing`` exits nonzero;
+20. the chaos campaign on the card: both deterministic matrices equal to
+    the JAX campaign's pinned rows, the injected device faults ridden out
+    on the kernels, a persistent one raising, the live matrices on
+    ``cuda`` and ``cuda-pipelined`` replicas;
+21. the live flood A/B (``bench.live_attack_run``);
+22. the multi-process cluster (``mirbft_tpu_torch.cluster``), one worker
+    process a node, every worker on ``cuda-pipelined`` and ``cuda``:
+    (a) 4 workers boot, commit 40 requests submitted to every node (each
+    worker's ``/status`` and ``/metrics`` read mid-run), node 3 is
+    SIGKILLed, 40 more commit on the others, node 3 restarts from disk on
+    its port, catches up to one chain, and 8 more commit on all four;
+    (b) ``bench.live_mp_run`` (the JAX ``live_mp_run``: 4 workers,
+    BatchSize 4, the standard client mix, Poisson 25/50/100 req/s);
+    (c) its signed-ingress step at 50 req/s (a forged twin of every 8th
+    request), every worker verifying on both Ed25519 kernels;
+    (d) ``python -m mirbft_tpu_torch.chaos --live --cluster mp --smoke``;
+    (e) ``bench.reconfig_run`` (a committed reconfiguration adds node 4,
+    which catches up by a snapshot).  Every worker must exit 0 (or -9
+    where SIGKILLed), log no fault, show device hash flushes in its
+    ``metrics.json`` and make no digest on the host; one chain, no
+    request committed twice or never.
 
 It then prints the kernels as one JSON line, the card's name and power
 limit, and, last, the result line the chip check reads.  Without a CUDA
@@ -1789,8 +1810,8 @@ SIGNED_SCENARIOS = ("corrupt-propose-signed", "signed-verifier-dies")
 
 
 def chaos_launches() -> dict:
-    """``chaos.runner.kernel_launches()`` under the kernels line's names."""
-    from mirbft_tpu_torch.chaos.runner import kernel_launches
+    """``ops.kernel_launches()`` under the kernels line's names."""
+    from mirbft_tpu_torch.ops import kernel_launches
 
     got = kernel_launches()
     return {"sha256_digest": got["launches_sha256"],
@@ -1834,7 +1855,7 @@ def chaos_phases(t0: float) -> dict:
         run_live_campaign,
         run_scenario,
     )
-    from mirbft_tpu_torch.chaos.runner import zero_kernel_launches
+    from mirbft_tpu_torch.ops import zero_kernel_launches
     from mirbft_tpu_torch.chaos.scenarios import SLOW_TIMEOUT_S, _flaky_plane
     from mirbft_tpu_torch.testengine.crypto_plane import DevicePlaneError
 
@@ -1981,6 +2002,289 @@ def chaos_phases(t0: float) -> dict:
           f"0 host digests; {flood_launches} SHA-256 launches "
           f"(done at {time.perf_counter() - t0:.1f} s)")
     return dict(det=det_launches, live=live_launches, flood=flood_launches)
+
+
+CLUSTER_PROCESSOR = "cuda-pipelined"
+CLUSTER_REQS = 40  # 22a: requests a stage, each submitted to every node
+CLUSTER_COMMIT_S = 90.0  # 22a: a stage's commits on every live node
+CLUSTER_CHAOS_S = 600  # 22d: the chaos CLI's three scenarios
+CLUSTER_KERNELS = ("launches_sha256", "launches_ed25519_decompress",
+                   "launches_ed25519_ladder")
+
+
+def check_workers(label: str, evidence: dict, exit_codes: dict,
+                  signed: bool = False, nodes=None) -> dict:
+    """Every worker of a multi-process phase exited cleanly (0, or -9
+    where it was SIGKILLed and restarted), wrote no fault to its log, ran
+    the cuda-pipelined processor, made every digest on the card (device
+    hash flushes > 0, 0 host digests) and, when ``signed``, verified its
+    ingress on the Ed25519 kernels with no failed launch.  ``nodes``
+    limits the device checks (a joiner may install a snapshot and hash
+    nothing).  Returns the wrappers' launches summed over the workers."""
+    for node, codes in sorted(exit_codes.items()):
+        check(codes and codes[-1] == 0 and all(c in (0, -9) for c in codes),
+              f"{label}: node {node} exit codes {codes}")
+    totals = dict.fromkeys(CLUSTER_KERNELS, 0)
+    for node, e in sorted(evidence.items()):
+        check(not e["log_faults"],
+              f"{label}: node {node} worker.log: {e['log_faults'][:3]}")
+        check(e["host_digests"] == 0,
+              f"{label}: node {node} made {e['host_digests']} host digests")
+        check(e["processors"] == [CLUSTER_PROCESSOR],
+              f"{label}: node {node} ran {e['processors']}")
+        for key in CLUSTER_KERNELS:
+            totals[key] += e[key]
+        if nodes is not None and node not in nodes:
+            continue
+        flushes = e.get("flushes", {})
+        check(flushes.get("hash/device", 0) > 0 and e["launches"] > 0
+              and e["launches_sha256"] >= e["launches"],
+              f"{label}: node {node} hash flushes {flushes}, launches "
+              f"{e['launches']}, wrapper {e['launches_sha256']}")
+        if signed:
+            check(flushes.get("signature/ingress", 0) > 0
+                  and e.get("ingress_verify_errors", 0) == 0
+                  and e["launches_ed25519_decompress"] > 0
+                  and e["launches_ed25519_ladder"] > 0,
+                  f"{label}: node {node} ingress flushes {flushes}, verify "
+                  f"errors {e.get('ingress_verify_errors')}, Ed25519 "
+                  f"launches {e['launches_ed25519_decompress']} / "
+                  f"{e['launches_ed25519_ladder']}")
+    return totals
+
+
+def describe_steps(steps) -> str:
+    return "; ".join(
+        f"{s.name}: {s.submitted} submitted, {s.committed} committed, "
+        f"{s.timed_out} timed out, goodput {s.goodput_per_sec:.3f} req/s, "
+        f"p50 {s.p50_ms:.3f} ms, p95 {s.p95_ms:.3f} ms"
+        for s in steps
+    )
+
+
+def cluster_phases(t0: float) -> dict:
+    """Phase 22: the multi-process cluster, one worker process a node on
+    the card (``mirbft_tpu_torch.cluster``).  Returns the kernels'
+    launches, summed over every worker of the phase."""
+    import os
+    import tempfile
+
+    from mirbft_tpu_torch import bench as port_bench
+    from mirbft_tpu_torch import pb
+    from mirbft_tpu_torch.cluster import ClusterSupervisor
+    from mirbft_tpu_torch.cluster.worker import read_json
+
+    launches = dict.fromkeys(CLUSTER_KERNELS, 0)
+
+    def add(counts):
+        for key in CLUSTER_KERNELS:
+            launches[key] += counts.get(key, 0)
+
+    # -- phase 22a: lifecycle: boot, commit, SIGKILL, restart, teardown ------
+    start = time.perf_counter()
+    sup = ClusterSupervisor(node_count=4, client_ids=[1],
+                            processor=CLUSTER_PROCESSOR, device="cuda")
+
+    def submit_all(req_nos):
+        for q in req_nos:
+            request = pb.Request(client_id=1, req_no=q, data=b"mp-%d" % q)
+            for node in sup.alive_nodes():
+                sup.submit(node, request)
+
+    def await_commits(req_nos, nodes, what):
+        want = {(1, q) for q in req_nos}
+        deadline = time.monotonic() + CLUSTER_COMMIT_S
+        while time.monotonic() < deadline:
+            if all(want <= {(c, q) for c, q, _s in sup.committed(n)}
+                   for n in nodes):
+                return
+            time.sleep(0.05)
+        check(False, f"22a: {what}: commits "
+              f"{[len(sup.committed(n)) for n in nodes]} after "
+              f"{CLUSTER_COMMIT_S} s")
+
+    def one_chain(what):
+        deadline = time.monotonic() + CLUSTER_COMMIT_S
+        while time.monotonic() < deadline:
+            chains = sup.chains()
+            if len(set(chains)) == 1 and "" not in chains:
+                return chains
+            time.sleep(0.05)
+        check(False, f"22a: {what}: chains {[c[:12] for c in chains]}")
+
+    try:
+        sup.start()
+        boot = [h.boot_seconds[0] for h in sup.nodes]
+        submit_all(range(CLUSTER_REQS))
+        await_commits(range(CLUSTER_REQS), range(4), "the first stage")
+        # The exporter of every worker, mid-run: /status answered, the
+        # kernel's flushes on /metrics.
+        for handle in sup.nodes:
+            address = ("127.0.0.1", handle.metrics_port)
+            status, _body = http_get(address, "/status")
+            check(status == 200, f"22a: node {handle.node_id} /status "
+                  f"gave {status}")
+            _code, text = http_get(address, "/metrics")
+            flushes = prom_value(text, "mirbft_crypto_flush_total",
+                                 plane="hash", path="device")
+            check(flushes > 0, f"22a: node {handle.node_id} /metrics shows "
+                  f"{flushes} device hash flushes")
+        sup.kill(3, graceful=False)
+        check(sup.alive_nodes() == [0, 1, 2], "22a: node 3 did not die")
+        stage2 = range(CLUSTER_REQS, 2 * CLUSTER_REQS)
+        submit_all(stage2)
+        await_commits(stage2, range(3), "the second stage, node 3 down")
+        restart_at = time.perf_counter()
+        sup.restart(3)
+        restart_s = time.perf_counter() - restart_at
+        # Node 3 catches up from its WAL and its peers, by a snapshot when
+        # the others have moved past its window; then it commits new
+        # requests with them.
+        one_chain("node 3's catch-up")
+        caught_up_s = time.perf_counter() - restart_at
+        transfer = read_json(os.path.join(sup.nodes[3].dir, "transfer.json"))
+        stage3 = range(2 * CLUSTER_REQS, 2 * CLUSTER_REQS + 8)
+        submit_all(stage3)
+        await_commits(stage3, range(4), "after node 3's catch-up")
+        chains = one_chain("the end")
+        per_node = [sup.committed(n) for n in range(4)]
+    finally:
+        sup.teardown()
+    for n, commits in enumerate(per_node):
+        pairs = [(c, q) for c, q, _s in commits]
+        check(len(pairs) == len(set(pairs)),
+              f"22a: node {n} committed a request twice")
+    codes = sup.exit_codes()
+    check(codes[3] == [-9, 0], f"22a: node 3 exit codes {codes[3]}")
+    counts = check_workers("22a", sup.evidence, codes)
+    add(counts)
+    print(f"phase 22a ok: 4 workers on {CLUSTER_PROCESSOR}, boot "
+          f"{[round(b, 3) for b in boot]} s, {CLUSTER_REQS} requests "
+          f"committed on every node, node 3 SIGKILLed, {CLUSTER_REQS} more "
+          f"on the other three, node 3 back from disk on port "
+          f"{sup.nodes[3].transport_port} in {restart_s:.3f} s (boot "
+          f"{sup.nodes[3].boot_seconds[-1]:.3f} s), on the others' chain "
+          f"{caught_up_s:.3f} s after its restart (snapshots installed "
+          f"{(transfer or {}).get('counters', {}).get('snapshots_installed')}"
+          f"), 8 more on all four, one "
+          f"chain {chains[0][:16]}..., commits {[len(c) for c in per_node]}, "
+          f"exit codes {codes}; per worker device hash flushes "
+          f"{[e['flushes'].get('hash/device') for e in sup.evidence.values()]}"
+          f", launches {[e['launches'] for e in sup.evidence.values()]}, 0 "
+          f"host digests; wrapper launches {counts} "
+          f"({time.perf_counter() - start:.1f} s, done at "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    def gate_mp(label, out, signed=False):
+        check(len(set(out["chains"])) == 1 and "" not in out["chains"],
+              f"{label}: chains {out['chains']}")
+        check(not out["duplicates"],
+              f"{label}: committed twice: {out['duplicates'][:5]}")
+        check(not out["missing"],
+              f"{label}: never committed: {out['missing'][:5]}")
+        counts = check_workers(label, out["evidence"], out["exit_codes"],
+                               signed=signed)
+        if signed:
+            for node, e in out["evidence"].items():
+                check(e.get("ingress_evicted", 0) >= out["forged_to"][node],
+                      f"{label}: node {node} evicted "
+                      f"{e.get('ingress_evicted')} of "
+                      f"{out['forged_to'][node]} forgeries")
+        add(counts)
+        return counts
+
+    # -- phase 22b: the JAX live_mp_run configuration on workers --------------
+    start = time.perf_counter()
+    out = port_bench.live_mp_run(CLUSTER_PROCESSOR, device="cuda")
+    counts = gate_mp("22b", out)
+    print(f"phase 22b ok: live_mp_run on {port_bench.LIVE_MP_NODES} workers, "
+          f"BatchSize {port_bench.LIVE_MP_BATCH_SIZE}: "
+          f"{describe_steps(out['steps'])}; boot {out['boot_seconds']} s; "
+          f"one chain, commits {out['commits']}, none twice, none missing; "
+          f"device hash flushes "
+          f"{[e['flushes'].get('hash/device') for e in out['evidence'].values()]}"
+          f", 0 host digests; wrapper launches {counts} "
+          f"({time.perf_counter() - start:.1f} s, done at "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 22c: signed ingress on workers ---------------------------------
+    start = time.perf_counter()
+    out = port_bench.live_mp_run(CLUSTER_PROCESSOR, device="cuda",
+                                 rates=(50.0,), signed=True)
+    counts = gate_mp("22c", out, signed=True)
+    ingress = {n: (e.get("ingress_batches"), e.get("ingress_delivered"),
+                   e.get("ingress_evicted"))
+               for n, e in out["evidence"].items()}
+    print(f"phase 22c ok: signed ingress on {port_bench.LIVE_MP_NODES} "
+          f"workers: {describe_steps(out['steps'])}; every honest request "
+          f"({out['submitted']}) committed once, one chain; forgeries sent "
+          f"{out['forged_to']}, ingress (batches, delivered, evicted) "
+          f"{ingress}, 0 verify errors; flushes signature/ingress "
+          f"{[e['flushes'].get('signature/ingress') for e in out['evidence'].values()]}"
+          f"; wrapper launches {counts} ({time.perf_counter() - start:.1f} "
+          f"s, done at {time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 22d: the chaos CLI on worker processes --------------------------
+    start = time.perf_counter()
+    argv = [sys.executable, "-m", "mirbft_tpu_torch.chaos", "--live",
+            "--cluster", "mp", "--smoke", "--processor", CLUSTER_PROCESSOR,
+            "--json"]
+    with tempfile.TemporaryDirectory() as scratch:
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=CLUSTER_CHAOS_S, cwd=scratch,
+                              env=dict(os.environ, PYTHONPATH=str(
+                                  Path(__file__).resolve().parent)))
+    check(proc.returncode == 0,
+          f"22d: chaos --cluster mp exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    campaign = json.loads(proc.stdout)
+    names = []
+    for r in campaign["scenarios"]:
+        c = r["counters"]
+        names.append(r["name"])
+        check(r["passed"] and c["host_digests"] == 0 and not c["log_faults"]
+              and all(n > 0 for n in c["hash_flushes"])
+              and c["launches_sha256"] > 0,
+              f"22d: {r['name']}: {r['violation']} {c}")
+        for node, codes in enumerate(c["exit_codes"]):
+            check(codes and codes[-1] == 0
+                  and all(code in (0, -9) for code in codes)
+                  and not c["worker_faults"],
+                  f"22d: {r['name']}: node {node} exit codes {codes}, "
+                  f"worker faults {c['worker_faults']}")
+        launches["launches_sha256"] += c["launches_sha256"]
+        print(f"  22d {r['name']}: passed, wall {r['sim_ms']} ms, commits "
+              f"{r['commits']}, recovery {c.get('recovery_ms')} ms, exit "
+              f"codes {c['exit_codes']}, device hash flushes "
+              f"{c['hash_flushes']}, wrapper launches {c['launches_sha256']}")
+    check(sorted(names) == ["crash-restart", "partition-minority",
+                            "retry-storm-dedup"], f"22d: ran {names}")
+    print(f"phase 22d ok: python -m mirbft_tpu_torch.chaos --live --cluster "
+          f"mp --smoke --processor {CLUSTER_PROCESSOR} exited 0 "
+          f"({time.perf_counter() - start:.1f} s, done at "
+          f"{time.perf_counter() - t0:.1f} s)")
+
+    # -- phase 22e: the reconfiguration A/B -----------------------------------
+    start = time.perf_counter()
+    out = port_bench.reconfig_run(device="cuda", processor=CLUSTER_PROCESSOR)
+    ev = out["evidence"]
+    check(ev["adoptions"] > 0 and ev["joined"]
+          and ev["snapshots_installed"] >= 1,
+          f"22e: adoptions {ev['adoptions']}, joined {ev['joined']}, "
+          f"snapshots installed {ev['snapshots_installed']}")
+    check(not out["duplicates"], f"22e: committed twice: "
+          f"{out['duplicates'][:5]}")
+    counts = check_workers("22e", out["kernels"], out["exit_codes"],
+                           nodes=range(4))
+    add(counts)
+    print(f"phase 22e ok: reconfig_run: {describe_steps(out['steps'])}; "
+          f"adoptions {ev['adoptions']}, node 4 joined and installed "
+          f"{ev['snapshots_installed']} snapshot(s); chains "
+          f"{[c[:12] for c in out['chains']]}, commits {out['commits']}; "
+          f"boot {out['boot_seconds']} s; exit codes {out['exit_codes']}; "
+          f"wrapper launches {counts} ({time.perf_counter() - start:.1f} s, "
+          f"done at {time.perf_counter() - t0:.1f} s)")
+    return launches
 
 
 def main() -> int:
@@ -2888,6 +3192,7 @@ def main() -> int:
     service = service_phases(t0)
     observed = obsv_phases(t0)
     chaos = chaos_phases(t0)
+    cluster = cluster_phases(t0)
 
     head = per_shape[0]
     kernels = [{
@@ -2907,6 +3212,7 @@ def main() -> int:
         "launches_chaos": chaos["det"]["sha256_digest"],
         "launches_chaos_live": chaos["live"]["sha256_digest"],
         "launches_flood": chaos["flood"],
+        "launches_cluster": cluster["launches_sha256"],
         "live_shapes": [
             [*shape, n] for shape, n in sorted(live_shapes.items())
         ],
@@ -2940,6 +3246,7 @@ def main() -> int:
             "launches_ingress_traced": observed["ingress"][name],
             "launches_chaos": chaos["det"][name],
             "launches_chaos_live": chaos["live"][name],
+            "launches_cluster": cluster[f"launches_{name}"],
             "ingress_rows_replayed": service["replayed"],
             "matched_plain": ed_err == 0 and service["ingress_err"] == 0,
             "max_abs_err": max(ed_err, service["ingress_err"]),

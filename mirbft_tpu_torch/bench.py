@@ -25,9 +25,17 @@ constants and its measurement protocols:
   KV service under the app rung's sessions, with a lagging replica that
   catches up by state transfer.
 
+- ``live_mp_run``, ``reconfig_run`` and ``knee_run`` (``bench.py:133-155,
+  183-221, 1192-1330, 1384-1510``): the multi-process rungs, one worker
+  process a node under ``cluster.ClusterSupervisor`` — the open-loop
+  Poisson steps (signed too, on the Ed25519 kernels in every worker), the
+  add-node reconfiguration A/B, and the capacity knee with its critical
+  path; each worker's exit codes and kernel evidence come back with them.
+
 All run on ``cuda`` unless the caller passes ``device="cpu"`` (the kernels'
 plain versions; the tests' route), and raise without a card.
-``chip_smoke.py`` (phases 10, 11, 13, 15, 16 and 17) runs them on a card.
+``chip_smoke.py`` (phases 10, 11, 13, 15-17 and 22) runs them on a card,
+``tests/cluster_rungs.py`` the knee.
 """
 
 from __future__ import annotations
@@ -1129,21 +1137,23 @@ APP_LAG_TIMEOUT_S = 120.0  # to reach the hold's target; again to catch up
 
 
 class _IngressFront:
-    """The load generator's cluster for the signed-ingress rung: node ids
-    and commit polling are the in-process cluster's, and ``submit`` hands
-    the request to the node's ingress stage instead of its propose.  Every
-    ``forge_every``-th distinct request gets a forged twin, one seeded bit
-    of its signature's S flipped, submitted to each node right after the
-    honest request's first submission there."""
+    """The load generator's cluster for the signed-ingress rungs: node ids
+    and commit polling are the cluster's, and ``submit`` hands the request
+    to ``deliver(node_id, request)``: the node's ingress stage in process,
+    or the supervisor's submission to a worker, whose transport hands it
+    to the worker's ingress stage.  Every ``forge_every``-th distinct
+    request gets a forged twin, one seeded bit of its signature's S
+    flipped, submitted to each node right after the honest request's
+    first submission there."""
 
-    def __init__(self, cluster, ingress: dict, forge_every: int, seed: int):
+    def __init__(self, cluster, deliver, forge_every: int, seed: int):
         from . import pb
         from .testengine.signing import PK_LEN, SIG_LEN
 
         self._request = pb.Request
         self._s_at = (SIG_LEN // 2 + PK_LEN, PK_LEN)  # S: data[-64:-32]
         self.cluster = cluster
-        self.ingress = ingress
+        self.deliver = deliver
         self.forge_every = forge_every
         self._rng = random.Random(seed)
         self.node_ids = cluster.node_ids
@@ -1171,12 +1181,12 @@ class _IngressFront:
             self.honest[key] = request.data
             if len(self.honest) % self.forge_every == 0:
                 self.forged[key] = self._forge(request.data)
-        self.ingress[node_id].submit(request)
+        self.deliver(node_id, request)
         forged = self.forged.get(key)
         if forged is not None and (*key, node_id) not in self._sent:
             self._sent.add((*key, node_id))
             self.forged_to[node_id] += 1
-            self.ingress[node_id].submit(self._request(
+            self.deliver(node_id, self._request(
                 client_id=request.client_id, req_no=request.req_no,
                 data=forged,
             ))
@@ -1256,7 +1266,8 @@ def ingress_run(*, device="cuda", rates=INGRESS_RATES, trace_dir=None) -> dict:
                 name=f"ingress-{replica.node_id}",
             )
         front = _IngressFront(
-            cluster, ingress, INGRESS_FORGE_EVERY, INGRESS_SEED
+            cluster, lambda n, request: ingress[n].submit(request),
+            INGRESS_FORGE_EVERY, INGRESS_SEED,
         )
         generator = loadgen.LoadGenerator(front, models, seed=INGRESS_SEED)
         steps = []
@@ -1908,3 +1919,437 @@ def soak_run(duration_s=None, sample_interval_s=0.5, registry=None, *,
         for store in stores:
             store.close()
         shutil.rmtree(root, ignore_errors=True)
+
+
+# -- the multi-process rungs ---------------------------------------------------
+
+# Multi-process rung (the JAX bench.py:133-144, 1192-1229): the same 4-node
+# consensus, but one real OS process per node (cluster/ supervisor +
+# workers) under open-loop Poisson load from the loadgen package, stepped
+# through LIVE_MP_RATE_STEPS offered rates: the latency *distribution*
+# under a fixed offered rate, the SLO view.  Every worker's processor
+# hashes on the SHA-256 kernel.
+LIVE_MP_NODES = 4
+LIVE_MP_RATE_STEPS = (25.0, 50.0, 100.0)
+LIVE_MP_STEP_DURATION_S = 2.0
+LIVE_MP_DRAIN_S = 25.0
+LIVE_MP_BATCH_SIZE = 4
+LIVE_MP_CLIENTS = (1, 2, 3)
+LIVE_MP_SEED = 11
+LIVE_MP_SETTLE_S = 30.0  # every node on one chain, after the last drain
+
+# Reconfig A/B inside the mp rung (the JAX bench.py:146-155, 1232-1330):
+# one Poisson rate measured twice on the same cluster — steady state, then
+# again while a committed add-node reconfiguration adopts at the
+# checkpoint boundary and the joiner boots via snapshot transfer.
+LIVE_MP_RECONFIG_RATE = 25.0
+LIVE_MP_RECONFIG_STEP_S = 4.0
+LIVE_MP_RECONFIG_ADMIN_CLIENT = 9
+LIVE_MP_RECONFIG_CI = 5
+
+# Knee rung (the JAX bench.py:183-221, 1384-1510): max-sustainable-rate-at-
+# SLO capacity search (loadgen/knee.py) on a real KNEE_NODES-process
+# cluster, honest clients only, tick APP_TICK_S; the traced config joins
+# the load generator's records with the workers' clock-aligned trace.json
+# milestones (obsv/critpath.py) for the per-phase attribution at the knee.
+KNEE_NODES = 8
+KNEE_BATCH_SIZE = 1
+KNEE_SLO_P95_MS = 8000.0
+KNEE_MIN_GOODPUT_RATIO = 0.6
+KNEE_START_RATE = 16.0
+KNEE_MAX_RATE = 256.0
+KNEE_STEP_DURATION_S = 2.0
+KNEE_DRAIN_S = 12.0
+# (name, processor, profile, traced, max_steps): the JAX rows' shape, each
+# processor the JAX kind's kernel twin (serial -> cuda, pipelined ->
+# cuda-pipelined), so every digest of the knee runs on the SHA-256 kernel.
+KNEE_CONFIGS = (
+    ("cuda-lan", "cuda", "lan", True, 7),
+    ("cuda-pipelined-lan", "cuda-pipelined", "lan", False, 4),
+)
+
+
+def _cluster_outcome(supervisor) -> dict:
+    """What a multi-process rung's gates read off its supervisor: each
+    node's commits and chain, the (client, req_no) pairs committed more
+    than once on a node, and each worker's boot seconds.  Call before
+    ``teardown``; the exit codes and kernel evidence come after it."""
+    chains = supervisor.chains()
+    duplicates = []
+    commits = []
+    for handle in supervisor.nodes:
+        pairs = collections.Counter((c, q) for c, q, _s in handle.commits)
+        commits.append(len(pairs))
+        duplicates.extend(
+            (handle.node_id, c, q) for (c, q), n in pairs.items() if n > 1
+        )
+    return {
+        "chains": chains,
+        "commits": commits,
+        "duplicates": duplicates,
+        "boot_seconds": [list(h.boot_seconds) for h in supervisor.nodes],
+    }
+
+
+def _settle(supervisor, want: set, timeout_s: float) -> None:
+    """Wait until every node's app chain is the same and every request in
+    ``want`` is committed on some node (the generator stops at the first
+    node's commit), or ``timeout_s`` passes; the caller gates on what it
+    reads after."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        chains = set(supervisor.chains())
+        committed = {
+            (c, q) for h in supervisor.nodes for c, q, _s in h.commits
+        }
+        if len(chains) == 1 and "" not in chains and want <= committed:
+            return
+        time.sleep(0.1)
+
+
+def live_mp_run(kind: str = "cuda-pipelined", *, device="cuda",
+                rates=LIVE_MP_RATE_STEPS,
+                step_s=LIVE_MP_STEP_DURATION_S,
+                drain_s=LIVE_MP_DRAIN_S, signed=False) -> dict:
+    """One open-loop load run against a real multi-process cluster under
+    executor ``kind``: LIVE_MP_NODES worker processes on ``device``,
+    Poisson arrivals stepped through ``rates``, the standard hostile
+    client mix (honest / slow+mixed-size / retry-storm), generator seed
+    11, each step seeded by its rate.  ``signed`` is the signed-ingress
+    rung's traffic on workers: the clients sign, every worker admits their
+    requests through ``SpeculativeIngress`` on the Ed25519 kernels, and
+    every INGRESS_FORGE_EVERY-th request gets a forged twin.
+
+    Returns ``steps`` (loadgen StepResults ready for the SLO artifact),
+    ``goodput_per_sec`` and ``p95_ms`` at the top rate, the requests
+    ``submitted`` (honest) and, when signed, the ``forged_to`` each
+    node, then, once every node holds one chain (or LIVE_MP_SETTLE_S
+    passed), the cluster's ``chains``, per-node ``commits`` and
+    ``duplicates``, the honest
+    requests committed nowhere (``missing``), each worker's
+    ``boot_seconds``, ``exit_codes`` and kernel ``evidence``
+    (``ClusterSupervisor.kernel_evidence``)."""
+    from . import loadgen
+    from .cluster import ClusterSupervisor
+    from .ops.batching import resolve_device
+
+    resolve_device(device)
+    client_ids = list(LIVE_MP_CLIENTS)
+    models = loadgen.standard_client_models(client_ids)
+    if signed:
+        models = {
+            cid: dataclasses.replace(model, signed=True)
+            for cid, model in models.items()
+        }
+    supervisor = ClusterSupervisor(
+        node_count=LIVE_MP_NODES,
+        client_ids=client_ids,
+        batch_size=LIVE_MP_BATCH_SIZE,
+        processor=kind,
+        signed_ingress=signed,
+        device=device,
+    )
+    try:
+        supervisor.start()
+        front = None
+        if signed:
+            front = _IngressFront(
+                supervisor, supervisor.submit, INGRESS_FORGE_EVERY,
+                INGRESS_SEED,
+            )
+        generator = loadgen.LoadGenerator(
+            front or supervisor, models, seed=LIVE_MP_SEED
+        )
+        steps = []
+        for rate in rates:
+            steps.append(
+                generator.run_step(
+                    f"{kind}-poisson-{int(rate)}",
+                    loadgen.PoissonArrivals(rate, seed=int(rate)),
+                    duration_s=step_s,
+                    drain_s=drain_s,
+                )
+            )
+        want = generator.submitted()
+        _settle(supervisor, want, LIVE_MP_SETTLE_S)
+        outcome = _cluster_outcome(supervisor)
+        committed = {
+            (c, q) for h in supervisor.nodes for c, q, _s in h.commits
+        }
+    finally:
+        supervisor.teardown()
+    top = steps[-1]
+    return {
+        "steps": steps,
+        "goodput_per_sec": top.goodput_per_sec,
+        "p95_ms": top.p95_ms,
+        "submitted": len(want),
+        "forged_to": dict(front.forged_to) if signed else {},
+        "missing": sorted(want - committed),
+        **outcome,
+        "exit_codes": supervisor.exit_codes(),
+        "evidence": supervisor.evidence,
+    }
+
+
+def reconfig_run(*, device="cuda", processor="cuda",
+                 step_s=LIVE_MP_RECONFIG_STEP_S,
+                 drain_s=LIVE_MP_DRAIN_S) -> dict:
+    """Membership-change A/B on the mp cluster: the same open-loop Poisson
+    step measured twice — in steady state, then while an admin client's
+    committed ``pb.NetworkConfig`` grows the node set 4 -> 5, the
+    incumbents adopt at the checkpoint boundary, and the joiner boots with
+    the committed target config and catches up via snapshot transfer.
+    Every worker runs ``processor`` on ``device`` (``cuda``: the twin of
+    the JAX rung's ``serial``).
+
+    Returns ``steps`` (the two loadgen StepResults), ``evidence``
+    (``adoptions`` over the incumbents, ``joined``, and the joiner's
+    ``snapshots_installed`` from its transfer counters) and, as
+    ``live_mp_run``, ``chains``, ``commits``, ``duplicates``,
+    ``boot_seconds``, ``exit_codes`` and the workers' ``kernels``."""
+    from . import loadgen, pb
+    from .cluster import ClusterSupervisor
+    from .cluster.worker import read_json
+    from .ops.batching import resolve_device
+    from .runtime.reconfig import encode_reconfig_request
+
+    resolve_device(device)
+    client_ids = list(LIVE_MP_CLIENTS)
+    admin = LIVE_MP_RECONFIG_ADMIN_CLIENT
+    incumbent = {
+        "nodes": [0, 1, 2, 3],
+        "f": 1,
+        "number_of_buckets": 4,
+        "checkpoint_interval": LIVE_MP_RECONFIG_CI,
+        "max_epoch_length": 10 * LIVE_MP_RECONFIG_CI,
+    }
+    target = dict(incumbent, nodes=[0, 1, 2, 3, 4])
+    reconfig_payload = encode_reconfig_request(
+        [pb.Reconfiguration(type=pb.NetworkConfig(**target))]
+    )
+    supervisor = ClusterSupervisor(
+        node_count=5,
+        client_ids=client_ids + [admin],
+        batch_size=LIVE_MP_BATCH_SIZE,
+        processor=processor,
+        deferred_nodes=(4,),
+        network_config=incumbent,
+        device=device,
+    )
+    evidence = {"adoptions": 0, "joined": False, "snapshots_installed": 0}
+    failures: list = []
+    stop = threading.Event()
+
+    def reconfigure():
+        # Submit (resubmitting until adoption — client-window dedup
+        # absorbs duplicates), then spawn the joiner with the committed
+        # target config the moment any incumbent reports adoption.
+        request = pb.Request(client_id=admin, req_no=0, data=reconfig_payload)
+        last_submit = 0.0
+        try:
+            while not stop.is_set():
+                adopted = 0
+                for node in incumbent["nodes"]:
+                    doc = read_json(os.path.join(
+                        supervisor.nodes[node].dir, "reconfig.json"))
+                    adopted += int((doc or {}).get("adopted", 0) or 0)
+                evidence["adoptions"] = adopted
+                if adopted > 0:
+                    supervisor.join_node(4, network_config=target)
+                    evidence["joined"] = True
+                    return
+                if time.monotonic() - last_submit >= 1.0:
+                    for node_id in supervisor.alive_nodes():
+                        supervisor.submit(node_id, request)
+                    last_submit = time.monotonic()
+                time.sleep(0.2)
+        except Exception as exc:  # noqa: BLE001 — raised by the caller
+            failures.append(exc)
+
+    try:
+        supervisor.start()
+        generator = loadgen.LoadGenerator(
+            supervisor,
+            loadgen.standard_client_models(client_ids),
+            seed=13,
+        )
+        steady = generator.run_step(
+            "reconfig-steady",
+            loadgen.PoissonArrivals(LIVE_MP_RECONFIG_RATE, seed=7),
+            duration_s=step_s,
+            drain_s=drain_s,
+        )
+        worker = threading.Thread(target=reconfigure, daemon=True)
+        worker.start()
+        during = generator.run_step(
+            "reconfig-add-node",
+            loadgen.PoissonArrivals(LIVE_MP_RECONFIG_RATE, seed=8),
+            duration_s=step_s,
+            # Longer drain than the steady arm: the adoption epoch roll
+            # can spiral on a starved CPU and commit resumption then
+            # takes tens of seconds; a timed-out tail here would report
+            # a liveness failure as a latency number.
+            drain_s=4 * drain_s,
+        )
+        worker.join(timeout=90.0)
+        if failures:
+            raise failures[0]
+        if evidence["adoptions"] <= 0:
+            raise RuntimeError(
+                "reconfig A/B is vacuous: no incumbent adopted the "
+                "reconfiguration within the measurement window"
+            )
+        if evidence["joined"]:
+            # The joiner publishes its transfer counters every 0.5 s.
+            deadline = time.monotonic() + 10.0
+            while time.monotonic() < deadline:
+                doc = read_json(os.path.join(
+                    supervisor.nodes[4].dir, "transfer.json")) or {}
+                counters = doc.get("counters", {})
+                evidence["snapshots_installed"] = int(
+                    counters.get("snapshots_installed", 0)
+                ) + int(counters.get("snapshots_resumed_staged", 0))
+                if evidence["snapshots_installed"]:
+                    break
+                time.sleep(0.1)
+        outcome = _cluster_outcome(supervisor)
+    finally:
+        stop.set()
+        supervisor.teardown()
+    return {
+        "steps": [steady, during],
+        "evidence": evidence,
+        **outcome,
+        "exit_codes": supervisor.exit_codes(),
+        "kernels": supervisor.evidence,
+    }
+
+
+def knee_run(*, device="cuda", configs=KNEE_CONFIGS, nodes=KNEE_NODES,
+             step_s=KNEE_STEP_DURATION_S, drain_s=KNEE_DRAIN_S) -> dict:
+    """Capacity-knee rung: per ``configs`` entry, boot a ``nodes``-worker
+    cluster on ``device``, hand ``loadgen.knee.find_knee`` a real
+    ``LoadGenerator.run_step`` closure, and locate the max sustainable
+    rate whose p95 still meets KNEE_SLO_P95_MS.  The traced config's
+    workers dump clock_sync-stamped trace.json on teardown; those are
+    joined with the knee probe's per-request records into a critpath
+    ledger for the per-phase attribution at the knee.
+
+    Returns the ``mirbft-capacity/1`` artifact, each config's entry with
+    its workers' ``exit_codes`` and kernel ``evidence`` beside it."""
+    from . import loadgen
+    from .cluster import ClusterSupervisor
+    from .loadgen import knee as kneemod
+    from .loadgen.clients import ClientModel
+    from .obsv import critpath
+    from .ops.batching import resolve_device
+
+    resolve_device(device)
+    docs = []
+    for name, kind, profile, traced, max_steps in configs:
+        client_ids = [1, 2, 3, 4]
+        supervisor = ClusterSupervisor(
+            node_count=nodes,
+            client_ids=client_ids,
+            batch_size=KNEE_BATCH_SIZE,
+            processor=kind,
+            profile=profile,
+            tick_seconds=APP_TICK_S,
+            trace=traced,
+            # Teardown must not delete the traced root: the workers
+            # write trace.json during the SIGTERM handshake and we read
+            # them back after the processes exit.
+            keep_root=traced,
+            device=device,
+        )
+        root = supervisor.root
+        records_by_rate: dict = {}
+        try:
+            supervisor.start()
+            generator = loadgen.LoadGenerator(
+                supervisor,
+                {cid: ClientModel() for cid in client_ids},
+                seed=13,
+            )
+            # Discarded warm step: the first commits after boot pay
+            # epoch setup and cold caches, which would contaminate the
+            # lowest-rate probe's percentiles.
+            generator.run_step(
+                f"{name}-warm",
+                loadgen.PoissonArrivals(KNEE_START_RATE / 2, seed=5),
+                duration_s=step_s,
+                drain_s=drain_s / 2,
+            )
+
+            def measure(rate):
+                step = generator.run_step(
+                    f"{name}-knee-{rate:.1f}",
+                    loadgen.PoissonArrivals(rate, seed=int(rate * 8) or 1),
+                    duration_s=step_s,
+                    drain_s=drain_s,
+                )
+                records_by_rate[float(rate)] = step.records
+                return step
+
+            # Coarse resolution on purpose, as in the JAX rung: a probe
+            # past saturation can wedge the cluster in epoch suspicion
+            # for longer than the drain window.
+            result = kneemod.find_knee(
+                measure,
+                KNEE_START_RATE,
+                KNEE_SLO_P95_MS,
+                max_rate=KNEE_MAX_RATE,
+                max_steps=max_steps,
+                resolution=0.25,
+                min_goodput_ratio=KNEE_MIN_GOODPUT_RATIO,
+            )
+        finally:
+            supervisor.teardown()
+        attribution = None
+        if traced:
+            try:
+                traces = []
+                for n in range(nodes):
+                    path = os.path.join(root, f"node{n}", "trace.json")
+                    if os.path.exists(path):
+                        with open(path) as fh:
+                            traces.append(json.load(fh))
+                # Attribute the knee probe itself (the highest passing
+                # rate); fall back to every record when the search never
+                # passed so the artifact still carries an attribution.
+                records = records_by_rate.get(
+                    result.knee_rate_per_sec
+                    if result.knee_rate_per_sec is not None
+                    else -1.0
+                ) or [
+                    record
+                    for step_records in records_by_rate.values()
+                    for record in step_records
+                ]
+                if traces:
+                    ledger = critpath.build_ledger(traces, records)
+                    if ledger:
+                        attribution = critpath.attribute(ledger)
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+        doc = kneemod.config_doc(
+            name,
+            result,
+            profile=profile,
+            processor=kind,
+            attribution=attribution,
+            nodes=nodes,
+            clients=len(client_ids),
+        )
+        doc["exit_codes"] = supervisor.exit_codes()
+        doc["evidence"] = supervisor.evidence
+        docs.append(doc)
+    return kneemod.artifact(
+        docs,
+        nodes=nodes,
+        tick_seconds=APP_TICK_S,
+        step_duration_s=step_s,
+        drain_s=drain_s,
+        client_model="honest",
+    )

@@ -1,5 +1,5 @@
 """CLI entry: ``python -m mirbft_tpu_torch.chaos [--seed N] [--seeds K]
-[--smoke] [--live] [--adversary] [--cluster threads] [--only S]
+[--smoke] [--live] [--adversary] [--cluster {threads,mp}] [--only S]
 [--budget S] [--processor KIND] [--json] [--list] [--device {cuda,cpu}]``.
 
 ``--json`` replaces the human report with one JSON document per
@@ -11,12 +11,17 @@ directory to ``python -m mirbft_tpu_torch.obsv --postmortem``).
 instead of the deterministic testengine; ``--smoke`` selects each
 mode's tier-1 subset; ``--adversary`` swaps in the Byzantine matrix
 (corrupting, equivocating, censoring, and flooding leaders) on either
-engine.  ``--cluster`` picks the live cluster shape; the port offers
-``threads`` (chaos/live.py: every node in this process).
+engine.  ``--cluster`` picks the live cluster shape: ``threads``
+(chaos/live.py: every node in this process) or ``mp`` (cluster/: one
+worker process a node, ``mp_matrix()``, or ``mp_adversary_matrix()``
+with ``--adversary``; ``--smoke`` keeps the acceptance pair and the
+dedup storm: ``crash-restart``, ``partition-minority`` and
+``retry-storm-dedup``; each scenario's budget is at least 180 s).
 
 The kernels run on ``--device``: ``cuda`` (the default; the run raises
 without a card) or ``cpu`` (their plain versions).  ``--processor``
-picks the executor every live replica builds (default ``cuda``).
+picks the executor every live replica builds (default ``cuda``); an
+mp worker runs its kernels on ``--device`` too.
 
 Exit status 0 iff every selected scenario passed all invariants (under
 every seed of the sweep, when ``--seeds`` > 1)."""
@@ -78,9 +83,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--cluster",
         default="threads",
-        choices=("threads",),
+        choices=("threads", "mp"),
         help="live cluster shape (--live only): threads = all nodes in "
-        "this process",
+        "this process, mp = one worker process per node",
     )
     parser.add_argument(
         "--only",
@@ -122,7 +127,24 @@ def main(argv=None) -> int:
     )
     args = parser.parse_args(argv)
 
-    if args.live:
+    if args.live and args.cluster == "mp":
+        # The mp matrix is already the smoke-sized pair + the dedup
+        # storm + the reconfiguration set; process-per-node runs are too
+        # heavy for a long matrix.
+        from ..cluster.chaos_mp import (
+            MP_SMOKE_NAMES,
+            mp_adversary_matrix,
+            mp_matrix,
+        )
+
+        if args.adversary:
+            scenarios = mp_adversary_matrix()
+        elif args.smoke:
+            keep = set(MP_SMOKE_NAMES) | {"retry-storm-dedup"}
+            scenarios = [s for s in mp_matrix() if s.name in keep]
+        else:
+            scenarios = mp_matrix()
+    elif args.live:
         if args.adversary:
             scenarios = live_adversary_matrix()
         else:
@@ -149,7 +171,17 @@ def main(argv=None) -> int:
     all_passed = True
     good_campaigns = 0
     for seed in range(args.seed, args.seed + args.seeds):
-        if args.live:
+        if args.live and args.cluster == "mp":
+            from ..cluster.chaos_mp import run_mp_campaign
+
+            campaign = run_mp_campaign(
+                scenarios,
+                seed=seed,
+                budget_s=max(args.budget, 180.0),
+                processor=args.processor,
+                device=args.device,
+            )
+        elif args.live:
             campaign = run_live_campaign(
                 scenarios,
                 seed=seed,

@@ -101,13 +101,13 @@ from .invariants import (
     check_transfer_corruption_rejected,
 )
 from ..obsv.recorder import FlightRecorder
+from ..ops import kernel_launches
 from .runner import (
     FIRST_WORKING_EPOCH,
     ROTATION_BUCKETS,
     CampaignResult,
     ScenarioResult,
     dump_on_violation,
-    kernel_launches,
 )
 from .scenarios import Scenario, live_matrix
 

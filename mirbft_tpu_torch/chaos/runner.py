@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 
 from .. import pb
 from ..obsv import hooks
+from ..ops import kernel_launches
 from ..ops.batching import resolve_device
 from ..resilience import CircuitBreaker
 from ..obsv.metrics import Registry
@@ -168,28 +169,6 @@ def _active_config(rec, node):
     if commit_state is None or commit_state.active_state is None:
         return None
     return commit_state.active_state.config
-
-
-def kernel_launches() -> dict:
-    """Each kernel wrapper's launch count so far (process-wide; a wrapper
-    counts only launches on a card, so all read 0 on the CPU)."""
-    from ..ops import bls_g1, ed25519, sha256
-
-    return {
-        "launches_sha256": sha256.sha256_digest_words.launches,
-        "launches_ed25519_decompress": ed25519.decompress.launches,
-        "launches_ed25519_ladder": ed25519.ladder.launches,
-        "launches_bls_g1": bls_g1.aggregate_points.launches,
-    }
-
-
-def zero_kernel_launches() -> None:
-    """Set every count ``kernel_launches`` reads to 0."""
-    from ..ops import bls_g1, ed25519, sha256
-
-    sha256.sha256_digest_words.launches = 0
-    ed25519.decompress.launches = ed25519.ladder.launches = 0
-    bls_g1.aggregate_points.launches = 0
 
 
 def run_scenario(

@@ -274,6 +274,13 @@ class ActiveEpoch:
         actions = seq.apply_commit_msg(source, digest)
         if seq.state != SeqState.COMMITTED or seq_no != self.lowest_uncommitted:
             return actions
+        if self.commit_state.transferring:
+            # A lagging node asked for a transfer to a certified checkpoint
+            # past this window (StateMachine._maybe_request_transfer) while
+            # its epoch still runs; the transfer supersedes these
+            # sequences.  The JAX package commits here and its serializer
+            # dies on CommitState.commit's guard (ROADMAP queue 3).
+            return actions
 
         while self.lowest_uncommitted <= self.high_watermark():
             seq = self.sequence(self.lowest_uncommitted)

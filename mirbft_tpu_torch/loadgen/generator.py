@@ -103,6 +103,14 @@ class LoadGenerator:
         # first use so unsigned runs never import the crypto stack.
         self._signer = None
 
+    def submitted(self) -> set:
+        """Every (client_id, req_no) the steps so far have submitted."""
+        return {
+            (client_id, req_no)
+            for client_id, count in self._req_no.items()
+            for req_no in range(count)
+        }
+
     # -- one rate step -------------------------------------------------------
 
     def run_step(

@@ -74,11 +74,17 @@ class ObsvExporter:
                 except Exception as exc:  # noqa: BLE001 — scrape must not kill the node
                     body, ctype, code = f"error: {exc}\n", "text/plain", 500
                 payload = body.encode("utf-8")
-                self.send_response(code)
-                self.send_header("Content-Type", f"{ctype}; charset=utf-8")
-                self.send_header("Content-Length", str(len(payload)))
-                self.end_headers()
-                self.wfile.write(payload)
+                try:
+                    self.send_response(code)
+                    self.send_header("Content-Type", f"{ctype}; charset=utf-8")
+                    self.send_header("Content-Length", str(len(payload)))
+                    self.end_headers()
+                    self.wfile.write(payload)
+                except (BrokenPipeError, ConnectionResetError):
+                    # The scraper hung up first (a supervisor's readiness
+                    # poll past its 1 s timeout): no one is left to
+                    # answer.  socketserver would print a traceback.
+                    pass
 
         self._server = http.server.ThreadingHTTPServer((host, port), _Handler)
         self._server.daemon_threads = True

@@ -3,7 +3,8 @@ package, its entry points refuse to run on a card that is not there, and
 the device ack plane and the BLS aggregation raise instead of falling back
 to the host.  The live service (signed ingress, the app layer, state
 transfer, the load generator and the chaos campaign) is held to the same
-rules: no jax, no JAX package, no host route unless named."""
+rules: no jax, no JAX package, no host route unless named.  So is the
+multi-process cluster, a spawned worker process's own imports included."""
 
 import ast
 import os
@@ -212,6 +213,11 @@ def _cluster(**kw):
         lambda: run_scenario(smoke_matrix()[0]),
         lambda: run_live_scenario(live_smoke_matrix()[0]),
         port_bench.live_attack_run,
+        port_bench.live_mp_run,
+        port_bench.reconfig_run,
+        port_bench.knee_run,
+        lambda: chaos_main(["--live", "--cluster", "mp", "--smoke",
+                            "--only", "retry"]),
     ],
     ids=[
         "kernel_plane", "sha256_many", "sha256_chunked", "to_tensors",
@@ -223,7 +229,8 @@ def _cluster(**kw):
         "inprocess_cluster", "inprocess_kv_cluster", "ingress_run",
         "app_run", "obsv_cli_run", "soak_run", "chaos_cli_run",
         "chaos_cli_live_run", "run_scenario", "run_live_scenario",
-        "live_attack_run",
+        "live_attack_run", "live_mp_run", "reconfig_run", "knee_run",
+        "chaos_cli_mp_run",
     ],
 )
 def test_entry_points_raise_without_a_card(no_card, entry):
@@ -267,6 +274,8 @@ def test_entry_points_raise_without_a_card(no_card, entry):
                                   device="cpu"),
         lambda: port_bench.live_attack_run(
             "cuda", device="cpu", settings=TINY_LIVE),
+        lambda: chaos_main(["--live", "--cluster", "mp", "--smoke",
+                            "--device", "cpu", "--only", "retry"]),
     ],
     ids=[
         "kernel_plane", "sha256_many", "to_tensors", "recorder",
@@ -276,7 +285,7 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
         "default_config_processor", "batch_verifier", "inprocess_cluster",
         "obsv_cli_run", "soak_run", "chaos_cli_run", "run_scenario",
-        "run_live_scenario", "live_attack_run",
+        "run_live_scenario", "live_attack_run", "chaos_cli_mp_run",
     ],
 )
 def test_entry_points_run_on_the_cpu_when_asked(no_card, entry):
@@ -383,6 +392,8 @@ SERVICE_MODULES = [
     "loadgen/slo.py", "chaos/__init__.py", "chaos/invariants.py",
     "chaos/faults.py", "chaos/scenarios.py", "chaos/runner.py",
     "chaos/live.py", "chaos/__main__.py", "resilience.py",
+    "cluster/__init__.py", "cluster/__main__.py", "cluster/profiles.py",
+    "cluster/worker.py", "cluster/supervisor.py", "cluster/chaos_mp.py",
 ]
 
 
@@ -593,3 +604,83 @@ def test_bls_route_has_no_host_fallback():
         fn = inspect.unwrap(fn)
         tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], fn
+
+
+WORKER_BLOCKED = textwrap.dedent(
+    """
+    import runpy, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".")
+                   for b in ("jax", "mirbft_tpu")):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    sys.argv = ["mirbft_tpu_torch.cluster", "--spec", sys.argv[1]]
+    code = 0
+    try:
+        runpy.run_module("mirbft_tpu_torch.cluster", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as exc:
+        code = exc.code
+    loaded = [m for m in sys.modules
+              if m == "jax" or m.startswith("jax.")
+              or m == "mirbft_tpu" or m.startswith("mirbft_tpu.")]
+    print("loaded", loaded, flush=True)
+    sys.exit(code)
+    """
+)
+
+
+def test_a_spawned_worker_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """``python -m mirbft_tpu_torch.cluster`` as the supervisor spawns it,
+    with jax and the JAX package blocked: a 1-node worker on ``cpu`` with
+    signed ingress and link MACs (the worker's lazy imports) boots, goes
+    ready, and stops on SIGTERM with exit 0, having loaded neither."""
+    import json
+    import signal
+    import time
+    import urllib.request
+
+    node_dir = tmp_path / "node0"
+    node_dir.mkdir()
+    spec = {"node_id": 0, "node_count": 1, "client_ids": [1],
+            "dir": str(node_dir), "root": str(tmp_path), "device": "cpu",
+            "processor": "cuda-pipelined", "signed_ingress": True,
+            "link_auth": True, "auth_secret": "s"}
+    (node_dir / "spec.json").write_text(json.dumps(spec))
+    (node_dir / "peers.json").write_text(json.dumps({"peers": {}}))
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", WORKER_BLOCKED, str(node_dir / "spec.json")],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True,
+    )
+    try:
+        deadline = time.monotonic() + 60
+        ready = False
+        while time.monotonic() < deadline and not ready:
+            assert proc.poll() is None, proc.communicate()
+            address = node_dir / "address.json"
+            if address.exists():
+                port = json.loads(address.read_text())["metrics_port"]
+                try:
+                    with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=1.0
+                    ) as resp:
+                        ready = json.loads(resp.read()).get("ready", False)
+                except OSError:
+                    pass
+            time.sleep(0.05)
+        assert ready
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err
+    assert "loaded []" in out, (out, err)
+    assert "blocked" not in err

@@ -789,6 +789,44 @@ def test_metrics_endpoint_reports_disabled_hooks():
     assert code == 200 and "disabled" in text
 
 
+def _hang_up_early(p, capsys) -> str:
+    """One ``/status`` whose answer takes 0.3 s, asked by a client that
+    resets its connection first; what the server then wrote on stderr."""
+    import struct
+
+    exporter = p.exporter.ObsvExporter(
+        status_fn=lambda: (time.sleep(0.3), {"ok": True})[1]
+    )
+    try:
+        client = socket.create_connection(exporter.address, timeout=5)
+        client.sendall(b"GET /status HTTP/1.1\r\nHost: x\r\n\r\n")
+        time.sleep(0.05)
+        # SO_LINGER 0: close sends a reset, so the answer's write fails.
+        client.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                          struct.pack("ii", 1, 0))
+        client.close()
+        deadline = time.monotonic() + 1.5
+        err = ""
+        while time.monotonic() < deadline and "Error" not in err:
+            time.sleep(0.1)
+            err += capsys.readouterr().err
+        return err
+    finally:
+        exporter.close()
+
+
+def test_a_scraper_that_hangs_up_leaves_no_traceback(capsys):
+    """A supervisor's readiness poll gives up after 1 s; a worker that
+    answers later writes into a reset connection.  The JAX exporter's
+    server prints the BrokenPipe/ConnectionReset traceback on stderr (a
+    worker log holding it reads as a fault); the port's answers no one
+    and prints nothing."""
+    ref = _hang_up_early(JAX, capsys)
+    assert "Traceback" in ref
+    assert "BrokenPipeError" in ref or "ConnectionResetError" in ref
+    assert _hang_up_early(TORCH, capsys) == ""
+
+
 # ---------------------------------------------------------------------------
 # Timeline-diff regression gate
 # ---------------------------------------------------------------------------

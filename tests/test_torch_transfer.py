@@ -14,9 +14,13 @@ package's donor.  Every comparison is exact.
 
 The live corrupt-stream run on real sockets
 (tests/test_transfer_engine.py:646) is mirrored in
-tests/test_torch_chaos_mirrors.py.  Not mirrored: the multi-process join
-and remove under partition (:609, :629), which need the unported
-cluster/."""
+tests/test_torch_chaos_mirrors.py; the multi-process join and remove
+under partition (:609, :629) in tests/test_torch_cluster.py (slow).
+
+Last, a lagging node's commit while its transfer is in flight: the JAX
+package's active epoch commits and its serializer dies on
+``CommitState.commit``'s guard; the port's leaves the sequences to the
+transfer."""
 
 import types
 
@@ -754,3 +758,51 @@ def test_port_fetcher_installs_from_a_jax_donor(tmp_path):
     assert encode_snapshot(snap) == encode_snapshot(port_snap)
     assert fetcher.counters["chunks_received"] > 1
     assert len(sink.completed) == 1
+
+
+# -- a commit quorum while a transfer is in flight ---------------------------
+
+
+def _epoch_at_commit(active_epoch, commitstate, sequence, seq_no):
+    """An active epoch of either package whose lowest uncommitted sequence
+    has just gathered its commit quorum, and whose commit state has a
+    transfer in flight (``_maybe_request_transfer`` fired on a certified
+    checkpoint past the window while the epoch still runs)."""
+    epoch = active_epoch.ActiveEpoch.__new__(active_epoch.ActiveEpoch)
+    commit_state = commitstate.CommitState.__new__(commitstate.CommitState)
+    commit_state.transferring = True
+    seq = types.SimpleNamespace(
+        seq_no=seq_no,
+        state=sequence.SeqState.COMMITTED,
+        q_entry=types.SimpleNamespace(seq_no=seq_no, digest=b"",
+                                      requests=[]),
+        apply_commit_msg=lambda source, digest: active_epoch.Actions(),
+    )
+    epoch.sequence = lambda n: seq
+    epoch.lowest_uncommitted = seq_no
+    epoch.high_watermark = lambda: seq_no + 1
+    epoch.commit_state = commit_state
+    return epoch
+
+
+def test_commit_quorum_during_a_transfer_leaves_the_sequence_to_it():
+    """The driver's run on the CPU saw a port replica's serializer die
+    with "must never commit during state transfer" (seq 339, a null
+    batch) in tests/test_torch_app.py's KV session: a lagging replica of
+    the in-process cluster had asked for a transfer while its epoch ran,
+    and a commit quorum arrived.  The JAX package's active epoch does the
+    same; the port's returns without committing."""
+    from mirbft_tpu.core import active_epoch as jax_active_epoch
+    from mirbft_tpu.core import commitstate as jax_commitstate
+    from mirbft_tpu.core import sequence as jax_sequence
+    from mirbft_tpu_torch.core import active_epoch, commitstate, sequence
+
+    ref = _epoch_at_commit(jax_active_epoch, jax_commitstate, jax_sequence,
+                           339)
+    with pytest.raises(AssertionError, match="never commit during state"):
+        ref.apply_commit_msg(1, 339, b"")
+
+    port = _epoch_at_commit(active_epoch, commitstate, sequence, 339)
+    port.apply_commit_msg(1, 339, b"")
+    assert port.lowest_uncommitted == 339
+    assert port.commit_state.transferring
