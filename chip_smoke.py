@@ -8,8 +8,8 @@ CUDA toolkit:
 Phases (any failure raises and the script exits nonzero):
 
 1. print the card's name and power limit; build the SHA-256 (digest and
-   chain), Ed25519, ack-plane and BLS G1 kernels from
-   ``mirbft_tpu_torch/csrc/{sha256,ed25519,ack_plane,bls_g1}.cu`` (one
+   chain), Ed25519, ack-plane, BLS G1 and sharded-plane kernels from
+   ``mirbft_tpu_torch/csrc/{sha256,ed25519,ack_plane,bls_g1,parallel}.cu`` (one
    ``nvcc`` each, started together) and print ptxas's register, spill and
    shared-memory report (the ladder's dynamic shared memory beside it);
 2. hold the SHA-256 kernel against its plain PyTorch version and hashlib,
@@ -24,7 +24,7 @@ Phases (any failure raises and the script exits nonzero):
    commits per node;
 4. the main path at ladder rung 2 (16 nodes, 64 clients x 100 requests,
    BatchSize 200, ready_latency 400 ms): the host plane and the kernel
-   plane in ten pairs of alternating order (host, kernel, kernel, host,
+   plane in four pairs of alternating order (host, kernel, kernel, host,
    ...); events, app chains and committed sequences must be equal, the
    kernel must have launched, and no digest may come from the host.  Each
    run starts after a full collection of the earlier runs' garbage and
@@ -222,7 +222,23 @@ Phases (any failure raises and the script exits nonzero):
     which catches up by a snapshot).  Every worker must exit 0 (or -9
     where SIGKILLed), log no fault, show device hash flushes in its
     ``metrics.json`` and make no digest on the host; one chain, no
-    request committed twice or never.
+    request committed twice or never;
+23. the sharded plane (``mirbft_tpu_torch.parallel``, ``entry.py``, the
+    ack plane's client axis) on meshes that name the card several times:
+    (c) the device-plane anchor with every node's ack plane on 4 client
+    blocks, ``[cuda:0] * 4``: 2320 events, phase 3's chain, each flush's
+    4 steps merged by one ``shard_sum``; (d) ``entry()`` and
+    ``dryrun_multichip(4, devices=[cuda:0] * 4)`` (the counts read just
+    after these two are the kernels line's launches); then (a)
+    ``tally_columns`` and ``shard_sum`` (with and without a threshold)
+    against their plain versions, bit for bit, at (8, 16), (128, 4096)
+    and (256, 65536) int8 and at the main path's sums, each timed beside
+    its launch floor, its byte bound and the library call
+    (``votes.sum(0, dtype=torch.int32)``); (b) the three sharded
+    functions on ``[cuda:0]`` and ``[cuda:0] * 4`` equal to the unsharded
+    kernels (the Ed25519 verdicts accept the valid half and reject the
+    corrupted half), their launches counted, and timed against the
+    unsharded call.
 
 It then prints the kernels as one JSON line, the card's name and power
 limit, and, last, the result line the chip check reads.  Without a CUDA
@@ -252,7 +268,7 @@ SEED = 20261016
 NODES, CLIENTS, BATCH_SIZE = 16, 64, 200
 ANCHOR_REQS, RUNG2_REQS = 25, 100
 READY_LATENCY_MS = 400
-RUNG2_PAIRS = 10  # host/kernel pairs: the run-to-run spread is wide
+RUNG2_PAIRS = 4  # host/kernel pairs (~13 s each: the script's time limit)
 SIGNED_REQS = 4  # phase 7: 16 nodes x 64 clients x 4 signed requests
 FORGED_REQ_NO = 99
 # The JAX package's own rung-3 run on a CPU (SpeculativeSignaturePlane with
@@ -1801,11 +1817,35 @@ def chaos_reference():
 
 
 CHAOS_WORDS = 6  # words of a violation the pin keeps
-#: The live campaigns' one classified failure (ROADMAP queue 3): the
-#: rebooted node catches up without a chunk from its corrupting donor.
+#: The live campaigns' classified failures (ROADMAP queue 3), each as
+#: (the violation's words, the counter that must show the cause or None):
+#: the rebooted node catches up without a chunk from its corrupting donor
+#: (item 9); a censored request commits past ``censor_k`` rotations after a
+#: node suspected the first working epoch before its first commit, a wall-
+#: clock race the port's hashlib processor loses too (item 17).
 LIVE_CLASSIFIED = {
-    "transfer-corrupt-stream": "transfer attack touched no frames (vacuous)",
+    "transfer-corrupt-stream": (
+        "transfer attack touched no frames (vacuous)", None),
+    "censor-client-rotation": (
+        "censored requests took more than 3 epoch rotations",
+        "suspected_before_commit"),
 }
+
+
+def live_classified(result) -> bool:
+    """A live failure of the classified kind, with its cause on record."""
+    words, cause = LIVE_CLASSIFIED.get(result.name, (None, None))
+    return (words is not None and words in result.violation
+            and (cause is None or bool(result.counters.get(cause))))
+
+
+def classified_note(result) -> str:
+    """The line phase 20d prints for a classified failure."""
+    _words, cause = LIVE_CLASSIFIED[result.name]
+    note = f"{result.name}: the classified failure (ROADMAP queue 3)"
+    if cause is not None:
+        note += f", {cause} {result.counters.get(cause)}"
+    return note
 SIGNED_SCENARIOS = ("corrupt-propose-signed", "signed-verifier-dies")
 
 
@@ -1957,9 +1997,10 @@ def chaos_phases(t0: float) -> dict:
                     campaign.results, wall, live=True)
         for r in campaign.results:
             c = r.counters
-            check(r.passed or (r.name in LIVE_CLASSIFIED
-                               and LIVE_CLASSIFIED[r.name] in r.violation),
+            check(r.passed or live_classified(r),
                   f"live {r.name} on {processor}: {r.violation}")
+            if not r.passed:
+                print(f"    {classified_note(r)}")
             check(all(n > 0 for n in c["digest_launches"])
                   and c["launches_sha256"] > 0,
                   f"live {r.name}: SHA-256 launches per node "
@@ -2287,6 +2328,254 @@ def cluster_phases(t0: float) -> dict:
     return launches
 
 
+PARALLEL_SHARDS = 4  # phase 23's mesh: [cuda:0] * 4
+PARALLEL_TALLY_SHAPES = ((8, 16), (128, 4096), (256, 65536))
+# shard_sum at the main path's sums (the sweep's 3 totals, the dryrun's 16
+# seqs, the anchor's 2048-row step outputs) and at the tally's widths.
+PARALLEL_SUM_WIDTHS = (3, 16, 2048, 4096, 65536)
+PARALLEL_SUM_THRESHOLD = 1 << 20
+PARALLEL_DIGEST_ROWS = 8192  # sharded_sha256: request digests, (8192, 1)
+PARALLEL_VERIFY_ROWS = 64  # sharded_ed25519_verify: half corrupted
+
+
+def parallel_phases(t0: float, anchor_chains: dict) -> dict:
+    """Phase 23: the sharded plane on meshes that name the card several
+    times.  Returns, for ``tally_columns`` and ``shard_sum``, the head
+    shape's numbers and every shape's, and the launches of the main path's
+    run."""
+    import numpy as np
+    import torch
+
+    from mirbft_tpu_torch import entry as port_entry
+    from mirbft_tpu_torch.crypto import ed25519_host
+    from mirbft_tpu_torch.ops import ack_plane, tally
+    from mirbft_tpu_torch.ops import ed25519 as ed_ops
+    from mirbft_tpu_torch.ops.batching import pack_preimages, to_tensors
+    from mirbft_tpu_torch.ops.sha256 import (
+        sha256_digest_words,
+        sha256_digest_words_plain,
+    )
+    from mirbft_tpu_torch.parallel import sharding
+    from mirbft_tpu_torch.testengine.crypto_plane import AsyncKernelHashPlane
+
+    start = time.perf_counter()
+    card = torch.device("cuda", 0)
+    mesh = sharding.make_mesh(devices=[card] * PARALLEL_SHARDS)
+    counted = {
+        "tally_columns": tally.tally_columns,
+        "shard_sum": tally.shard_sum,
+        "ack_step": ack_plane.ack_step,
+        "ack_sweep": ack_plane.quorum_sweep,
+        "sha256_digest": sha256_digest_words,
+        "ed25519_decompress": ed_ops.decompress,
+        "ed25519_ladder": ed_ops.ladder,
+    }
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counted.items()}
+
+    # -- 23c-d: the main path, counts from 0 just before, read just after ------
+    zero()
+    plane = AsyncKernelHashPlane()
+    events, wall, _cpu, chains, _, counts = run_engine(
+        ANCHOR_REQS, plane, ack_plane="device", ack_device=mesh)
+    anchor = read()
+    check(events == 2320, f"phase 23c: the 4-shard anchor gave {events} "
+          "events")
+    check(chains == anchor_chains,
+          "phase 23c: app chains differ from phase 3's")
+    check(all(count == CLIENTS * ANCHOR_REQS for count in counts),
+          "phase 23c: not every node committed 1600 requests")
+    check(plane.host_digests == 0, "phase 23c: a digest came from the host")
+    # A flush: a step a shard, one shard_sum; a sweep likewise.
+    flushes = anchor["ack_step"] // PARALLEL_SHARDS
+    sweeps = anchor["ack_sweep"] // PARALLEL_SHARDS
+    check(flushes > 0 and anchor["ack_step"] == PARALLEL_SHARDS * flushes
+          and anchor["ack_sweep"] == PARALLEL_SHARDS * sweeps
+          and anchor["shard_sum"] == flushes + sweeps,
+          f"phase 23c: launches {anchor}")
+    print(f"phase 23c ok: device-plane anchor {NODES}x{CLIENTS}x"
+          f"{ANCHOR_REQS}, every node's ack plane on {PARALLEL_SHARDS} "
+          f"client blocks of [cuda:0] * {PARALLEL_SHARDS} -> {events} events "
+          f"in {wall:.3f} s, phase 3's chain; launches {anchor}")
+    forward, args = port_entry.entry()
+    words = forward(*args)
+    check(torch.equal(words, sha256_digest_words_plain(*args)),
+          "phase 23d: entry()'s digests differ from the plain version's")
+    dry = port_entry.dryrun_multichip(
+        PARALLEL_SHARDS, devices=[card] * PARALLEL_SHARDS)
+    main_launches = read()
+    for name in ("tally_columns", "shard_sum", "ack_step", "sha256_digest"):
+        check(main_launches[name] > 0,
+              f"phase 23: {name} was not launched on the main path")
+    print(f"phase 23d ok: entry() {tuple(args[0].shape)} -> "
+          f"{tuple(words.shape)} == plain; dryrun_multichip on "
+          f"{dry['devices']}: digests == hashlib, mask {dry['mask']}; "
+          f"main-path launches {main_launches}")
+
+    # -- 23a: the two kernels against their plain versions, and timed ----------
+    rng = np.random.default_rng(SEED)
+    tally_shapes = []
+    for rows, cols in PARALLEL_TALLY_SHAPES:
+        votes = torch.from_numpy(
+            rng.integers(-128, 128, (rows, cols), dtype=np.int8)).to(card)
+        check(torch.equal(tally.tally_columns(votes),
+                          tally.tally_columns_plain(votes)),
+              f"phase 23a: tally_columns != plain at {(rows, cols)}")
+        nbytes = tally.tally_bytes(votes)
+        tally_shapes.append({
+            "shape": [rows, cols],
+            "ms": time_events(lambda v=votes: [v], tally.tally_columns),
+            "plain_ms": time_wall(lambda v=votes: [v],
+                                  tally.tally_columns_plain),
+            "library_ms": time_events(
+                lambda v=votes: [v], lambda v: v.sum(0, dtype=torch.int32)),
+            "launch_floor_ms": time_events(
+                lambda: [], lambda c=cols: tally.empty_tally(c)),
+            "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        })
+    sum_shapes = []
+    for n in PARALLEL_SUM_WIDTHS:
+        parts = torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, (PARALLEL_SHARDS, n)).astype(np.int32)
+        ).to(card)
+        for threshold in (None, PARALLEL_SUM_THRESHOLD):
+            check(torch.equal(tally.shard_sum(parts, threshold),
+                              tally.shard_sum_plain(parts, threshold)),
+                  f"phase 23a: shard_sum != plain at {(PARALLEL_SHARDS, n)}"
+                  f", threshold {threshold}")
+        nbytes = tally.shard_sum_bytes(parts)
+        sum_shapes.append({
+            "shape": [PARALLEL_SHARDS, n],
+            "ms": time_events(lambda p=parts: [p], tally.shard_sum),
+            "mask_ms": time_events(lambda p=parts: [p], lambda p: (
+                tally.shard_sum(p, PARALLEL_SUM_THRESHOLD))),
+            "plain_ms": time_wall(lambda p=parts: [p], tally.shard_sum_plain),
+            "library_ms": time_events(
+                lambda p=parts: [p], lambda p: p.sum(0, dtype=torch.int32)),
+            "launch_floor_ms": time_events(
+                lambda: [], lambda n=n: tally.empty_shard_sum(n)),
+            "bytes": nbytes,
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        })
+    for label, shapes in (("tally_columns", tally_shapes),
+                          ("shard_sum", sum_shapes)):
+        for e in shapes:
+            print(f"  {label} {tuple(e['shape'])}: kernel {e['ms']:.6f} ms "
+                  f"(CUDA events, median of 20, one launch), launch floor "
+                  f"{e['launch_floor_ms']:.6f} ms, bound {e['bound_ms']:.6f} "
+                  f"ms ({e['bytes']} bytes / 3.35 TB/s), "
+                  f"{100 * e['bound_ms'] / e['ms']:.2f}% of bound; library "
+                  f"{e['library_ms']:.6f} ms (.sum(0, dtype=torch.int32)); "
+                  f"plain {e['plain_ms']:.6f} ms (wall)"
+                  + (f"; with a threshold {e['mask_ms']:.6f} ms"
+                     if "mask_ms" in e else ""))
+    print(f"phase 23a ok: tally_columns == plain at "
+          f"{list(PARALLEL_TALLY_SHAPES)} int8, shard_sum == plain with and "
+          f"without a threshold at {PARALLEL_SHARDS} x "
+          f"{list(PARALLEL_SUM_WIDTHS)}, max_abs_err 0")
+
+    # -- 23b: the sharded functions against the unsharded kernels --------------
+    messages = [rng.bytes(int(n)) for n in rng.integers(
+        0, 56, PARALLEL_DIGEST_ROWS)]
+    packed = pack_preimages(messages, batch_floor=PARALLEL_SHARDS)
+    votes = rng.integers(0, 2, (256, 65536)).astype(np.int8)
+    threshold = 171  # a 2f + 1 of 256 voters
+    rows = []
+    for i in range(PARALLEL_VERIFY_ROWS):
+        seed = i.to_bytes(32, "little")
+        msg = b"phase-23-%d" % i
+        pk, sig = ed25519_host.public_key(seed), ed25519_host.sign(seed, msg)
+        rows.append(ed_ops.marshal_light(
+            pk, msg + (b"!" if i % 2 else b""), sig))
+    enc, s_words, k_words = ed_ops.pack_rows(rows)
+    want_words = sha256_digest_words(*to_tensors(packed, card))
+    want_mask = (torch.from_numpy(votes).to(card).sum(0, dtype=torch.int32)
+                 >= threshold)
+    want_verdicts = ed_ops.launch_rows(rows, card)
+    check((want_verdicts != 0).tolist()
+          == [i % 2 == 0 for i in range(PARALLEL_VERIFY_ROWS)],
+          "phase 23b: the unsharded verdicts")
+    unsharded = {
+        "sharded_sha256": lambda: sha256_digest_words(
+            *to_tensors(packed, card)),
+        "sharded_quorum_tally": lambda: tally.shard_sum(
+            tally.tally_columns(torch.from_numpy(votes).to(card))
+            .unsqueeze(0), threshold),
+        "sharded_ed25519_verify": lambda: ed_ops.launch_rows(rows, card),
+    }
+    sharded = []
+    for shards in (1, PARALLEL_SHARDS):
+        m = sharding.make_mesh(devices=[card] * shards)
+        calls = {
+            "sharded_sha256": (lambda f=sharding.sharded_sha256(m): f(
+                packed.blocks, packed.n_blocks)),
+            "sharded_quorum_tally": (
+                lambda f=sharding.sharded_quorum_tally(m): f(votes,
+                                                             threshold)),
+            "sharded_ed25519_verify": (
+                lambda f=sharding.sharded_ed25519_verify(m): f(
+                    enc, s_words, k_words)),
+        }
+        wants = {"sharded_sha256": want_words,
+                 "sharded_quorum_tally": want_mask,
+                 "sharded_ed25519_verify": want_verdicts}
+        launches = {
+            "sharded_sha256": {"sha256_digest": shards},
+            "sharded_quorum_tally": {"tally_columns": shards,
+                                     "shard_sum": 1},
+            "sharded_ed25519_verify": {"ed25519_decompress": shards,
+                                       "ed25519_ladder": shards},
+        }
+        for name, call in calls.items():
+            before = read()
+            got = call()
+            torch.cuda.synchronize()
+            after = read()
+            made = {k: after[k] - before[k] for k in after
+                    if after[k] != before[k]}
+            check(made == launches[name],
+                  f"phase 23b: {name} on {shards} shards launched {made}")
+            check(torch.equal(got, wants[name]),
+                  f"phase 23b: {name} on {shards} shards != the unsharded "
+                  "kernels")
+            sharded.append({
+                "what": name, "shards": shards,
+                "ms": time_events(lambda: [], call, reps=10),
+                "wall_ms": time_wall(lambda: [], call),
+                "unsharded_ms": time_events(lambda: [], unsharded[name],
+                                            reps=10),
+                "unsharded_wall_ms": time_wall(lambda: [], unsharded[name]),
+                "launches": made,
+            })
+    for e in sharded:
+        print(f"  {e['what']} on [cuda:0] * {e['shards']}: "
+              f"{e['ms']:.6f} ms (CUDA events around the call, median of "
+              f"10), {e['wall_ms']:.6f} ms wall; unsharded "
+              f"{e['unsharded_ms']:.6f} ms, {e['unsharded_wall_ms']:.6f} "
+              f"ms wall; launches {e['launches']}")
+    phase_s = time.perf_counter() - start
+    print(f"phase 23b ok: sharded_sha256 ({PARALLEL_DIGEST_ROWS} rows), "
+          f"sharded_quorum_tally (256 x 65536), sharded_ed25519_verify "
+          f"({PARALLEL_VERIFY_ROWS} rows, the valid half accepted, the "
+          f"corrupted half rejected) on [cuda:0] and [cuda:0] * "
+          f"{PARALLEL_SHARDS} == the unsharded kernels")
+    print(f"phase 23 ok in {phase_s:.1f} s (done at "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return {
+        "tally_columns": {"head": tally_shapes[-1], "shapes": tally_shapes},
+        "shard_sum": {"head": sum_shapes[2], "shapes": sum_shapes},
+        "launches": main_launches,
+        "anchor_launches": anchor,
+        "sharded": sharded,
+    }
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="PATH",
@@ -2326,11 +2615,13 @@ def main() -> int:
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build_all(["sha256", "ed25519", "ack_plane", "bls_g1"])
+    libs = _build.build_all(["sha256", "ed25519", "ack_plane", "bls_g1",
+                             "parallel"])
     build_s = time.perf_counter() - t0
     print(f"phase 1 ok: sha256.cu (digest, chain), ed25519.cu, "
-          f"ack_plane.cu (step, sweep) and bls_g1.cu built for sm_90a in "
-          f"{build_s:.3f} s (one nvcc each, together)")
+          f"ack_plane.cu (step, sweep), bls_g1.cu and parallel.cu (tally, "
+          f"shard sum) built for sm_90a in {build_s:.3f} s (one nvcc each, "
+          f"together)")
     ptxas = {}
     for name, lib in libs.items():
         text = lib.with_suffix(".ptxas.txt").read_text()
@@ -3025,15 +3316,19 @@ def main() -> int:
     )
 
     # -- phase 13: the ack-plane rung at 100,000 clients ----------------------
+    from mirbft_tpu_torch.ops import tally as tally_ops
+
     registry = Registry()
     obsv_device.reset()
     ack_step_fn.launches = 0
     ack_step_fn.launches_by_rows.clear()
     ack_plane.quorum_sweep.launches = 0
     ack_plane.quorum_sweep.launches_by_rows.clear()
+    tally_ops.shard_sum.launches = 0
     rung = port_bench.ackplane_run(registry, device="cuda")
     rung_launches = {"ack_step": ack_step_fn.launches,
-                     "ack_sweep": ack_plane.quorum_sweep.launches}
+                     "ack_sweep": ack_plane.quorum_sweep.launches,
+                     "shard_sum": tally_ops.shard_sum.launches}
     rung_step_rows = dict(ack_step_fn.launches_by_rows)
     n_clients = rung["clients"]
     check(rung["fallback_rows"] == 0, f"rung: {rung['fallback_rows']} "
@@ -3047,8 +3342,11 @@ def main() -> int:
     check(rung["strong_certs"] == n_clients and rung["weak_certs"] == n_clients,
           f"rung: {rung['weak_certs']} weak, {rung['strong_certs']} strong "
           f"certificates of {n_clients} clients")
+    # The plane's mesh is the one card: a flush launches its step and a
+    # sweep its sweep, and nothing is summed across shards.
     check(rung_launches["ack_step"] == rung["step_launches"] == 24
-          and rung_launches["ack_sweep"] == 1,
+          and rung_launches["ack_sweep"] == 1
+          and rung_launches["shard_sum"] == 0,
           f"rung: launches {rung_launches}")
     capture = obsv_device.report(registry)
     print(
@@ -3193,6 +3491,7 @@ def main() -> int:
     observed = obsv_phases(t0)
     chaos = chaos_phases(t0)
     cluster = cluster_phases(t0)
+    par = parallel_phases(t0, anchor_chains)
 
     head = per_shape[0]
     kernels = [{
@@ -3359,6 +3658,30 @@ def main() -> int:
         "sm_clock_mhz": bls["clock"],
         "ptxas": ptxas.get("mirbft_bls_g1_aggregate_kernel"),
     })
+    for name, replaces in (
+        ("tally_columns", "mirbft_tpu/parallel/sharding.py:128"),
+        ("shard_sum", "mirbft_tpu/parallel/sharding.py:129"),
+    ):
+        line = par[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "mirbft_tpu_torch/csrc/parallel.cu",
+            "replaces": replaces,
+            "launches": par["launches"][name],
+            "launches_note": "phase 23's main path: the device-plane anchor "
+                             "on [cuda:0] * 4, entry() and "
+                             "dryrun_multichip(4) on [cuda:0] * 4",
+            "launches_anchor": par["anchor_launches"][name],
+            "matched_plain": True,
+            "max_abs_err": 0,
+            **{key: line["head"][key] for key in (
+                "ms", "plain_ms", "bound_ms", "library_ms",
+                "launch_floor_ms", "shape")},
+            "bound_by": "bytes",
+            "per_shape": line["shapes"],
+            "ptxas": ptxas.get(f"mirbft_{name}_kernel"),
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -431,6 +431,28 @@ class _TransportDuct:
         self.transport.send_transfer(dest, body)
 
 
+class _SuspectWatch:
+    """A replica's outgoing link, noting whether the node suspected the
+    first working epoch before it had applied any entry: the start of the
+    epoch-change cascade that carries a censored request past ``censor_k``
+    rotations when a first commit comes later than the suspicion timeout
+    (ROADMAP queue 3)."""
+
+    def __init__(self, link, replica):
+        self._link = link
+        self._replica = replica
+
+    def send(self, dest: int, msg: pb.Msg) -> None:
+        inner = msg.type
+        if (
+            isinstance(inner, pb.Suspect)
+            and inner.epoch == FIRST_WORKING_EPOCH
+            and self._replica.app_log.last_seq == 0
+        ):
+            self._replica.cluster.note_early_suspicion(self._replica.node_id)
+        self._link.send(dest, msg)
+
+
 class LiveReplica:
     """One real node: serializer (inside Node), consumer loop thread,
     TCP transport wired through the cluster's partition proxies, and
@@ -444,7 +466,7 @@ class LiveReplica:
         self.app_log = DurableChainLog(
             os.path.join(self.dir, "app.log"),
             node_id,
-            on_commit=cluster._on_commit,
+            on_commit=self._on_commit,
         )
         self.wal = FileWal(os.path.join(self.dir, "wal"))
         self.reqstore = FileRequestStore(os.path.join(self.dir, "reqs"))
@@ -467,7 +489,7 @@ class LiveReplica:
         self.transport.serve(self.node)
         self.processor = build_processor(
             self.node,
-            self.transport.link(),
+            _SuspectWatch(self.transport.link(), self),
             self.app_log,
             self.wal,
             self.reqstore,
@@ -604,6 +626,10 @@ class LiveReplica:
             pass
         except Exception as err:  # noqa: BLE001 — injected faults land here
             self.failed = err
+
+    def _on_commit(self, node_id: int, nreqs: int) -> None:
+        # Called by the app log right after it appended ``nreqs`` commits.
+        self.cluster._on_commit(node_id, self.app_log.commits[-nreqs:])
 
     def snapshot(self, at_ms: int) -> CrashSnapshot:
         return CrashSnapshot(
@@ -955,6 +981,15 @@ class LiveCluster:
         # censored request first committed anywhere (censorship-liveness
         # evidence, mirroring the deterministic runner).
         self.commit_rotations: dict = {}
+        # (client_id, req_no) -> epoch rotations read at the request's
+        # first apply on any replica.  The JAX package's driver reads the
+        # rotation when its 0.2 s poll first sees the commit; epochs of 40
+        # sequences at a 40 ms tick rotate faster than that, so its count
+        # runs up to two rotations late.
+        self.first_commit_rotation: dict = {}
+        # Nodes that suspected the first working epoch before they had
+        # applied anything (_SuspectWatch).
+        self.suspected_before_commit: set = set()
         # MAC-authenticated replica channels: one cluster-wide secret
         # (derived from the seed so runs are reproducible); every
         # replica's transport derives per-link keys from it.
@@ -1012,9 +1047,26 @@ class LiveCluster:
     def now_ms(self) -> int:
         return int((time.monotonic() - self._start) * 1000)
 
-    def _on_commit(self, _node_id: int, _nreqs: int) -> None:
+    def _on_commit(self, _node_id: int, commits: list) -> None:
         with self._lock:
             self.commit_times_ms.append(self.now_ms())
+            fresh = self._censors and any(
+                (c, q) not in self.first_commit_rotation
+                for c, q, _s in commits
+            )
+        if not fresh:
+            return
+        rotation = self._current_rotation()
+        with self._lock:
+            # Two replicas may apply the same entry at once: the earlier
+            # reading wins, since rotations only grow.
+            for c, q, _s in commits:
+                seen = self.first_commit_rotation.get((c, q), rotation)
+                self.first_commit_rotation[(c, q)] = min(seen, rotation)
+
+    def note_early_suspicion(self, node_id: int) -> None:
+        with self._lock:
+            self.suspected_before_commit.add(node_id)
 
     # -- topology ------------------------------------------------------------
 
@@ -1411,7 +1463,6 @@ class LiveCluster:
         }
         deadline = self._start + self.budget_s
         armed: set = set()
-        next_censor_poll = 0.0
         while time.monotonic() < deadline:
             now_s = time.monotonic() - self._start
             while events and events[0][0] <= now_s:
@@ -1419,9 +1470,6 @@ class LiveCluster:
                 self.events_fired += 1
                 self._fire(kind, payload, armed)
             self._reap(armed)
-            if self._censors and now_s >= next_censor_poll:
-                next_censor_poll = now_s + 0.2
-                self._track_censored_commits()
             if not events and self._converged(expected):
                 if self._censors:
                     self._track_censored_commits()
@@ -1460,20 +1508,12 @@ class LiveCluster:
         for adv in self._censors:
             with adv._lock:
                 pending |= adv.censored_pairs
-        pending -= set(self.commit_rotations)
-        if not pending:
-            return
-        committed: set = set()
-        for replica in self.alive_replicas():
-            committed |= {
-                (c, q) for c, q, _s in list(replica.app_log.commits)
-            }
-        rotation = None
-        for pair in pending:
-            if pair in committed:
-                if rotation is None:
-                    rotation = self._current_rotation()
-                self.commit_rotations[pair] = rotation
+        with self._lock:
+            for pair in pending:
+                if pair in self.first_commit_rotation:
+                    self.commit_rotations[pair] = (
+                        self.first_commit_rotation[pair]
+                    )
 
     def _epoch_states(self) -> list:
         """Per-node ``epoch/state`` diagnostic strings for the timeout
@@ -1593,6 +1633,9 @@ def _audit_live_adversaries(scenario, cluster, registry, result) -> None:
         )
     if cluster._censors:
         result.counters["censored"] = censored
+        result.counters["suspected_before_commit"] = sorted(
+            cluster.suspected_before_commit
+        )
         k = scenario.notes.get("censor_k", 3)
         check_censorship_liveness(
             evidence, censored_pairs, cluster.commit_rotations, k

@@ -6,12 +6,18 @@ path: every RequestAck from every node touches it, O(n^2) applications a
 request, and PBFT's quorum rules are popcount-over-bitmask logic.  This
 module keeps that plane on one card: per-slot agreement and non-null
 masks, canonical digests, committed flags and tick classes live as dense
-``(clients x window)`` torch tensors on an explicit ``device``, and one
-step (``ops.ack_plane.ack_step``: the hand-written kernels of
+``(clients x window)`` torch tensors, and one step
+(``ops.ack_plane.ack_step``: the hand-written kernels of
 ``csrc/ack_plane.cu`` on a card, their plain version on the CPU) absorbs a
 whole columnar ack batch: canonical adoption, the one-non-null-vote spam
 guard, the mask OR, the popcount quorum crossings and the tick
-reclassification.
+reclassification.  The client axis is split over a mesh of devices
+(``parallel.sharding``, as the JAX package splits it with ``shard_map``):
+each device owns a contiguous block of clients, every shard's step sees
+the whole batch and applies the rows of its own block, and the per-row
+outputs and the sweep's totals are summed across the shards by the
+``shard_sum`` kernel (``ops.tally``; each row has exactly one owner, and
+every other shard's word for it is 0).
 
 ``DeviceClientPlane`` is the host facade.  The authority contract (that of
 the JAX package's plane, docs/DEVICE_TRACKER.md, mirroring ``_FastAcks``,
@@ -40,7 +46,12 @@ Where the port differs from the JAX package's plane:
 - an explicit device: the caller names it (``ack_device``, default
   ``"cuda"``; the CPU tests pass ``"cpu"``, which runs the kernels' plain
   versions);
-- one card, no mesh: the client axis is not sharded;
+- the mesh is one process's list of devices (``parallel.sharding.Mesh``),
+  which may name one card several times; by default every visible card
+  for ``"cuda"`` (one on a one-card machine: a mesh of one device, whose
+  flush launches the step once and sums nothing) and one device for
+  ``"cpu"``.  A mesh whose size is not a power of two pads the client
+  axis up to a multiple of it;
 - launch shapes in place of retraces: ``obsv.device`` counts each new
   padded batch shape against the JAX package's retrace budget.
 
@@ -68,6 +79,7 @@ from ..ops.ack_plane import (
     TICK_PYTHON,
     TICK_STEADY,
 )
+from ..parallel.sharding import Mesh, make_mesh, psum, replicate
 
 #: Batch rows are padded to the next power of two, floored here, so the
 #: whole run launches at most log2(max/min)+1 batch shapes.
@@ -104,11 +116,16 @@ def resolve_flush_rows(explicit: int | None = None) -> int:
     return explicit
 
 
-def require_device(device) -> torch.device:
+def require_device(device):
     """The plane's device, or a raise: ``"cuda"`` needs a card, ``"cpu"``
     runs the plain versions, anything else is refused.  Where the JAX
     package probed for a backend and fell back to the host plane, the port
-    raises."""
+    raises.  A ``parallel.sharding.Mesh`` is returned as it is once each
+    of its devices passes."""
+    if isinstance(device, Mesh):
+        for each in device.devices:
+            require_device(each)
+        return device
     try:
         device = torch.device(device)
     except RuntimeError:
@@ -132,6 +149,16 @@ def _pow2(n: int) -> int:
     while p < n:
         p <<= 1
     return p
+
+
+def default_mesh(device) -> Mesh:
+    """The plane's mesh when none is given, as the JAX package's is every
+    device JAX sees: every visible card for ``"cuda"``, the one device for
+    ``"cpu"``."""
+    device = require_device(device)
+    if device.type == "cuda":
+        return make_mesh()
+    return Mesh((device,))
 
 
 def classify_tick_device(
@@ -188,13 +215,46 @@ def batch_rows(n: int) -> int:
     return rows
 
 
-# The device programs, instrumented under the JAX package's names.
+def _plane_step(batch, mesh, shards, firsts, *, block, weak_q, strong_q):
+    """X1 on every shard of a plane of several: the packed batch (on
+    ``mesh.devices[0]``) on each shard's device, each shard's step with its
+    block's first client row, and the per-row outputs summed by
+    ``shard_sum``."""
+    outs = [
+        _ops.ack_step(*state, rows, weak_q=weak_q, strong_q=strong_q,
+                      first=first, base=i * block)
+        for i, (state, first, rows) in enumerate(
+            zip(shards, firsts, replicate(mesh, batch)))
+    ]
+    return psum(mesh, outs)
+
+
+def _plane_sweep(agree, mesh, shards, *, weak_q, strong_q):
+    """X2 on every shard of a plane of several (``agree`` is the first
+    shard's, the device the telemetry times on), the (3,) totals summed by
+    ``shard_sum``."""
+    totals = [
+        _ops.quorum_sweep(s[0], s[3], s[4], s[5], s[6], weak_q=weak_q,
+                          strong_q=strong_q)
+        for s in shards
+    ]
+    return psum(mesh, totals)
+
+
+# The device programs, instrumented under the JAX package's names: a plane
+# of one shard calls X1 and X2 themselves, one of several the two above.
 _step = _device.instrument(
     "device_ack_step", fn_name="device_ack_step"
 )(_ops.ack_step)
 _sweep = _device.instrument(
     "device_quorum_sweep", fn_name="device_quorum_sweep"
 )(_ops.quorum_sweep)
+_mesh_step = _device.instrument(
+    "device_ack_step", fn_name="device_ack_step"
+)(_plane_step)
+_mesh_sweep = _device.instrument(
+    "device_quorum_sweep", fn_name="device_quorum_sweep"
+)(_plane_sweep)
 
 
 # ---------------------------------------------------------------------------
@@ -208,17 +268,28 @@ class DeviceClientPlane:
 
     Built from a live tracker (same construction contract as
     ``_FastAcks``); dropped on any window-structure change.  ``device``
-    is ``"cuda"`` (the kernels; raises without a card) or ``"cpu"`` (their
-    plain versions)."""
+    is ``"cuda"`` (the kernels; raises without a card), ``"cpu"`` (their
+    plain versions) or a ``parallel.sharding.Mesh``; a name gives the plane
+    ``default_mesh(device)``.  A split across several cards (the default on
+    a machine with more than one) has never been measured against the
+    one-card plane: only one card's figures exist, where a split only adds
+    launches."""
 
     def __init__(self, tracker, device="cuda"):
+        from ..ops import tally as _tally
         from .quorum import intersection_quorum, some_correct_quorum
 
-        self.device = require_device(device)
-        if self.device.type == "cuda":
+        mesh = require_device(
+            device if isinstance(device, Mesh) else default_mesh(device))
+        self.mesh = mesh
+        self.device = mesh.devices[0]
+        if any(d.type == "cuda" for d in mesh.devices):
             # Build (or load) the kernels now: a plane whose kernels do not
             # build must fail here, not at its first ack.
             _ops._kernel_library()
+            if mesh.size > 1:
+                _tally._kernel_library()
+        n_shards = mesh.size
         nc = tracker.network_config
         self.weak_q = some_correct_quorum(nc)
         self.strong_q = intersection_quorum(nc)
@@ -228,13 +299,17 @@ class DeviceClientPlane:
         cids = sorted(clients)
         self.cid0 = cids[0]
         self.n_clients = cids[-1] - cids[0] + 1
-        self.c_pad = _pow2(self.n_clients)
+        self.c_pad = max(_pow2(self.n_clients), n_shards)
+        self.c_pad += -self.c_pad % n_shards
+        # Shard i owns client rows i * block .. (i + 1) * block - 1.
+        self.block = self.c_pad // n_shards
         w_max = 1
         for cid in cids:
             c = clients[cid]
             w_max = max(w_max, c.high_watermark - c.low_watermark + 1)
         self.w_pad = _pow2(w_max)
         self.total = self.c_pad * self.w_pad
+        self.shard_slots = self.block * self.w_pad
 
         # Host-owned window metadata (windows never move during the
         # plane's lifetime: structure changes drop it).
@@ -277,22 +352,26 @@ class DeviceClientPlane:
                     self.canon_req[slot],
                 ) = self._derive_row(crn)
 
-        shape = (self.c_pad, self.w_pad)
-        self._dev = [
-            self._put(agree.view(np.int32).reshape(shape + (self.limbs,))),
-            self._put(nonnull.view(np.int32).reshape(shape + (self.limbs,))),
-            self._put(canon.view(np.int32).reshape(shape + (8,))),
-            self._put(canon_ok.reshape(shape)),
-            self._put(flags.reshape(shape)),
-            self._put(held.reshape(shape)),
-            self._put(tick.reshape(shape)),
-        ]
-        # The kernel's per-slot adoption scratch (the plain version needs
-        # none): empty between steps.
-        self._first = (
-            _ops.new_first(self.total, self.device)
-            if self.device.type == "cuda" else None
+        shape = (self.block, self.w_pad)
+        arrays = (
+            (agree.view(np.int32), (self.limbs,)),
+            (nonnull.view(np.int32), (self.limbs,)),
+            (canon.view(np.int32), (8,)),
+            (canon_ok, ()), (flags, ()), (held, ()), (tick, ()),
         )
+        per = self.shard_slots
+        # One list of the seven state tensors a shard, on its device.
+        self._shards = [
+            [self._put(a[i * per:(i + 1) * per].reshape(shape + tail), d)
+             for a, tail in arrays]
+            for i, d in enumerate(mesh.devices)
+        ]
+        # Each shard's adoption scratch for the kernel (the plain version
+        # needs none): empty between steps.
+        self._firsts = [
+            _ops.new_first(per, d) if d.type == "cuda" else None
+            for d in mesh.devices
+        ]
 
         # The owning tracker: the drain target for flushes forced by sync
         # points (sync_slot, quorum_sweep) that have no tracker in their
@@ -317,16 +396,29 @@ class DeviceClientPlane:
         self.acks_fallback = 0
         self.batches = 0
 
-    def _put(self, array: np.ndarray) -> torch.Tensor:
+    def _put(self, array: np.ndarray, device=None) -> torch.Tensor:
+        device = self.device if device is None else device
         array = np.ascontiguousarray(array)
-        _device.transfer("h2d", array.nbytes, self.device)
-        return torch.from_numpy(array).to(self.device)
+        _device.transfer("h2d", array.nbytes, device)
+        return torch.from_numpy(array).to(device)
 
     def _get(self, tensor: torch.Tensor) -> np.ndarray:
         """A host copy of ``tensor`` (also on the CPU: the state changes in
         place)."""
-        _device.transfer("d2h", tensor.nbytes, self.device)
+        _device.transfer("d2h", tensor.nbytes, tensor.device)
         return tensor.to("cpu", copy=True).numpy()
+
+    def _by_shard(self, slots: np.ndarray):
+        """Flat slots grouped by the shard that owns them: (shard, its
+        positions in ``slots``, local client rows, window columns)."""
+        if len(self._shards) == 1:
+            yield 0, slice(None), slots // self.w_pad, slots % self.w_pad
+            return
+        shard = slots // self.shard_slots
+        local = slots % self.shard_slots
+        for i in np.unique(shard).tolist():
+            at = np.flatnonzero(shard == i)
+            yield i, at, local[at] // self.w_pad, local[at] % self.w_pad
 
     # -- slot math -----------------------------------------------------------
 
@@ -449,14 +541,15 @@ class DeviceClientPlane:
                 agree[i], nonnull[i], canon[i], canon_ok[i], flags[i],
                 held[i], tick[i], self.canon_req[slot],
             ) = self._derive_row(crn)
-        ci = self._put(slots // self.w_pad)
-        w = self._put(slots % self.w_pad)
         rows = (
             agree.view(np.int32), nonnull.view(np.int32), canon.view(np.int32),
             canon_ok, flags, held, tick,
         )
-        for dev, row in zip(self._dev, rows):
-            dev[ci, w] = self._put(row)
+        for i, at, ci, w in self._by_shard(slots):
+            device = self.mesh.devices[i]
+            ci, w = self._put(ci, device), self._put(w, device)
+            for dev, row in zip(self._shards[i], rows):
+                dev[ci, w] = self._put(row[at], device)
         self._snapshot = None
 
     # -- device -> host ------------------------------------------------------
@@ -472,8 +565,9 @@ class DeviceClientPlane:
                 "tick_class",
             )
             snap = {}
-            for name, tensor in zip(names, self._dev):
-                array = self._get(tensor)
+            for j, name in enumerate(names):
+                parts = [self._get(shard[j]) for shard in self._shards]
+                array = parts[0] if len(parts) == 1 else np.concatenate(parts)
                 if array.dtype == np.int32:
                     array = array.view(np.uint32)
                 snap[name] = array.reshape((self.total,) + array.shape[2:])
@@ -558,10 +652,16 @@ class DeviceClientPlane:
         batch[:n, 2] = src
         batch[:n, 3] = 1
         batch[:n, 4:] = dig.view(np.int32)
-        out = _step(
-            *self._dev, self._put(batch), weak_q=self.weak_q,
-            strong_q=self.strong_q, first=self._first,
-        )
+        if len(self._shards) == 1:
+            out = _step(
+                *self._shards[0], self._put(batch), weak_q=self.weak_q,
+                strong_q=self.strong_q, first=self._firsts[0],
+            )
+        else:
+            out = _mesh_step(
+                self._put(batch), self.mesh, self._shards, self._firsts,
+                block=self.block, weak_q=self.weak_q, strong_q=self.strong_q,
+            )
         self._snapshot = None
         # The seven row outputs come back in one copy.
         packed = self._get(out[:n])
@@ -765,11 +865,17 @@ class DeviceClientPlane:
         if self._pending_rows or self._events:
             self.flush(drain=self._tracker)
         self._flush_staged()
-        dev = self._dev
-        totals = _sweep(
-            dev[0], dev[3], dev[4], dev[5], dev[6], weak_q=self.weak_q,
-            strong_q=self.strong_q,
-        )
+        if len(self._shards) == 1:
+            dev = self._shards[0]
+            totals = _sweep(
+                dev[0], dev[3], dev[4], dev[5], dev[6], weak_q=self.weak_q,
+                strong_q=self.strong_q,
+            )
+        else:
+            totals = _mesh_sweep(
+                self._shards[0][0], self.mesh, self._shards,
+                weak_q=self.weak_q, strong_q=self.strong_q,
+            )
         self._snapshot = None
         weak, strong, committed = self._get(totals).tolist()
         return {
@@ -782,12 +888,13 @@ class DeviceClientPlane:
         """Flag many slots committed in one scatter (bench/commit-drain
         path; the per-request path stages through ``mark_committed``)."""
         slots = np.asarray(slots, dtype=np.int64)
-        ci = self._put(slots // self.w_pad)
-        w = self._put(slots % self.w_pad)
-        dev = self._dev
-        dev[4][ci, w] = COMMITTED
-        dev[6][ci, w] = TICK_INERT
-        dev[3][ci, w] = False
+        for i, _at, ci, w in self._by_shard(slots):
+            device = self.mesh.devices[i]
+            ci, w = self._put(ci, device), self._put(w, device)
+            dev = self._shards[i]
+            dev[4][ci, w] = COMMITTED
+            dev[6][ci, w] = TICK_INERT
+            dev[3][ci, w] = False
         self._snapshot = None
 
     def drop(self, tracker) -> None:

@@ -16,6 +16,15 @@
 // the weak and the strong crossing, and the slot's count after the batch
 // from bit 8.
 //
+// A shard's view (the JAX program's shard_map over the client axis): the
+// state is one block of a mesh's plane, clients ci0 .. ci0 + c_pad - 1 of
+// it, and the batch is the whole batch.  A row whose client falls outside
+// the block touches nothing and its output word is exactly 0 (each of its
+// bits is the JAX program's `mine & ...`), so the shards' outputs summed
+// (the port's psum, csrc/parallel.cu shard_sum) give each row its owner's
+// word.  With ci0 = 0 and the whole plane as the block, the step is the
+// one-device step.
+//
 // What bounds the step on this card: its bytes are a few hundred kB at
 // most (the byte bound is 0.04-0.5 us at 2048-16384 rows), so its time is
 // the fixed cost of its launches and the round trips to memory of a batch
@@ -181,12 +190,13 @@ mirbft_ack_step_kernel(const int32_t* __restrict__ batch, uint32_t* agree,
                        const uint8_t* __restrict__ flags,
                        const uint8_t* __restrict__ held, uint8_t* tick,
                        int32_t* first, int32_t* __restrict__ out, int rows,
-                       int c_pad, int w_pad, int limbs, int weak_q,
+                       int ci0, int c_pad, int w_pad, int limbs, int weak_q,
                        int strong_q) {
-  // Row r's slot, or -1 for a row that is not valid or names no client.
+  // Row r's slot in the block, or -1 for a row that is not valid or names
+  // no client of the block (no state, class 0, output word 0).
   auto row_slot = [&](int r) -> int {
     const int32_t* row = batch + static_cast<int64_t>(r) * kBatchCols;
-    const int ci = row[0], w = row[1], valid = row[3];
+    const int ci = row[0] - ci0, w = row[1], valid = row[3];
     return (!valid || ci < 0 || ci >= c_pad) ? -1 : ci * w_pad + w;
   };
 
@@ -612,17 +622,18 @@ static int launch_step_grid(Kernel kernel, int rows, cudaStream_t s,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch the step on `stream`: one cooperative kernel launch.  Returns the
-// launch's cudaError_t (0 on success); nothing is synchronised.
+// Launch the step on `stream`: one cooperative kernel launch, on the block
+// of clients ci0 .. ci0 + c_pad - 1.  Returns the launch's cudaError_t (0
+// on success); nothing is synchronised.
 extern "C" int mirbft_ack_step(const void* batch, void* agree, void* nonnull,
                                void* canon, void* canon_ok, const void* flags,
                                const void* held, void* tick, void* first,
-                               void* out, int rows, int c_pad, int w_pad,
-                               int limbs, int weak_q, int strong_q,
+                               void* out, int rows, int ci0, int c_pad,
+                               int w_pad, int limbs, int weak_q, int strong_q,
                                void* stream) {
   if (rows <= 0) return 0;
   void* args[] = {&batch, &agree, &nonnull, &canon, &canon_ok, &flags,
-                  &held, &tick, &first, &out, &rows, &c_pad, &w_pad,
+                  &held, &tick, &first, &out, &rows, &ci0, &c_pad, &w_pad,
                   &limbs, &weak_q, &strong_q};
   return launch_step_grid(mirbft_ack_step_kernel, rows,
                           static_cast<cudaStream_t>(stream), args);

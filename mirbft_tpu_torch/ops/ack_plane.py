@@ -39,6 +39,14 @@ and scatters, on torch tensors):
 - every row of a slot that crosses a quorum reports the crossing (the
   host dedupes by slot).
 
+A shard's view (the JAX program's ``shard_map`` over the client axis):
+with ``base`` the state is the block of a mesh's plane that holds clients
+``base .. base + c_pad - 1``, the batch is the whole batch (rows name
+clients of the whole plane), and a row of another block touches nothing
+and gets the output word 0, so the shards' words summed
+(``ops.tally.shard_sum``) are each row's owner's word.  ``base`` 0 with
+the whole plane is the one-device step.
+
 ``ack_step`` and ``quorum_sweep`` dispatch on the tensors' device: a CUDA
 tensor launches the kernel, one launch each (counted in ``.launches`` and by padded rows,
 or by slots for the sweep, in ``.launches_by_rows``, under one lock), a
@@ -141,11 +149,13 @@ def _slot_counts(masks: torch.Tensor) -> torch.Tensor:
 
 
 def ack_step_plain(agree, nonnull, canon, canon_ok, flags, held, tick, batch,
-                   *, weak_q: int, strong_q: int) -> torch.Tensor:
+                   *, weak_q: int, strong_q: int,
+                   base: int = 0) -> torch.Tensor:
     """The step in plain PyTorch, on whatever device the tensors are on:
     the JAX program's algorithm (``mirbft_tpu/core/device_tracker.py``
-    ``_build_step_kernel``, one shard).  Mutates the state in place and
-    returns the packed (rows,) int32 row outputs."""
+    ``_build_step_kernel``, the shard whose block starts at client row
+    ``base``).  Mutates the state in place and returns the packed (rows,)
+    int32 row outputs, 0 for a row of another block."""
     c_pad, w_pad, limbs = agree.shape
     total = c_pad * w_pad
     agree_f = agree.view(total, limbs)
@@ -156,7 +166,7 @@ def ack_step_plain(agree, nonnull, canon, canon_ok, flags, held, tick, batch,
     device = batch.device
 
     n_rows = batch.shape[0]
-    ci = batch[:, 0].to(torch.int64)
+    ci = batch[:, 0].to(torch.int64) - base
     w = batch[:, 1].to(torch.int64)
     src = batch[:, 2].to(torch.int64)
     valid = batch[:, 3] != 0
@@ -283,7 +293,7 @@ def _kernel_library():
     lib = load("ack_plane")
     if lib.mirbft_ack_step.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mirbft_ack_step.argtypes = [ptr] * 10 + [i32] * 6 + [ptr]
+        lib.mirbft_ack_step.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
         lib.mirbft_ack_step.restype = i32
         lib.mirbft_ack_empty.argtypes = [i32, ptr]
         lib.mirbft_ack_empty.restype = i32
@@ -343,7 +353,8 @@ def new_first(total: int, device) -> torch.Tensor:
 
 
 def ack_step(agree, nonnull, canon, canon_ok, flags, held, tick, batch, *,
-             weak_q: int, strong_q: int, first=None) -> torch.Tensor:
+             weak_q: int, strong_q: int, first=None,
+             base: int = 0) -> torch.Tensor:
     """Absorb one packed batch (rows, 12) int32 into the state, in place;
     returns the packed (rows,) int32 row outputs.  CUDA tensors take the
     kernel, one cooperative launch on the current stream: the step's
@@ -354,7 +365,8 @@ def ack_step(agree, nonnull, canon, canon_ok, flags, held, tick, batch, *,
     to memory; rows past a thread's registers (``step_grid``) carry their
     class in their own word of the output.  ``first`` is the plane's
     (total,) int32 adoption scratch (``new_first``), which the CUDA route
-    requires.  CPU tensors take ``ack_step_plain``."""
+    requires.  ``base``: the first client row of the state's block (a
+    shard's view, above).  CPU tensors take ``ack_step_plain``."""
     c_pad, w_pad, limbs, device = _check_state(
         agree, nonnull, canon, canon_ok, flags, held, tick
     )
@@ -366,7 +378,7 @@ def ack_step(agree, nonnull, canon, canon_ok, flags, held, tick, batch, *,
     if device.type == "cpu":
         return ack_step_plain(
             agree, nonnull, canon, canon_ok, flags, held, tick, batch,
-            weak_q=weak_q, strong_q=strong_q,
+            weak_q=weak_q, strong_q=strong_q, base=base,
         )
     if device.type != "cuda":
         raise ValueError(f"no ack plane path for device {device}")
@@ -383,8 +395,8 @@ def ack_step(agree, nonnull, canon, canon_ok, flags, held, tick, batch, *,
             batch.data_ptr(), agree.data_ptr(), nonnull.data_ptr(),
             canon.data_ptr(), canon_ok.data_ptr(), flags.data_ptr(),
             held.data_ptr(), tick.data_ptr(), first.data_ptr(),
-            out.data_ptr(), rows, c_pad, w_pad, limbs, weak_q, strong_q,
-            torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), rows, base, c_pad, w_pad, limbs, weak_q,
+            strong_q, torch.cuda.current_stream().cuda_stream,
         )
     _raise_on(lib, err, "ack step")
     _count_launch(ack_step, rows)

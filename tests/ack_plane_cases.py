@@ -332,3 +332,26 @@ def row_classes(outputs: dict) -> dict:
     exercise every one)."""
     return {name: int(np.asarray(outputs[name]).astype(bool).sum())
             for name in OUTPUTS}
+
+
+def shard_case(case: dict, shards: int, index: int) -> dict:
+    """Shard ``index`` of ``shards`` of a case, as a mesh splits the plane
+    over its client axis: the state's block of ``c_pad // shards`` client
+    rows, its first row in ``base``, and the whole batch.  ``index`` may be
+    ``shards``: a foreign block, shard 0's state under a first row far past
+    the plane (and past the rows the case sends past it), which no row of
+    the batch names."""
+    block = case["c_pad"] // shards
+    if block * shards != case["c_pad"]:
+        raise ValueError(f"c_pad {case['c_pad']} is not a multiple of "
+                         f"{shards} shards")
+    foreign = index >= shards
+    lo = 0 if foreign else index * block
+    out = dict(case, c_pad=block, base=FOREIGN_BASE if foreign else lo)
+    for name in STATE:
+        out[name] = case[name][lo:lo + block].copy()
+    return out
+
+
+#: The first client row of ``shard_case``'s foreign block.
+FOREIGN_BASE = 1 << 24

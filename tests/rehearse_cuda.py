@@ -14,7 +14,7 @@ in for them.  Dynamic shared memory is a buffer a block.  The
 ``extern "C"`` launchers are cut off and a host main launches the kernels
 itself.
 
-    python3 tests/rehearse_cuda.py [ladder|sha256|decompress|ack|bls] [--rows N]
+    python3 tests/rehearse_cuda.py [ladder|sha256|decompress|ack|bls|parallel] [--rows N]
 
 ``ladder`` runs the quad ladder on rows it builds with the host oracle
 (valid signatures, corrupted ones, the identity and a point of order 8 as
@@ -35,12 +35,16 @@ shuffles, the PTX carry chains are host functions), on the
 seeded certificates of tests/bls_cases.py (edge cases, (4, 4), rung 4's
 (4, 128), (64, 128) and (4, 256), and the widths 1, 85 and 200) and
 checks its output bit for bit
-against the plain version and its affine points against the host fold.
+against the plain version and its affine points against the host fold;
+``ack`` also steps a case split over a mesh's client blocks, each block
+from its first client row, and a block no row names (every output word
+0); ``parallel`` runs ``tally_columns`` and ``shard_sum``
+(``csrc/parallel.cu``) on ragged shapes against their plain versions.
 The thread counts of the kernels are cut to keep the host threads few (the
 ladder's block to 2 quads, the decompress block to one warp, the
 one-thread body's block to 16 rows, the specialised body's warps to 8
-lanes, the ack plane's blocks to two warps; the BLS block stays one
-warp, a certificate), so the rehearsal runs the
+lanes, the ack plane's blocks to two warps, the tally's to four and
+shard_sum's to one; the BLS block stays one warp, a certificate), so the rehearsal runs the
 card's code at a smaller block than the card does.  Exit status 0 when every check passes.
 ``tests/test_torch_rehearse.py`` runs it under pytest.
 """
@@ -435,7 +439,7 @@ int main(int argc, char** argv) {
 
 ACK_MAIN = r"""
 // argv: input file (8 ints: rows, c_pad, w_pad, limbs, weak_q, strong_q,
-// 0, 0; the (rows, 12) batch; agree, nonnull, canon as uint32; canon_ok,
+// ci0 (the block's first client row), 0; the (rows, 12) batch; agree, nonnull, canon as uint32; canon_ok,
 // flags, held, tick as bytes), output file: the state after the step
 // (agree, nonnull, canon, canon_ok, tick), the row outputs, the adoption
 // scratch after the step, then the tick after the sweep and its totals.
@@ -443,7 +447,7 @@ int main(int argc, char** argv) {
   std::vector<char> in = read_all(argv[1]);
   const int32_t* p = reinterpret_cast<const int32_t*>(in.data());
   const int rows = p[0], c_pad = p[1], w_pad = p[2], limbs = p[3];
-  const int weak_q = p[4], strong_q = p[5];
+  const int weak_q = p[4], strong_q = p[5], ci0 = p[6];
   const int total = c_pad * w_pad;
   const int32_t* batch = p + 8;
   const uint32_t* u = reinterpret_cast<const uint32_t*>(batch + 12 * rows);
@@ -464,8 +468,8 @@ int main(int argc, char** argv) {
   launch_cooperative(blocks, kStepThreads, [&] {
     mirbft_ack_step_kernel(batch, agree.data(), nonnull.data(), canon.data(),
                            canon_ok.data(), flags.data(), held.data(),
-                           tick.data(), first.data(), out.data(), rows, c_pad,
-                           w_pad, limbs, weak_q, strong_q);
+                           tick.data(), first.data(), out.data(), rows, ci0,
+                           c_pad, w_pad, limbs, weak_q, strong_q);
   });
   std::vector<uint8_t> tick_after_step(tick);
   std::vector<uint32_t> totals(3, 0xdeadbeefu), ticket(1, 0);
@@ -566,10 +570,53 @@ int main(int argc, char** argv) {
 }
 """
 
+PARALLEL_MAIN = r"""
+// argv: input file (8 ints: rows, cols, k, n, threshold, byte offset of the
+// votes (0 on 4 bytes, else the byte path), 0, 0; the (rows, cols) int8
+// votes; the (k, n) int32 partials), output file: the cols column sums,
+// then the n sums of the partials, then their n mask bytes.  Each output
+// starts filled with a marker, so a word a kernel should not write shows.
+int main(int argc, char** argv) {
+  std::vector<char> in = read_all(argv[1]);
+  const int32_t* p = reinterpret_cast<const int32_t*>(in.data());
+  const int rows = p[0], cols = p[1], k = p[2], n = p[3], threshold = p[4];
+  const int offset = p[5];
+  const size_t bytes = static_cast<size_t>(rows) * cols;
+  std::vector<uint32_t> store(bytes / 4 + 2);
+  int8_t* votes = reinterpret_cast<int8_t*>(store.data()) + offset;
+  std::memcpy(votes, p + 8, bytes);
+  const int32_t* parts = reinterpret_cast<const int32_t*>(
+      reinterpret_cast<const char*>(p + 8) + ((bytes + 3) / 4) * 4);
+  // The launcher's choice (mirbft_tally_columns in parallel.cu).
+  const bool words = cols % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(votes) & 3) == 0;
+  std::vector<int32_t> sums(cols + 1, 0x7eadbeef);
+  launch(tally_blocks(cols), kTallyWarps * 32, 0, [&] {
+    mirbft_tally_columns_kernel(votes, sums.data(), rows, cols, words);
+  });
+  std::vector<int32_t> total(n + 1, 0x7eadbeef);
+  std::vector<uint8_t> mask(n + 1, 0x7e);
+  launch(sum_blocks(n), kSumThreads, 0, [&] {
+    mirbft_shard_sum_kernel(parts, k, n, 0, total.data(), nullptr);
+  });
+  launch(sum_blocks(n), kSumThreads, 0, [&] {
+    mirbft_shard_sum_kernel(parts, k, n, threshold, nullptr, mask.data());
+  });
+  FILE* f = std::fopen(argv[2], "wb");
+  std::fwrite(sums.data(), 4, sums.size(), f);
+  std::fwrite(total.data(), 4, total.size(), f);
+  std::fwrite(mask.data(), 1, mask.size(), f);
+  std::fclose(f);
+  return 0;
+}
+"""
+
 ACK_THREADS = 64  # the ack plane's blocks in the rehearsal: two warps
 SWEEP_MAX_BLOCKS = 8  # the sweep's largest grid in the rehearsal
 DEC_THREADS = 32  # decompression's block in the rehearsal: one warp
 BLS_THREADS = 32  # the BLS block in the rehearsal: one warp, a certificate
+TALLY_WARPS = 4  # the tally's warps a block in the rehearsal (its least)
+SUM_THREADS = 32  # shard_sum's block in the rehearsal
 # Host thread counts: the ladder's block cut to 2 quads, decompression's
 # to one warp, the digest kernel's one-thread body to 16 rows a block and
 # its warps to 8 lanes.
@@ -586,6 +633,12 @@ CUTS = {
             f"constexpr int kSweepMaxBlocks = {SWEEP_MAX_BLOCKS};",
         r"constexpr int kStepThreads = \d+;":
             f"constexpr int kStepThreads = {ACK_THREADS};",
+    },
+    "parallel": {
+        r"constexpr int kTallyWarps = \d+;":
+            f"constexpr int kTallyWarps = {TALLY_WARPS};",
+        r"constexpr int kSumThreads = \d+;":
+            f"constexpr int kSumThreads = {SUM_THREADS};",
     },
     "bls_g1": {
         r"constexpr int kBlsThreads = \d+;":
@@ -810,31 +863,21 @@ ACK_CASES = ((1024, 1), (1024, 2), (2048, 3))
 ACK_CROSSING_ROWS = (4096, 8192)
 
 
-def rehearse_ack(rows: int, limbs: int, workdir: Path,
-                 crossing: bool = False) -> int:
-    """The step's cooperative grid and the sweep on the host, on a seeded case
-    (tests/ack_plane_cases.py) holding every row class, against the plain
-    versions bit for bit: the state, the row outputs, the sweep's tick and
-    totals; the adoption scratch must be empty again after the step."""
+def _ack_on_host(binary: Path, case: dict, workdir: Path) -> tuple:
+    """One step and one sweep of ``case`` (its block starting at client row
+    ``case.get("base", 0)``) by the host build of the kernels, and by the
+    plain versions: the names that differ, and both packed row outputs."""
     import torch
-    from ack_plane_cases import (
-        crossing_rows,
-        make_case,
-        make_crossing_case,
-        torch_batch,
-        torch_state,
-    )
+    from ack_plane_cases import torch_batch, torch_state
 
     from mirbft_tpu_torch.ops import ack_plane
 
-    binary = compile_host_main("ack_plane", ACK_MAIN, workdir)
-    # ``crossing``: the crossing case (``ACK_CROSSING_ROWS``).
-    case = (make_crossing_case if crossing else make_case)(
-        rows * 7 + limbs, rows, limbs)
+    rows, limbs = len(case["ci"]), case["limbs"]
+    base = case.get("base", 0)
     total = case["c_pad"] * case["w_pad"]
     header = np.array(
         [rows, case["c_pad"], case["w_pad"], limbs, case["weak_q"],
-         case["strong_q"], 0, 0], dtype=np.int32,
+         case["strong_q"], base, 0], dtype=np.int32,
     )
     batch = torch_batch(case).numpy()
     blob = b"".join([
@@ -865,7 +908,7 @@ def rehearse_ack(rows: int, limbs: int, workdir: Path,
     state = torch_state(case)
     out = ack_plane.ack_step_plain(
         *state, torch.from_numpy(batch), weak_q=case["weak_q"],
-        strong_q=case["strong_q"],
+        strong_q=case["strong_q"], base=base,
     )
     want = {
         "agree": state[0].numpy().view(np.uint32).ravel(),
@@ -883,6 +926,29 @@ def rehearse_ack(rows: int, limbs: int, workdir: Path,
     want["swept_tick"] = state[6].numpy().ravel()
     want["totals"] = totals.numpy().astype(np.uint32)
     bad = [name for name in want if not np.array_equal(got[name], want[name])]
+    return bad, got["out"], out
+
+
+def rehearse_ack(rows: int, limbs: int, workdir: Path,
+                 crossing: bool = False) -> int:
+    """The step's cooperative grid and the sweep on the host, on a seeded case
+    (tests/ack_plane_cases.py) holding every row class, against the plain
+    versions bit for bit: the state, the row outputs, the sweep's tick and
+    totals; the adoption scratch must be empty again after the step."""
+    import torch
+    from ack_plane_cases import (
+        crossing_rows,
+        make_case,
+        make_crossing_case,
+    )
+
+    from mirbft_tpu_torch.ops import ack_plane
+
+    binary = compile_host_main("ack_plane", ACK_MAIN, workdir)
+    # ``crossing``: the crossing case (``ACK_CROSSING_ROWS``).
+    case = (make_crossing_case if crossing else make_case)(
+        rows * 7 + limbs, rows, limbs)
+    bad, got_out, out = _ack_on_host(binary, case, workdir)
     classes = ack_plane.unpack_step(out)
     if crossing:
         pattern = [[bool(classes[k][r]) for k in ("adopt", "applied",
@@ -894,9 +960,52 @@ def rehearse_ack(rows: int, limbs: int, workdir: Path,
     print(f"ack plane, {rows} rows x {limbs} limbs on the host: "
           + ", ".join(f"{k} {int(v.to(torch.bool).sum())}"
                       for k, v in classes.items())
-          + f"; sweep {got['totals'].tolist()}: "
-          + ("state, row outputs, sweep == plain" if not bad
-             else f"{bad} differ"))
+          + "; " + ("state, row outputs, sweep == plain" if not bad
+                    else f"{bad} differ"))
+    return 1 if bad else 0
+
+
+#: (rows, limbs, shards) of the step's shard-view rehearsals.
+ACK_SHARD_CASES = ((1024, 1, 4), (2048, 3, 8))
+
+
+def rehearse_ack_shards(rows: int, limbs: int, shards: int,
+                        workdir: Path) -> int:
+    """The step and the sweep on each block of a seeded case split over
+    ``shards`` client blocks (a mesh's view, ``ack_plane_cases.shard_case``),
+    then on a foreign block that no row names: each block's state, row
+    outputs and sweep bit for bit against the plain version at its first
+    client row; the foreign block's row outputs all 0 and its state as it
+    was; and the blocks' row outputs summed equal to the one-block step's
+    on the whole plane, row for row."""
+    import torch
+    from ack_plane_cases import make_case, shard_case, torch_batch, torch_state
+
+    from mirbft_tpu_torch.ops import ack_plane
+
+    binary = compile_host_main("ack_plane", ACK_MAIN, workdir)
+    case = make_case(rows * 11 + limbs, rows, limbs, c_pad=4 * shards)
+    bad = []
+    summed = np.zeros(rows, dtype=np.int64)
+    for i in range(shards + 1):
+        part = shard_case(case, shards, i)
+        names, got_out, _ = _ack_on_host(binary, part, workdir)
+        bad += [f"block {i}: {name}" for name in names]
+        if i < shards:
+            summed += got_out
+        elif got_out.any():
+            bad.append(f"foreign block: {int((got_out != 0).sum())} "
+                       "nonzero row outputs")
+    whole = ack_plane.ack_step_plain(
+        *torch_state(case), torch_batch(case), weak_q=case["weak_q"],
+        strong_q=case["strong_q"],
+    ).numpy()
+    if not np.array_equal(summed, whole.astype(np.int64)):
+        bad.append("the blocks' outputs summed != the one-block step's")
+    print(f"ack step, {rows} rows x {limbs} limbs over {shards} client "
+          f"blocks and a foreign block on the host: "
+          + ("each block == plain, foreign rows 0, sum == one block"
+             if not bad else f"{bad}"))
     return 1 if bad else 0
 
 
@@ -964,6 +1073,65 @@ def rehearse_sweep(slots: int, limbs: int, workdir: Path,
     return 1 if bad else 0
 
 
+#: (rows, cols, k, n, offset) of csrc/parallel.cu's rehearsals: column
+#: counts that end inside a block and inside a lane's four columns, a vote
+#: block whose base is off its 4 bytes (the byte path), one voter, and
+#: partials from one shard to eight, ragged too.
+TALLY_CASES = ((8, 16, 1, 16, 0), (37, 300, 8, 333, 0), (5, 129, 3, 1, 0),
+               (16, 64, 4, 257, 1), (1, 7, 2, 5, 0), (64, 513, 8, 1024, 3))
+
+
+def rehearse_parallel(rows: int, cols: int, k: int, n: int, offset: int,
+                      workdir: Path) -> int:
+    """Both kernels of csrc/parallel.cu on the host: ``tally_columns`` on a
+    seeded (rows, cols) int8 block (every value of int8, so sign extension
+    shows) against ``tally_columns_plain``, ``shard_sum`` on seeded (k, n)
+    int32 partials (near the int32 limits, so wrap-around shows) against
+    ``shard_sum_plain`` with and without a threshold, bit for bit, and no
+    word written past the outputs."""
+    import torch
+
+    from mirbft_tpu_torch.ops import tally
+
+    binary = compile_host_main("parallel", PARALLEL_MAIN, workdir)
+    rng = np.random.default_rng(rows * 1000 + cols)
+    votes = rng.integers(-128, 128, size=(rows, cols), dtype=np.int8)
+    parts = rng.integers(-(1 << 31), 1 << 31, size=(k, n), dtype=np.int64)
+    parts = parts.astype(np.int32)
+    threshold = int(rng.integers(-(1 << 20), 1 << 20))
+    header = np.array([rows, cols, k, n, threshold, offset, 0, 0],
+                      dtype=np.int32)
+    vote_bytes = votes.tobytes()
+    vote_bytes += bytes(-len(vote_bytes) % 4)
+    (workdir / "tally.in").write_bytes(
+        header.tobytes() + vote_bytes + parts.tobytes())
+    subprocess.run([str(binary), str(workdir / "tally.in"),
+                    str(workdir / "tally.out")], check=True)
+    raw = (workdir / "tally.out").read_bytes()
+    sums = np.frombuffer(raw[:4 * (cols + 1)], dtype=np.int32)
+    total = np.frombuffer(raw[4 * (cols + 1):4 * (cols + n + 2)],
+                          dtype=np.int32)
+    mask = np.frombuffer(raw[4 * (cols + n + 2):], dtype=np.uint8)
+    want_sums = tally.tally_columns_plain(torch.from_numpy(votes)).numpy()
+    want_total = tally.shard_sum_plain(torch.from_numpy(parts)).numpy()
+    want_mask = tally.shard_sum_plain(torch.from_numpy(parts),
+                                      threshold).numpy()
+    bad = []
+    if not np.array_equal(sums[:cols], want_sums):
+        bad.append("tally")
+    if not np.array_equal(total[:n], want_total):
+        bad.append("shard_sum")
+    if not np.array_equal(mask[:n], want_mask.astype(np.uint8)):
+        bad.append("shard_sum mask")
+    if (sums[cols], total[n], mask[n]) != (0x7EADBEEF, 0x7EADBEEF, 0x7E):
+        bad.append("a write past the outputs")
+    print(f"tally_columns ({rows}, {cols}) int8"
+          + (f" at byte offset {offset}" if offset else "")
+          + f", shard_sum ({k}, {n}) int32 on the host: "
+          + ("== plain, bit for bit" if not bad else f"{bad} differ"))
+    return 1 if bad else 0
+
+
 def rehearse_bls(cases: list, workdir: Path, exact: bool = False) -> int:
     """The aggregation kernel on the host, a group of host threads a
     certificate,
@@ -1007,7 +1175,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("what", nargs="*", default=["ladder", "sha256"],
                         choices=["ladder", "sha256", "decompress", "ack",
-                                 "bls"])
+                                 "bls", "parallel"])
     parser.add_argument("--rows", type=int, default=6,
                         help="ladder rows (default 6: two ragged blocks)")
     args = parser.parse_args(argv)
@@ -1023,9 +1191,14 @@ def main(argv=None) -> int:
                 status |= rehearse_ack(rows, limbs, workdir)
             for rows in ACK_CROSSING_ROWS:
                 status |= rehearse_ack(rows, 1, workdir, crossing=True)
+            for rows, limbs, shards in ACK_SHARD_CASES:
+                status |= rehearse_ack_shards(rows, limbs, shards, workdir)
             for slots, limbs, certified, misalign in SWEEP_REHEARSALS:
                 status |= rehearse_sweep(slots, limbs, workdir, certified,
                                          misalign)
+        if "parallel" in args.what:
+            for case in TALLY_CASES:
+                status |= rehearse_parallel(*case, workdir)
         if "bls" in args.what:
             from bls_cases import cases, width_cases
 

@@ -29,8 +29,8 @@ runs both matrices whole (``chip_smoke.py`` phase 20).
 On top, the live reference failures (ROADMAP queue 3), each shown on
 both packages: ``crash-restart``'s crash before a slow node has persisted
 anything, the empty window's bucket backlog, the forged-request probe
-racing convergence, and ``transfer-corrupt-stream``, vacuous in a share
-of runs.
+racing convergence, a censored commit's rotations read at a late poll,
+and ``transfer-corrupt-stream``, vacuous in a share of runs.
 """
 
 import dataclasses
@@ -362,6 +362,130 @@ def test_bucket_backlog_of_an_empty_window():
     with pytest.raises(IndexError):
         empty(RefActiveEpoch).bucket_backlog()
     assert empty(ActiveEpoch).bucket_backlog() == [0, 0, 0, 0]
+
+
+def test_censored_commit_counts_the_rotations_at_its_first_apply():
+    """A censored request's rotation count is the one read when it first
+    commits.  The JAX driver reads it when its next 0.2 s poll sees the
+    commit, and epochs of 40 sequences at a 40 ms tick can rotate in
+    between (the live ``censor-client-rotation`` read up to two rotations
+    late, and failed its bound of 3 at a count of 4 on the card).  Here
+    the cluster moves two rotations between the apply and the poll: the
+    JAX driver counts 3, the port 1."""
+    import functools
+
+    from mirbft_tpu import pb as ref_pb
+    from mirbft_tpu.app.journal import DurableChainLog as RefChainLog
+    from mirbft_tpu.chaos.live import LiveCluster as RefLiveCluster
+    from mirbft_tpu.obsv import hooks as ref_hooks
+    from mirbft_tpu.obsv.metrics import Registry as RefRegistry
+    from mirbft_tpu_torch.app.journal import DurableChainLog
+    from mirbft_tpu_torch.chaos.live import LiveReplica
+    from mirbft_tpu_torch.chaos.runner import FIRST_WORKING_EPOCH
+    from mirbft_tpu_torch.obsv import hooks
+    from mirbft_tpu_torch.obsv.metrics import Registry
+
+    name = "censor-client-rotation"
+    pair = (4, 3)
+
+    def rotations(pkg_hooks, registry, cluster, apply):
+        cluster._start = time.monotonic()
+        pkg_hooks.enable(registry=registry, trace=False)
+        try:
+            def rotate_to(rotation):
+                pkg_hooks.metrics.counter(
+                    "mirbft_epoch_events_total", event="active",
+                    epoch=str(FIRST_WORKING_EPOCH + rotation)).inc()
+
+            rotate_to(1)
+            cluster._censors[0].censored_pairs.add(pair)
+            apply()
+            rotate_to(3)
+            cluster._track_censored_commits()
+            return cluster.commit_rotations[pair]
+        finally:
+            pkg_hooks.disable()
+            cluster.replicas = [None]
+            cluster.teardown()
+
+    ref = RefLiveCluster(REF_ADV_BY_NAME[name], 0, 0.04, 60.0, 40)
+    ref_log = RefChainLog(os.path.join(ref.root, "app.log"), 0,
+                          on_commit=ref._on_commit)
+    ref.replicas = [types.SimpleNamespace(app_log=ref_log)]
+
+    def ref_apply():
+        ref_log.apply(ref_pb.QEntry(seq_no=1, requests=[
+            ref_pb.RequestAck(client_id=pair[0], req_no=pair[1],
+                              digest=bytes(32))]))
+        ref_log.close()
+
+    assert rotations(ref_hooks, RefRegistry(), ref, ref_apply) == 3
+
+    port = LiveCluster(ADV_BY_NAME[name], 0, 0.04, 60.0, 40, device="cpu")
+    replica = types.SimpleNamespace(cluster=port)
+    replica.app_log = DurableChainLog(
+        os.path.join(port.root, "app.log"), 0,
+        on_commit=functools.partial(LiveReplica._on_commit, replica))
+
+    def port_apply():
+        replica.app_log.apply(pb.QEntry(seq_no=1, requests=[
+            pb.RequestAck(client_id=pair[0], req_no=pair[1],
+                          digest=bytes(32))]))
+        replica.app_log.close()
+
+    assert rotations(hooks, Registry(), port, port_apply) == 1
+
+
+def test_a_suspicion_before_the_first_commit_is_on_record():
+    """The live ``censor-client-rotation`` passes ``censor_k`` rotations
+    when a node suspects the first working epoch before its first commit
+    (ROADMAP queue 3).  The port's driver notes such a node from its
+    outgoing link; a later suspicion, another epoch's or another message
+    is not noted, and every message still goes out.  ``chip_smoke.py``
+    accepts the scenario's late-rotation failure only with that cause on
+    record."""
+    import chip_smoke
+    from mirbft_tpu_torch.chaos.live import _SuspectWatch
+    from mirbft_tpu_torch.chaos.runner import FIRST_WORKING_EPOCH
+
+    cluster = LiveCluster(ADV_BY_NAME["censor-client-rotation"], 0, 0.04,
+                          60.0, 40, device="cpu")
+    sent = []
+    link = types.SimpleNamespace(send=lambda dest, msg: sent.append(dest))
+    log = types.SimpleNamespace(last_seq=0)
+    replica = types.SimpleNamespace(cluster=cluster, node_id=2, app_log=log)
+    watch = _SuspectWatch(link, replica)
+    try:
+        watch.send(1, pb.Msg(type=pb.Suspect(epoch=FIRST_WORKING_EPOCH + 1)))
+        watch.send(1, pb.Msg(type=pb.Preprepare(seq_no=1, epoch=1)))
+        log.last_seq = 3
+        watch.send(1, pb.Msg(type=pb.Suspect(epoch=FIRST_WORKING_EPOCH)))
+        assert cluster.suspected_before_commit == set()
+        log.last_seq = 0
+        watch.send(3, pb.Msg(type=pb.Suspect(epoch=FIRST_WORKING_EPOCH)))
+        assert cluster.suspected_before_commit == {2}
+        assert sent == [1, 1, 1, 3]
+    finally:
+        cluster.teardown()
+
+    late = types.SimpleNamespace(
+        name="censor-client-rotation", passed=False,
+        violation="censored requests took more than 3 epoch rotations to "
+        "commit: [((4, 9), 4)]", counters={"suspected_before_commit": [2]})
+    assert chip_smoke.live_classified(late)
+    assert chip_smoke.classified_note(late).endswith(
+        "suspected_before_commit [2]")
+    vacuous = types.SimpleNamespace(
+        name="transfer-corrupt-stream", passed=False, counters={},
+        violation="transfer attack touched no frames (vacuous)")
+    assert chip_smoke.live_classified(vacuous)
+    assert chip_smoke.classified_note(vacuous) == (
+        "transfer-corrupt-stream: the classified failure (ROADMAP queue 3)")
+    late.counters["suspected_before_commit"] = []
+    assert not chip_smoke.live_classified(late)
+    late.violation = "censored requests never committed: [(4, 9)]"
+    late.counters["suspected_before_commit"] = [2]
+    assert not chip_smoke.live_classified(late)
 
 
 def test_convergence_waits_for_the_forged_request_probe():

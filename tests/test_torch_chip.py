@@ -749,3 +749,137 @@ def test_live_adversary_corruption_rejected_on_the_card(card):
     assert result.counters["rejections"] == result.counters["corrupted"]
     assert result.counters["launches_ed25519_ladder"] > 0
     assert result.commits > 0
+
+
+# -- the sharded plane (chip_smoke phase 23) ------------------------------------
+
+TALLY_SHAPES = [(8, 16), (128, 4096), (256, 65536), (37, 300), (5, 129)]
+
+
+@pytest.mark.parametrize("rows,cols", TALLY_SHAPES,
+                         ids=[f"{r}x{c}" for r, c in TALLY_SHAPES])
+def test_tally_and_shard_sum_kernels_equal_their_plain_versions(card, rows,
+                                                               cols):
+    """Phase 23a: the column sums of a seeded int8 vote block (every int8
+    value; word loads, and byte loads at ragged widths and from a base off
+    4 bytes) and the sum of 4 shards' partials, with and without a
+    threshold, bit for bit against the plain versions on the same card;
+    one launch counted each."""
+    from mirbft_tpu_torch.ops import tally
+
+    gen = torch.Generator().manual_seed(rows * 7919 + cols)
+    votes = torch.randint(-128, 128, (rows, cols), generator=gen,
+                          dtype=torch.int8).to(card)
+    before = (tally.tally_columns.launches, tally.shard_sum.launches)
+    sums = tally.tally_columns(votes)
+    assert torch.equal(sums, tally.tally_columns_plain(votes))
+    assert torch.equal(sums, votes.sum(0, dtype=torch.int32))
+    off = torch.empty(rows * cols + 1, dtype=torch.int8, device=card)
+    off[1:] = votes.reshape(-1)
+    shifted = off[1:].view(rows, cols)
+    assert torch.equal(tally.tally_columns(shifted), sums)
+    parts = torch.randint(-(1 << 31), 1 << 31, (4, cols), generator=gen,
+                          dtype=torch.int64).to(torch.int32).to(card)
+    assert torch.equal(tally.shard_sum(parts), tally.shard_sum_plain(parts))
+    for threshold in (0, int(sums.float().mean()), 1 << 30):
+        assert torch.equal(tally.shard_sum(parts, threshold),
+                           tally.shard_sum_plain(parts, threshold))
+    torch.cuda.synchronize()
+    assert (tally.tally_columns.launches, tally.shard_sum.launches) == (
+        before[0] + 2, before[1] + 4)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_sharded_functions_on_the_card_equal_the_unsharded_kernels(card,
+                                                                   shards):
+    """Phase 23b: the three sharded functions on ``[cuda:0] * shards``
+    against one unsharded call of their kernels: digest words, quorum
+    masks, and Ed25519 verdicts (valid rows accepted, corrupted ones
+    rejected)."""
+    import numpy as np
+
+    from mirbft_tpu_torch.parallel import sharding
+
+    mesh = sharding.make_mesh(devices=[card] * shards)
+    rng = random.Random(shards)
+    messages = [rng.randbytes(rng.randrange(0, 500)) for _ in range(64)]
+    packed = pack_preimages(messages, batch_floor=shards)
+    words = sharding.sharded_sha256(mesh)(packed.blocks, packed.n_blocks)
+    assert torch.equal(words, port.sha256_digest_words(
+        *to_tensors(packed, card)))
+
+    votes = np.random.default_rng(shards).integers(
+        0, 2, (16 * shards, 1000)).astype(np.int8)
+    mask = sharding.sharded_quorum_tally(mesh)(votes, 9 * shards)
+    want = (votes.astype(np.int32).sum(axis=0) >= 9 * shards).tolist()
+    assert mask.device.type == "cuda" and mask.tolist() == want
+
+    rows = []
+    for i in range(8):
+        seed = bytes([i + 1]) * 32
+        msg = b"phase-23-%d" % i
+        pk, sig = ed25519_host.public_key(seed), ed25519_host.sign(seed, msg)
+        rows.append(ed25519.marshal_light(pk, msg + (b"!" if i % 2 else b""),
+                                          sig))
+    got = sharding.sharded_ed25519_verify(mesh)(*ed25519.pack_rows(rows))
+    single = ed25519.launch_rows(rows, device=card)
+    assert torch.equal(got, single)
+    assert (got != 0).tolist() == [i % 2 == 0 for i in range(8)]
+
+
+def test_four_shard_device_plane_on_the_card_equals_one_device(card):
+    """Phase 23c's plane, small: a 4-shard ack plane on ``[cuda:0] * 4``
+    and a one-device plane on the card take one storm of acks from three
+    sources (a fourth voting a fork on some slots) frame by frame: the same
+    sweep and every state array equal; the one-device plane launches no
+    shard_sum, the 4-shard one a shard_sum a flush and a sweep."""
+    from mirbft_tpu_torch.core.client_tracker import ClientTracker
+    from mirbft_tpu_torch.core.msgbuffers import NodeBuffers
+    from mirbft_tpu_torch.core.persisted import Persisted
+    from mirbft_tpu_torch.ops import tally
+    from mirbft_tpu_torch.parallel import sharding
+
+    def tracker(ack_device):
+        persisted = Persisted()
+        persisted.add_c_entry(pb.CEntry(
+            seq_no=0, checkpoint_value=b"genesis",
+            network_state=pb.NetworkState(
+                config=pb.NetworkConfig(
+                    nodes=list(range(4)), f=1, number_of_buckets=4,
+                    checkpoint_interval=5, max_epoch_length=50),
+                clients=[pb.NetworkClient(id=c, width=4, low_watermark=0)
+                         for c in range(100)])))
+        my = pb.InitialParameters(id=0, buffer_size=1 << 20)
+        ct = ClientTracker(persisted, NodeBuffers(my), my,
+                           ack_plane="device", ack_device=ack_device)
+        ct.reinitialize()
+        return ct
+
+    rng = random.Random(23)
+    digests = {(c, r): rng.randbytes(32) for c in range(100) for r in range(4)}
+    frames = []
+    for source in (1, 2, 3, 0):
+        keys = list(digests)
+        rng.shuffle(keys)
+        msgs = [pb.Msg(type=pb.RequestAck(
+            client_id=c, req_no=r,
+            digest=rng.randbytes(32) if source == 0 and rng.random() < 0.3
+            else digests[(c, r)])) for c, r in keys]
+        frames += [(source, msgs[lo:lo + 128])
+                   for lo in range(0, len(msgs), 128)]
+    planes = []
+    for ack_device in (card, sharding.make_mesh(devices=[card] * 4)):
+        ct = tracker(ack_device)
+        before = tally.shard_sum.launches
+        for source, msgs in frames:
+            ct.step_ack_many(source, msgs)
+        certs = ct._device.quorum_sweep()
+        torch.cuda.synchronize()
+        planes.append((ct._device, certs, tally.shard_sum.launches - before))
+    (one, certs1, sums1), (four, certs4, sums4) = planes
+    assert (one.mesh.size, four.mesh.size) == (1, 4)
+    assert certs1 == certs4 and certs1["strong_certs"] > 0
+    assert sums1 == 0 and sums4 == four.batches + 1
+    snaps = one.host_snapshot(), four.host_snapshot()
+    for name in snaps[0]:
+        assert (snaps[0][name] == snaps[1][name]).all(), name

@@ -336,7 +336,8 @@ def test_oracle_audits_the_device_plane_slot_by_slot():
     dev = ct._device
     assert shadow.audit_tracker(ct) == []
     slot = dev.slot_of(7, 3)
-    dev._dev[6].view(-1)[slot] = 1 - int(dev._dev[6].view(-1)[slot])
+    tick = dev._shards[0][6].view(-1)
+    tick[slot] = 1 - int(tick[slot])
     dev._snapshot = None
     divs = shadow.audit_tracker(ct)
     assert [(d["component"], d["req_no"]) for d in divs] == [

@@ -331,7 +331,7 @@ def test_injected_device_bitflip_caught_within_stride(tmp_path):
     dev = ct._device
     slot = dev.slot_of(7, 0)
     ci, w = slot // dev.w_pad, slot % dev.w_pad
-    dev._dev[0][ci, w, 0] &= ~(1 << 3)
+    dev._shards[0][0][ci, w, 0] &= ~(1 << 3)
     dev._snapshot = None
 
     reg = Registry()

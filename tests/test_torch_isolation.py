@@ -4,7 +4,9 @@ the device ack plane and the BLS aggregation raise instead of falling back
 to the host.  The live service (signed ingress, the app layer, state
 transfer, the load generator and the chaos campaign) is held to the same
 rules: no jax, no JAX package, no host route unless named.  So is the
-multi-process cluster, a spawned worker process's own imports included."""
+multi-process cluster, a spawned worker process's own imports included,
+and the sharded plane: ``make_mesh``, its three sharded functions and the
+entry points of ``entry.py``."""
 
 import ast
 import os
@@ -13,10 +15,12 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from mirbft_tpu_torch import bench as port_bench
+from mirbft_tpu_torch import entry as port_entry
 from mirbft_tpu_torch.chaos import (
     live_smoke_matrix,
     run_live_scenario,
@@ -33,6 +37,7 @@ from mirbft_tpu_torch.ops import bls_g1 as port_bls_g1
 from mirbft_tpu_torch.ops import ed25519 as port_ed25519
 from mirbft_tpu_torch.ops import sha256 as port_sha256
 from mirbft_tpu_torch.ops.batching import pack_preimages, to_tensors
+from mirbft_tpu_torch.parallel import sharding
 from mirbft_tpu_torch.runtime import Config as RuntimeConfig
 from mirbft_tpu_torch.runtime import processor as runtime_processor
 from mirbft_tpu_torch.testengine import BasicRecorder
@@ -178,6 +183,21 @@ def _cluster(**kw):
     return InProcessCluster(node_count=1, client_ids=[1], **kw)
 
 
+def _sharded(name, device="cuda"):
+    """One of ``parallel.sharding``'s sharded functions on a mesh of two
+    ``device``s (one for Ed25519: a single signature row), on a tiny
+    input."""
+    if name == "ed25519":
+        mesh = sharding.Mesh([device])
+        return sharding.sharded_ed25519_verify(mesh)(
+            *port_ed25519.pack_rows(_rows()))
+    mesh = sharding.Mesh([device] * 2)
+    if name == "sha256":
+        packed = pack_preimages([b"abc", b"de"], batch_floor=2)
+        return sharding.sharded_sha256(mesh)(packed.blocks, packed.n_blocks)
+    return sharding.sharded_quorum_tally(mesh)(np.ones((2, 3), np.int8), 2)
+
+
 @pytest.mark.parametrize(
     "entry",
     [
@@ -218,6 +238,13 @@ def _cluster(**kw):
         port_bench.knee_run,
         lambda: chaos_main(["--live", "--cluster", "mp", "--smoke",
                             "--only", "retry"]),
+        sharding.make_mesh,
+        lambda: sharding.make_mesh(2),
+        lambda: _sharded("sha256"),
+        lambda: _sharded("tally"),
+        lambda: _sharded("ed25519"),
+        port_entry.entry,
+        lambda: port_entry.dryrun_multichip(1),
     ],
     ids=[
         "kernel_plane", "sha256_many", "sha256_chunked", "to_tensors",
@@ -230,7 +257,9 @@ def _cluster(**kw):
         "app_run", "obsv_cli_run", "soak_run", "chaos_cli_run",
         "chaos_cli_live_run", "run_scenario", "run_live_scenario",
         "live_attack_run", "live_mp_run", "reconfig_run", "knee_run",
-        "chaos_cli_mp_run",
+        "chaos_cli_mp_run", "make_mesh", "make_mesh_2", "sharded_sha256",
+        "sharded_quorum_tally", "sharded_ed25519_verify", "entry",
+        "dryrun_multichip",
     ],
 )
 def test_entry_points_raise_without_a_card(no_card, entry):
@@ -276,6 +305,12 @@ def test_entry_points_raise_without_a_card(no_card, entry):
             "cuda", device="cpu", settings=TINY_LIVE),
         lambda: chaos_main(["--live", "--cluster", "mp", "--smoke",
                             "--device", "cpu", "--only", "retry"]),
+        lambda: sharding.make_mesh(2, devices=["cpu"] * 2),
+        lambda: _sharded("sha256", "cpu"),
+        lambda: _sharded("tally", "cpu"),
+        lambda: _sharded("ed25519", "cpu"),
+        lambda: port_entry.entry("cpu"),
+        lambda: port_entry.dryrun_multichip(2, devices=["cpu"] * 2),
     ],
     ids=[
         "kernel_plane", "sha256_many", "to_tensors", "recorder",
@@ -286,6 +321,8 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "default_config_processor", "batch_verifier", "inprocess_cluster",
         "obsv_cli_run", "soak_run", "chaos_cli_run", "run_scenario",
         "run_live_scenario", "live_attack_run", "chaos_cli_mp_run",
+        "make_mesh", "sharded_sha256", "sharded_quorum_tally",
+        "sharded_ed25519_verify", "entry", "dryrun_multichip",
     ],
 )
 def test_entry_points_run_on_the_cpu_when_asked(no_card, entry):

@@ -2,8 +2,10 @@
 (tests/rehearse_cuda.py): the quad ladder's verdicts against the RFC 8032
 oracle, decompression's points against the oracle and its plain version,
 both SHA-256 digest bodies against hashlib, the ack plane's step and
-sweep against their plain versions, and the BLS G1 aggregation against its
-plain version and the host fold, with every shuffle, warp reduction,
+sweep against their plain versions (the step on a mesh's client blocks
+too), the BLS G1 aggregation against its plain version and the host
+fold, and the sharded plane's column sums and shard sum against theirs,
+with every shuffle, warp reduction,
 atomic and mbarrier of the card's code modelled by host threads.  The card
 itself runs them in tests/test_torch_chip.py."""
 
@@ -71,6 +73,38 @@ def test_ack_step_adoption_across_a_threads_rows_on_the_host(gxx, tmp_path,
 
 
 @pytest.mark.parametrize(
+    "rows,limbs,shards", rehearse_cuda.ACK_SHARD_CASES,
+    ids=[f"rows{r}-limbs{l}-shards{k}"
+         for r, l, k in rehearse_cuda.ACK_SHARD_CASES],
+)
+def test_ack_step_on_a_meshs_client_blocks_on_the_host(gxx, tmp_path, rows,
+                                                      limbs, shards):
+    """A shard's view of the step: a seeded case split over client blocks,
+    each block stepped from its first client row, then a block no row
+    names.  Each block's state, row outputs and sweep bit for bit against
+    the plain version; the foreign block's row outputs all exactly 0; the
+    blocks' outputs summed equal to the one-block step's, row for row (the
+    mesh's psum)."""
+    assert rehearse_cuda.rehearse_ack_shards(rows, limbs, shards,
+                                             tmp_path) == 0
+
+
+@pytest.mark.parametrize(
+    "case", rehearse_cuda.TALLY_CASES,
+    ids=[f"tally{r}x{c}-sum{k}x{n}" + (f"-off{o}" if o else "")
+         for r, c, k, n, o in rehearse_cuda.TALLY_CASES],
+)
+def test_tally_and_shard_sum_equal_their_plain_versions_on_the_host(
+        gxx, tmp_path, case):
+    """csrc/parallel.cu: the column sums of a ragged int8 vote block (word
+    loads, and byte loads where the columns or the base do not fall on 4
+    bytes) and the sum of ragged int32 partials, with and without a
+    threshold, bit for bit against the plain versions (sign extension and
+    int32 wrap-around included); nothing written past the outputs."""
+    assert rehearse_cuda.rehearse_parallel(*case, tmp_path) == 0
+
+
+@pytest.mark.parametrize(
     "slots,limbs,certified,misalign", rehearse_cuda.SWEEP_REHEARSALS,
     ids=[f"slots{s}-limbs{l}" + ("-certified" if c else "")
          + ["", "-bytes-off", "-masks-off"][m]
@@ -119,7 +153,8 @@ def test_bls_aggregate_at_widths_no_lane_split_divides_on_the_host(
                                       exact=True) == 0
 
 
-@pytest.mark.parametrize("name", ["ed25519", "sha256", "ack_plane", "bls_g1"])
+@pytest.mark.parametrize("name", ["ed25519", "sha256", "ack_plane", "bls_g1",
+                                  "parallel"])
 def test_host_source_cuts_the_launchers_and_the_ptx(name):
     text = rehearse_cuda.host_source(name)
     assert 'extern "C"' not in text and "<<<" not in text
