@@ -22,8 +22,9 @@ Phases (any failure raises and the script exits nonzero):
 3. the determinism anchor: 16 nodes x 64 clients x 25 requests, BatchSize
    200, every digest from the kernel: 2320 events, one app chain, 1600
    commits per node;
-4. the main path at ladder rung 2 (16 nodes, 64 clients x 100 requests,
-   BatchSize 200, ready_latency 400 ms): the host plane and the kernel
+4. the main path at ladder rung 2 (``mirbft_tpu_torch.bench.ladder_run``:
+   16 nodes, 64 clients x 100 requests, BatchSize 200, ready_latency 400
+   ms): the host plane and the kernel
    plane in four pairs of alternating order (host, kernel, kernel, host,
    ...); events, app chains and committed sequences must be equal, the
    kernel must have launched, and no digest may come from the host.  Each
@@ -57,8 +58,10 @@ Phases (any failure raises and the script exits nonzero):
    kernels against the host-oracle plane; equal events, app chains,
    committed sequences and recorded events, no forgery committed, every
    request rejected on the host or launched, at a shape phase 6 compared;
-8. rung 3 at full scale (bench.py:671-760: 64 nodes, f = 21, 1024 signed
-   clients x 8 requests, BatchSize 200) with the speculative signature
+8. rung 3 at full scale (``mirbft_tpu_torch.bench.rung3_run``, the JAX
+   package's bench.py:671-760: 64 nodes, f = 21, 1024 signed
+   clients x 8 requests, BatchSize 200, phase 6's presigned requests) with
+   the speculative signature
    plane and the kernel hash plane: the event count and app chain head of
    the JAX package's own run, 8192 commits on every node, every verify and
    every digest on the card; committed req/s, the verify p99, the kernels'
@@ -71,15 +74,18 @@ Phases (any failure raises and the script exits nonzero):
    two, and the plain versions' times at n = 512;
 10. the SHA-256 chain kernel against its plain version, exactly, at
     (1024, 16) and the ragged (1000, 16) blocks, at the full batch of
-    32768 rows, and at the full 4096 iterations on 1000 rows; then the port's kernel microbenchmark at full size
+    32768 rows, and at the microbenchmark's full 4096 iterations on 128
+    rows; then the port's kernel microbenchmark at full size
     (``mirbft_tpu_torch.bench.kernel_microbench``: 32768 rows x 4096
     chained compressions x 4 reps): compressions/s, the kernel's time
     beside its bound, hashlib's rate;
 11. the live rung (``mirbft_tpu_torch.bench.live_cluster_rate``, the JAX
     package's bench.py:122-131 settings unchanged: 4 nodes over loopback
     TCP, 16 clients x 110 requests, BatchSize 10, real fsyncs plus a 40 ms
-    floor, to the 1600th commit) under each processor kind: serial, cuda,
-    pool, cuda-pool, pipelined, cuda-pipelined.  Each must reach the
+    floor, to the 1600th commit) under the processor kinds serial, pool,
+    cuda-pool, pipelined and cuda-pipelined (cuda runs in phase 24, as the
+    bench's ``live_serial`` stage, which must pass the same
+    ``live_cluster_rate`` gates).  Each must reach the
     target, commit no request twice and keep the nodes' chains agreeing;
     each cuda kind must launch every hash request and none on the host.
     Each node runs in a process of its own and counts its launches there
@@ -87,7 +93,7 @@ Phases (any failure raises and the script exits nonzero):
     the first launches of each shape keep their preimages and the digests
     they read back: those digests must equal hashlib's, and each kept
     launch, replayed through the kernel at its shape, must equal the plain
-    version and hashlib.  Each live shape is timed on its first kept
+    version and the live launch.  Each live shape is timed on its first kept
     launch's preimages beside its floors, with round 1's launches x gap.
     Committed req/s and p95 commit latency per kind;
 12. the device ack plane's two kernels (``csrc/ack_plane.cu``: the step,
@@ -238,7 +244,18 @@ Phases (any failure raises and the script exits nonzero):
     functions on ``[cuda:0]`` and ``[cuda:0] * 4`` equal to the unsharded
     kernels (the Ed25519 verdicts accept the valid half and reject the
     corrupted half), their launches counted, and timed against the
-    unsharded call.
+    unsharded call;
+24. the bench's ``main``: ``python -m mirbft_tpu_torch.bench`` in a process
+    of its own with ``BENCH_BUDGET_S=40``, ``BENCH_SOAK_S=0`` and its
+    journal in a temp dir: exit 0, one JSON line last with the JAX
+    package's stages in its order, each ``ok``, ``timeout`` or skipped for
+    the budget (the soak and rung 5 by design), ``live_serial`` ``ok``
+    (the cuda processor, every digest on the SHA-256 kernel, the live
+    rung's gates); the journal a header, a line a stage and the payload;
+    ``--recover`` on it the same payload; ``obsv --diff`` of the artifact
+    against itself exit 0 (these two through their command lines' entry
+    functions, in this process).  Whatever the bench left running is
+    stopped after.
 
 It then prints the kernels as one JSON line, the card's name and power
 limit, and, last, the result line the chip check reads.  Without a CUDA
@@ -266,9 +283,8 @@ from pathlib import Path
 
 SEED = 20261016
 NODES, CLIENTS, BATCH_SIZE = 16, 64, 200
-ANCHOR_REQS, RUNG2_REQS = 25, 100
-READY_LATENCY_MS = 400
-RUNG2_PAIRS = 4  # host/kernel pairs (~13 s each: the script's time limit)
+ANCHOR_REQS = 25
+RUNG2_PAIRS = 4  # host/kernel pairs (~8 s each: the script's time limit)
 SIGNED_REQS = 4  # phase 7: 16 nodes x 64 clients x 4 signed requests
 FORGED_REQ_NO = 99
 # The JAX package's own rung-3 run on a CPU (SpeculativeSignaturePlane with
@@ -286,10 +302,12 @@ SHA256_SHAPES = (
 )
 # Phase 10: (rows, iterations) held against the plain version (on the
 # host: its launches are all overhead), the last at the microbenchmark's
-# full 4096 iterations; and the iterations the plain version is timed at
-# on the full batch on the card (its 4096 would take about a minute of
-# small launches).
-CHAIN_COMPARED = ((1024, 16), (1000, 16), (32768, 8), (1000, 4096))
+# full 4096 iterations (on 128 rows: the host plain version costs ~4.6 ms
+# an iteration, little more for 1000 rows; (1000, 16) has the ragged
+# rows); and the iterations the plain version is timed at on the full
+# batch on the card (its 4096 would take about a minute of small
+# launches).
+CHAIN_COMPARED = ((1024, 16), (1000, 16), (32768, 8), (128, 4096))
 CHAIN_PLAIN_ITERS = 64
 # Launch shapes held against the plain versions and the oracle: the timed
 # ones, small and ragged ones (a quad ladder's warp or block part empty),
@@ -301,6 +319,10 @@ ED25519_COMPARED = tuple(sorted(
 # group, the 512- and 4096-signature launches' points and one past.
 DECOMPRESS_CORPUS_ROWS = (1, 3, 7, 8, 1024, 1025, 8192)
 POOL_PROCESSES = 8
+# Phase 11's processor kinds: every live kind but cuda, which the bench's
+# live_serial stage runs in phase 24 under the same live_cluster_rate
+# gates, and which phase 24 requires to end ok.
+PHASE11_KINDS = ("serial", "pool", "cuda-pool", "pipelined", "cuda-pipelined")
 ANCHOR_W_PAD = 128  # the anchor's ack plane: windows of 101 slots, padded
 # Phase 12: the crossing case's batch sizes: the rung's, the largest
 # bucket, and a coalesced flush of 262144 rows, where the last crossing
@@ -431,73 +453,14 @@ def bucket_lengths(rng, rows: int, bucket: int, ragged: bool) -> list:
     return [rng.randrange(low, top + 1) for _ in range(rows)]
 
 
-class GcTimer:
-    """Seconds the cyclic collector spends while ``timing`` is set."""
-
-    def __init__(self):
-        self.seconds = 0.0
-        self.timing = False
-        self._start = 0.0
-        gc.callbacks.append(self._on_gc)
-
-    def _on_gc(self, phase, _info):
-        if not self.timing:
-            return
-        if phase == "start":
-            self._start = time.perf_counter()
-        else:
-            self.seconds += time.perf_counter() - self._start
-
-
-GC_TIMER = GcTimer()
-
-
-def run_engine(reqs_per_client, plane, ready_latency=None, **recorder_kw):
-    """Drive the engine to full commitment; returns events, wall s,
-    (process, main thread, collector) CPU s, app chains, committed
-    sequences and per-node commit counts.
-
-    The garbage of earlier runs is collected first, outside the clock: each
-    recorder holds reference cycles, and a full collection of several dead
-    ones inside a timed run costs seconds."""
-    import torch
-
-    from mirbft_tpu_torch.testengine import BasicRecorder, RuntimeParameters
-
-    params = (
-        RuntimeParameters(ready_latency=ready_latency)
-        if ready_latency is not None else None
-    )
-    gc.collect()
-    GC_TIMER.seconds, GC_TIMER.timing = 0.0, True
-    cpu = (time.process_time(), time.thread_time())
-    start = time.perf_counter()
-    rec = BasicRecorder(
-        NODES, CLIENTS, reqs_per_client, batch_size=BATCH_SIZE,
-        params=params, hash_plane=plane, record=False, **recorder_kw,
-    )
-    events = rec.drain_clients(max_steps=20_000_000)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - start
-    cpu = (
-        time.process_time() - cpu[0], time.thread_time() - cpu[1],
-        GC_TIMER.seconds,
-    )
-    GC_TIMER.timing = False
-    chains = {n: s.app_chain for n, s in rec.node_states.items()}
-    committed = {n: list(s.committed_reqs) for n, s in rec.node_states.items()}
-    counts = [rec.committed_at(n) for n in range(NODES)]
-    return events, wall, cpu, chains, committed, counts
-
-
 def profile_rung2(make_plane, path_label, out) -> None:
     """One rung-2 run under cProfile; its 40 costliest functions by own
     time go to ``out``."""
+    from mirbft_tpu_torch import bench as port_bench
+
     profiler = cProfile.Profile()
     profiler.enable()
-    events, wall, _cpu, _chains, _committed, _counts = run_engine(
-        RUNG2_REQS, make_plane(), READY_LATENCY_MS
-    )
+    wall, events, _chain, _sim = port_bench.ladder_run(make_plane())
     profiler.disable()
     text = io.StringIO()
     pstats.Stats(profiler, stream=text).sort_stats("tottime").print_stats(40)
@@ -2064,7 +2027,8 @@ def check_workers(label: str, evidence: dict, exit_codes: dict,
     nothing).  Returns the wrappers' launches summed over the workers."""
     for node, codes in sorted(exit_codes.items()):
         check(codes and codes[-1] == 0 and all(c in (0, -9) for c in codes),
-              f"{label}: node {node} exit codes {codes}")
+              f"{label}: node {node} exit codes {codes}, worker.log: "
+              f"{evidence.get(node, {}).get('log_faults', [])[:3]}")
     totals = dict.fromkeys(CLUSTER_KERNELS, 0)
     for node, e in sorted(evidence.items()):
         check(not e["log_faults"],
@@ -2346,6 +2310,7 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
     import numpy as np
     import torch
 
+    from mirbft_tpu_torch import bench as port_bench
     from mirbft_tpu_torch import entry as port_entry
     from mirbft_tpu_torch.crypto import ed25519_host
     from mirbft_tpu_torch.ops import ack_plane, tally
@@ -2381,9 +2346,12 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
     # -- 23c-d: the main path, counts from 0 just before, read just after ------
     zero()
     plane = AsyncKernelHashPlane()
-    events, wall, _cpu, chains, _, counts = run_engine(
-        ANCHOR_REQS, plane, ack_plane="device", ack_device=mesh)
+    result = port_bench.ladder_run(
+        plane, reqs_per_client=ANCHOR_REQS, ready_latency=None,
+        ack_plane="device", ack_device=mesh)
     anchor = read()
+    wall, events, _chain, _sim = result
+    chains, counts = result.chains, result.counts
     check(events == 2320, f"phase 23c: the 4-shard anchor gave {events} "
           "events")
     check(chains == anchor_chains,
@@ -2576,13 +2544,123 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
     }
 
 
+BENCH_ENV = {"BENCH_BUDGET_S": "40", "BENCH_SOAK_S": "0"}  # phase 24
+BENCH_TIMEOUT_S = 300  # phase 24's bench: budget, watchdog grace, margin
+
+
+def run_module(argv: list, env: dict, timeout_s: float) -> tuple:
+    """``python -m ...`` from the checkout's root in a session of its own;
+    when it exits, whatever it left running (a timed-out stage's node
+    processes) is killed.  Its output goes to files, so waiting for it
+    does not wait for children that hold its pipes.  (rc, stdout,
+    stderr)."""
+    import os
+    import signal
+    import tempfile
+
+    with tempfile.TemporaryFile("w+") as out, \
+            tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", *argv],
+            cwd=Path(__file__).resolve().parent, env=env, stdout=out,
+            stderr=err, text=True, start_new_session=True,
+        )
+        try:
+            proc.wait(timeout=timeout_s)
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        out.seek(0)
+        err.seek(0)
+        return proc.returncode, out.read(), err.read()
+
+
+def bench_phase(t0: float) -> dict:
+    """Phase 24: ``python -m mirbft_tpu_torch.bench`` under a 40 s budget,
+    the soak off, its journal in a temp dir: rc 0, one JSON line last with
+    the JAX stages in the JAX order, each ``ok`` or past the budget
+    (``timeout``, or ``skipped`` with the budget exhausted; the soak and
+    rung 5 skipped by design), ``live_serial`` ``ok``; the journal a
+    header, a line a stage and the payload; ``--recover`` on it the same
+    payload; ``obsv --diff`` of the artifact against itself exit 0."""
+    import contextlib
+    import os
+    import tempfile
+
+    from mirbft_tpu_torch import bench as port_bench
+
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-bench-") as tmp:
+        journal = Path(tmp) / "BENCH_stream.jsonl"
+        env = dict(os.environ, BENCH_STREAM_PATH=str(journal), **BENCH_ENV)
+        rc, out, err = run_module(["mirbft_tpu_torch.bench"], env,
+                                  BENCH_TIMEOUT_S)
+        check(rc == 0, f"phase 24: the bench exited {rc}: {out[-2000:]} "
+              f"{err[-4000:]}")
+        payload = json.loads(out.splitlines()[-1])
+        stages = payload["stages"]
+        check(list(stages) == list(port_bench.STAGES),
+              f"phase 24: stages {list(stages)}")
+        by_design = {"soak": "BENCH_SOAK_S=0",
+                     "ladder_kernel": "needs warm_calibrate",
+                     "rung5": port_bench.RUNG5_DISABLED}
+        for name, entry in stages.items():
+            status, detail = entry["status"], entry.get("detail")
+            check(status == "ok" or status == "timeout"
+                  or (status == "skipped"
+                      and detail in (by_design.get(name), "budget exhausted")),
+                  f"phase 24: stage {name} {entry}")
+        check(stages["live_serial"]["status"] == "ok",
+              f"phase 24: live_serial {stages['live_serial']}")
+        check(stages["soak"]["status"] == "skipped"
+              and stages["rung5"]["status"] == "skipped",
+              "phase 24: the soak or rung 5 ran")
+        lines = [json.loads(line) for line in journal.read_text().splitlines()]
+        check(lines[0]["kind"] == "header"
+              and [line.get("stage") for line in lines[1:-1]]
+              == list(port_bench.STAGES)
+              and all(line["status"] == stages[line["stage"]]["status"]
+                      for line in lines[1:-1])
+              and lines[-1] == {"kind": "final", "payload": payload},
+              "phase 24: the journal is not a header, a line a stage and "
+              "the payload")
+        # --recover and obsv --diff in this process: their entry points'
+        # own functions, without two more interpreters' start-up.
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = port_bench.cli(["--recover", str(journal)])
+        check(rc == 0 and json.loads(text.getvalue()) == payload,
+              f"phase 24: --recover gave rc {rc}: {text.getvalue()[-2000:]}")
+        artifact = Path(tmp) / "bench.json"
+        artifact.write_text(json.dumps(payload))
+        rc, out = run_obsv_cli(["--diff", str(artifact), str(artifact)])
+        check(rc == 0, f"phase 24: obsv --diff of the artifact against "
+              f"itself exited {rc}: {out[-2000:]}")
+    wall = time.perf_counter() - start
+    print(
+        f"phase 24 ok: python -m mirbft_tpu_torch.bench with "
+        f"BENCH_BUDGET_S={BENCH_ENV['BENCH_BUDGET_S']} BENCH_SOAK_S=0: rc "
+        "0, the JAX stages in the JAX order ("
+        + ", ".join(f"{name} {entry['status']} {entry['seconds']}"
+                    for name, entry in stages.items())
+        + f"); live {payload['live_reqs_per_sec_serial']} / "
+        f"{payload['live_reqs_per_sec_pipelined']} req/s; the journal, "
+        "--recover and obsv --diff against itself agree; phase wall "
+        f"{wall:.1f} s (done at {time.perf_counter() - t0:.1f} s)"
+    )
+    return {"wall_s": wall, "stages": stages}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="PATH",
                         help="write cProfile tables of a host and a kernel "
                         "rung-2 run to PATH")
     parser.add_argument("--live-rounds", type=int, default=1, metavar="N",
-                        help="run phase 11's six kinds N times (a stall "
+                        help="run phase 11's kinds N times (a stall "
                         "fails the script; the kernels line reads round 1)")
     args = parser.parse_args()
 
@@ -2593,6 +2671,7 @@ def main() -> int:
         return 1
 
     from mirbft_tpu_torch import _build
+    from mirbft_tpu_torch import bench as port_bench
     from mirbft_tpu_torch.ops.batching import pack_preimages, to_tensors
     from mirbft_tpu_torch.ops.sha256 import sha256_digest_words
     from mirbft_tpu_torch.ops.sha256 import (
@@ -2600,7 +2679,6 @@ def main() -> int:
         ROUND_CHAIN as SHA256_ROUND_CHAIN,
         chain_floor_cycles as sha256_chain_floor_cycles,
     )
-    from mirbft_tpu_torch.testengine import BasicRecorder
     from mirbft_tpu_torch.testengine.crypto_plane import (
         AsyncKernelHashPlane,
         CoalescingHashPlane,
@@ -2668,7 +2746,10 @@ def main() -> int:
     # -- phase 3: the 16x64x25 anchor on the kernel plane --------------------
     plane = AsyncKernelHashPlane()
     sha256_digest_words.launches = 0
-    events, wall, _cpu, chains, _, counts = run_engine(ANCHOR_REQS, plane)
+    result = port_bench.ladder_run(
+        plane, reqs_per_client=ANCHOR_REQS, ready_latency=None)
+    wall, events, _chain, _sim = result
+    chains, counts = result.chains, result.counts
     anchor_chains = chains
     anchor_launches = sha256_digest_words.launches
     check(events == 2320, f"anchor gave {events} events, not 2320")
@@ -2697,15 +2778,17 @@ def main() -> int:
         else:
             plane = AsyncKernelHashPlane()
         sha256_digest_words.launches = 0
-        events, wall, cpu, chains, committed, _counts = run_engine(
-            RUNG2_REQS, plane, READY_LATENCY_MS
-        )
+        result = port_bench.ladder_run(plane)
+        wall, events, _chain, _sim = result
+        cpu = (result.cpu_s, result.thread_s, result.gc_s)
+        chains, committed = result.chains, result.committed
         launches = sha256_digest_words.launches
-        committed_reqs = CLIENTS * RUNG2_REQS
+        committed_reqs = CLIENTS * port_bench.REQS_PER_CLIENT
         kernel_ms = getattr(plane, "kernel_ms", 0.0)
         blocking_s = sum(plane.flush_wall_s)
         line = (
-            f"  rung 2 {label}: {NODES}x{CLIENTS}x{RUNG2_REQS} BatchSize "
+            f"  rung 2 {label}: {NODES}x{CLIENTS}x"
+            f"{port_bench.REQS_PER_CLIENT} BatchSize "
             f"{BATCH_SIZE}: {events} events, wall {wall:.6f} s, "
             f"{committed_reqs / wall:.3f} committed req/s, cpu process "
             f"{cpu[0]:.6f} s main thread {cpu[1]:.6f} s collector "
@@ -2829,7 +2912,6 @@ def main() -> int:
     from mirbft_tpu_torch.testengine.signing import (
         AsyncSignaturePlane,
         SignaturePlane,
-        SpeculativeSignaturePlane,
         host_verifier,
         make_signer,
     )
@@ -2908,26 +2990,14 @@ def main() -> int:
     )
 
     # -- phase 8: rung 3 at full scale ---------------------------------------
-    plane = SpeculativeSignaturePlane()
-    gc.collect()
     sha256_digest_words.launches = 0
     ed25519.decompress.launches = ed25519.ladder.launches = 0
     ed25519.decompress.launches_by_rows.clear()
     ed25519.ladder.launches_by_rows.clear()
-    GC_TIMER.seconds, GC_TIMER.timing = 0.0, True
-    cpu = (time.process_time(), time.thread_time())
-    start = time.perf_counter()
-    rec = BasicRecorder(
-        rung3.NODES, rung3.CLIENTS, rung3.REQS, batch_size=rung3.BATCH_SIZE,
-        network_state=rung3.network_state(),
-        signer=lambda cid, rn, _payload: presigned[(cid, rn)],
-        signature_plane=plane, record=False,
-    )
-    events = rec.drain_clients(max_steps=50_000_000)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - start
-    cpu = (time.process_time() - cpu[0], time.thread_time() - cpu[1])
-    GC_TIMER.timing = False
+    r3 = port_bench.rung3_run(presigned=presigned)
+    rate, _p99, events, _verified, _stats, _sim = r3
+    plane, hash_plane = r3.signature_plane, r3.hash_plane
+    wall, cpu = r3.wall_s, (r3.cpu_s, r3.thread_s)
     # Rung 3's launches of each Ed25519 kernel by the signatures they
     # verified (decompression's rows are two points a signature).
     rung3_ed_launches = {
@@ -2940,13 +3010,11 @@ def main() -> int:
         "ed25519_decompress": ed25519.decompress.launches,
         "ed25519_ladder": ed25519.ladder.launches,
     }
+    # One chain, and every request committed on every node: rung3_run
+    # raises otherwise.
     total = rung3.CLIENTS * rung3.REQS
-    chains = {rec.node_states[n].app_chain.hex() for n in range(rung3.NODES)}
-    hash_plane = rec.hash_plane
     check(events == RUNG3_EVENTS, f"rung 3: {events} events, not {RUNG3_EVENTS}")
-    check(chains == {RUNG3_CHAIN}, f"rung 3: app chains {chains}")
-    check(all(rec.committed_at(n) == total for n in range(rung3.NODES)),
-          f"rung 3: not every node committed {total} requests")
+    check(r3.chain == RUNG3_CHAIN, f"rung 3: app chain {r3.chain}")
     check(plane.speculative_evictions == 0, "rung 3: evictions")
     check(plane.device_verifies == total and plane.host_rejects == 0,
           f"rung 3: {plane.device_verifies} verifies on the card")
@@ -2991,7 +3059,7 @@ def main() -> int:
         f"phase 8 ok: rung 3 {rung3.NODES} nodes x {rung3.CLIENTS} clients x "
         f"{rung3.REQS} BatchSize {rung3.BATCH_SIZE}: {events} events, chain "
         f"{RUNG3_CHAIN[:16]}..., {total} commits on every node; wall "
-        f"{wall:.6f} s, {total / wall:.3f} committed req/s; verify p99 "
+        f"{wall:.6f} s, {rate:.3f} committed req/s; verify p99 "
         f"{p99_ms(plane.flush_wall_s):.6f} ms over {len(plane.flush_wall_s)} "
         f"bursts (max {1e3 * max(plane.flush_wall_s):.6f} ms, sum "
         f"{sum(plane.flush_wall_s):.6f} s); verifies device "
@@ -3005,7 +3073,7 @@ def main() -> int:
         f"{hash_plane.kernel_ms:.6f} ms, card idle "
         f"{100 * (1 - device_ms / 1e3 / wall):.4f}% of wall; cpu process "
         f"{cpu[0]:.6f} s main thread {cpu[1]:.6f} s collector "
-        f"{GC_TIMER.seconds:.6f} s; hash plane submit "
+        f"{r3.gc_s:.6f} s; hash plane submit "
         f"{hash_plane.submit_s:.6f} s launch {hash_plane.launch_s:.6f} s "
         f"blocking {sum(hash_plane.flush_wall_s):.6f} s in "
         f"{hash_plane.launches} launches (done at "
@@ -3072,7 +3140,6 @@ def main() -> int:
     print(f"phase 9 ok (done at {time.perf_counter() - t0:.1f} s)")
 
     # -- phase 10: the chain kernel and the kernel microbenchmark -----------
-    from mirbft_tpu_torch import bench as port_bench
     from mirbft_tpu_torch.ops.sha256 import (
         chain_int_ops,
         sha256_chain_checksum,
@@ -3152,10 +3219,11 @@ def main() -> int:
 
     # -- phase 11: the live rung under every processor kind -----------------
     # Each node runs in a process of its own; its wrapper's count starts at
-    # 0 with the process and is read when the run stops.
+    # 0 with the process and is read when the run stops.  The kind the
+    # bench's live_serial stage runs (phase 24) is not run here again.
     live = []
     for live_round, live_kind in (
-        (r, k) for r in range(args.live_rounds) for k in port_bench.LIVE_KINDS
+        (r, k) for r in range(args.live_rounds) for k in PHASE11_KINDS
     ):
         gc.collect()
         result = port_bench.live_cluster_rate(live_kind)
@@ -3172,10 +3240,8 @@ def main() -> int:
             f"{result['frames_dropped']}"
         )
         if live_kind.startswith("cuda"):
-            check(result["wrapper_launches"] == result["launches"] > 0,
-                  f"live {live_kind}: the wrappers counted "
-                  f"{result['wrapper_launches']} launches, the processors "
-                  f"{result['launches']}")
+            # live_cluster_rate also holds the wrappers' count to the
+            # processors' and every kept launch's digests to hashlib's.
             idle = 100 * (1 - result["kernel_ms"] / 1e3 / result["elapsed_s"])
             line += (
                 f", digests device {result['device_digests']} host "
@@ -3191,15 +3257,15 @@ def main() -> int:
         r["wrapper_launches"] for r in live_cuda if r["round"] == 0
     )
 
-    # The launch audit: every shape the live launches had, each kept
-    # launch's read-back digests against hashlib, and its replay through
-    # the kernel (outside the counted runs) against plain and hashlib.
+    # The launch audit: every shape the live launches had, and each kept
+    # launch replayed through the kernel (outside the counted runs) against
+    # plain and the live launch (live_cluster_rate held the live launch's
+    # read-back digests to hashlib's).
     from mirbft_tpu_torch.ops.sha256 import (
         sha256_digest_words_plain,
         words_to_digests,
     )
 
-    iv_bytes = b"".join(word.to_bytes(4, "big") for word in IV)
     live_shapes: dict = {}
     round0_shapes: dict = {}
     first_kept: dict = {}
@@ -3213,11 +3279,6 @@ def main() -> int:
                 round0_shapes[shape] = round0_shapes.get(shape, 0) + launches
             first_kept.setdefault(shape, kept[0][0])
             for preimages, raw in kept:
-                want = b"".join(hashlib.sha256(m).digest() for m in preimages)
-                pad_rows = shape[0] - len(preimages)
-                check(raw == want + iv_bytes * pad_rows,
-                      f"live {result['kind']}: a launch of shape {shape} "
-                      "read back digests that are not hashlib's")
                 packed = pack_preimages(preimages)
                 check(packed.blocks.shape[:2] == shape,
                       f"replay packs {packed.blocks.shape[:2]}, not {shape}")
@@ -3256,7 +3317,8 @@ def main() -> int:
     live_gap_ms = sum(e["launches_x_gap_ms"] for e in live_per_shape)
     print(
         "phase 11 ok: the live rung reached "
-        f"{port_bench.LIVE.target_commits} commits under every kind in "
+        f"{port_bench.LIVE.target_commits} commits under "
+        f"{', '.join(PHASE11_KINDS)} in "
         f"{args.live_rounds} round(s), no "
         "request committed twice, the chains agree; committed req/s "
         + ", ".join(f"{r['kind']} {r['rate']:.3f}" for r in live)
@@ -3292,9 +3354,12 @@ def main() -> int:
     ack_step_fn.launches_by_rows.clear()
     sha256_digest_words.launches = 0
     plane = AsyncKernelHashPlane()
-    events, wall, _cpu, chains, _, counts = run_engine(
-        ANCHOR_REQS, plane, ack_plane="device", ack_device="cuda",
+    result = port_bench.ladder_run(
+        plane, reqs_per_client=ANCHOR_REQS, ready_latency=None,
+        ack_plane="device", ack_device="cuda",
     )
+    wall, events, _chain, _sim = result
+    chains, counts = result.chains, result.counts
     anchor_steps = dict(ack_step_fn.launches_by_rows)
     check(events == 2320, f"device-plane anchor gave {events} events")
     check(chains == anchor_chains,
@@ -3492,6 +3557,7 @@ def main() -> int:
     chaos = chaos_phases(t0)
     cluster = cluster_phases(t0)
     par = parallel_phases(t0, anchor_chains)
+    bench_phase(t0)
 
     head = per_shape[0]
     kernels = [{

@@ -1,9 +1,27 @@
-"""The port's benchmarks: the SHA-256 kernel microbenchmark, the live rung,
-the ack-plane rung, rung 4, and the signed-ingress and KV service rungs.
+"""The port's bench: ``python -m mirbft_tpu_torch.bench [--device cpu]``
+runs every stage of the JAX package's root ``bench.py`` and prints one JSON
+object under its key and stage names; ``--recover [journal]`` rebuilds the
+object from the stage journal of a run that was killed.
 
-Counterparts of parts of the JAX package's ``bench.py``, with its
-constants and its measurement protocols:
+Counterparts of the JAX package's ``bench.py``, with its constants and its
+measurement protocols:
 
+- ``main`` and its machinery (``bench.py:47-75, 1729-2522``):
+  ``BenchStream`` (the fsynced stage journal, ``BENCH_STREAM_PATH``), ``StageRunner`` (each stage on a
+  daemon thread under one budget, ``BENCH_BUDGET_S`` clamped under
+  ``BENCH_HARNESS_TIMEOUT_S``, its warm-up outside the timed window),
+  ``Watchdog``, ``main`` and ``recover_main``.  The JAX host processor
+  kinds map to their kernel twins (serial -> cuda, pipelined ->
+  cuda-pipelined).  Where the JAX ``main`` exits 0 after a stage's
+  exception, the port's returns 1: a kernel that fails to build or launch
+  must not read as a bench that passed;
+- ``ladder_run`` and ``warm_kernel_shapes`` (``bench.py:572-619``): rung 2,
+  the engine at 16 nodes x 64 clients x 100 requests on the kernel hash
+  plane, and the host plane's run it must replay;
+- ``ed25519_microbench`` (``bench.py:622-668``): both Ed25519 kernels
+  against the pure-Python oracle;
+- ``rung3_run`` (``bench.py:671-760``): rung 3, 64 nodes x 1024 signed
+  clients x 8, speculative verification on the Ed25519 kernels;
 - ``sha256_microbench_warmup`` and ``kernel_microbench`` (``bench.py:481-569``):
   the chain kernel's throughput in compressions per second, the digest
   kernel checked against hashlib first, and hashlib's own rate beside them.
@@ -18,13 +36,13 @@ constants and its measurement protocols:
 - ``ackplane_run`` (``bench.py:246-480``): the host ack plane and the
   device ack plane under one seeded ack storm of 100,000 clients, with the
   divergence oracle's verdict and a cross-plane parity check.
-
+- ``rung4_run`` (``bench.py:763-841``): rung 4 with BLS certificates.
 - ``ingress_run`` and ``app_run`` (``bench.py:133-180``): the live node as
   a replicated service on the in-process cluster: signed client ingress
   on the Ed25519 kernels under the multi-process rung's traffic, and the
   KV service under the app rung's sessions, with a lagging replica that
   catches up by state transfer.
-
+- ``soak_run`` (``bench.py:229-245, 1511-1735``): the resource-leak soak.
 - ``live_mp_run``, ``reconfig_run`` and ``knee_run`` (``bench.py:133-155,
   183-221, 1192-1330, 1384-1510``): the multi-process rungs, one worker
   process a node under ``cluster.ClusterSupervisor`` — the open-loop
@@ -34,14 +52,16 @@ constants and its measurement protocols:
 
 All run on ``cuda`` unless the caller passes ``device="cpu"`` (the kernels'
 plain versions; the tests' route), and raise without a card.
-``chip_smoke.py`` (phases 10, 11, 13, 15-17 and 22) runs them on a card,
-``tests/cluster_rungs.py`` the knee.
+``chip_smoke.py`` (phases 3, 4, 8, 10, 11, 13, 15-17, 22 and 24) runs them on
+a card, ``tests/cluster_rungs.py`` the knee.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import dataclasses
+import gc
 import hashlib
 import json
 import multiprocessing
@@ -49,6 +69,8 @@ import multiprocessing.connection
 import os
 import random
 import shutil
+import signal
+import sys
 import tempfile
 import threading
 import time
@@ -79,7 +101,7 @@ DIGEST_CHECK_MESSAGES = 64
 # compares steady state only.  The boundary drain (materializing adoptions
 # and crossings back into the host objects) is the device plane's cost
 # alone and is reported on its own.
-ACKPLANE_CLIENTS = 100_000
+ACKPLANE_CLIENTS = int(os.environ.get("BENCH_ACKPLANE_CLIENTS", "100000"))
 ACKPLANE_FRAME = ACKPLANE_CLIENTS // 8
 ACKPLANE_SOURCES = (1, 2, 3)
 ACKPLANE_SEED = 0xACC5
@@ -430,6 +452,308 @@ def kernel_microbench(
     }
 
 
+class RungResult(tuple):
+    """The JAX rung's return tuple, unpacked as the JAX ``main`` unpacks
+    it, with the run's evidence beside it as attributes (the planes, the
+    recorder's per-node state, CPU seconds) for callers that gate on more
+    than the tuple (``chip_smoke.py`` phases 3, 4, 8 and 12)."""
+
+    def __new__(cls, values, **evidence):
+        result = super().__new__(cls, values)
+        result.__dict__.update(evidence)
+        return result
+
+
+class _CollectorSeconds:
+    """Seconds the cyclic garbage collector spends inside the block."""
+
+    def __init__(self):
+        self.seconds = 0.0
+        self._start = 0.0
+
+    def _on_gc(self, phase, _info):
+        if phase == "start":
+            self._start = time.perf_counter()
+        else:
+            self.seconds += time.perf_counter() - self._start
+
+    def __enter__(self):
+        gc.callbacks.append(self._on_gc)
+        return self
+
+    def __exit__(self, *_exc):
+        gc.callbacks.remove(self._on_gc)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+# -- ladder rung 2 ---------------------------------------------------------------
+#
+# The BASELINE ladder metric (the JAX package's bench.py:85-99, 572-619): a
+# full engine run, 16 nodes (f = 5), 64 clients x 100 requests, BatchSize
+# 200, every digest through the hash plane, with a 400 ms modelled
+# Actions -> Results round trip applied to every plane alike.
+NODES = 16
+CLIENTS = 64
+REQS_PER_CLIENT = 100
+BATCH_SIZE = 200
+READY_LATENCY_MS = 400  # modelled Actions -> Results crypto-plane RTT
+
+
+def ladder_run(hash_plane=None, *, device="cuda",
+               reqs_per_client=REQS_PER_CLIENT,
+               ready_latency=READY_LATENCY_MS, **recorder_kw):
+    """Rung 2 to full commitment on ``hash_plane``: the kernel plane
+    (``AsyncKernelHashPlane``, warmed by ``warm_kernel_shapes``) or, when
+    None, the host plane (``CoalescingHashPlane``, hashlib), the JAX
+    rung's host baseline.  ``reqs_per_client`` and ``ready_latency``
+    (None: the engine's default parameters) cut it to the determinism
+    anchor; ``recorder_kw`` reaches ``BasicRecorder`` (the device ack
+    plane).
+
+    Earlier runs' garbage is collected first, outside the clock: each
+    recorder holds reference cycles, and a full collection of several
+    dead ones inside a timed run costs seconds.  On a card the clock
+    stops after a synchronize.
+
+    Returns the JAX tuple ``(wall s, events, app chain, simulated ms)``
+    as a ``RungResult`` whose attributes hold the CPU seconds of the
+    process (``cpu_s``), of its main thread (``thread_s``) and in the
+    collector (``gc_s``), each node's chain (``chains``) and committed
+    sequence (``committed``), the commit counts (``counts``) and the
+    plane.  Raises when the nodes' chains differ."""
+    from .ops.batching import resolve_device
+    from .testengine.crypto_plane import CoalescingHashPlane
+    from .testengine.engine import BasicRecorder, RuntimeParameters
+
+    device = resolve_device(device)
+    if hash_plane is None:
+        hash_plane = CoalescingHashPlane()
+    params = (
+        RuntimeParameters(ready_latency=ready_latency)
+        if ready_latency is not None else RuntimeParameters()
+    )
+    gc.collect()
+    with _CollectorSeconds() as collector:
+        cpu = (time.process_time(), time.thread_time())
+        start = time.perf_counter()
+        rec = BasicRecorder(
+            NODES, CLIENTS, reqs_per_client, batch_size=BATCH_SIZE,
+            params=params, hash_plane=hash_plane,
+            # Steady-state timing: the recorded-events list is not
+            # consensus work.
+            record=False, **recorder_kw,
+        )
+        events = rec.drain_clients(max_steps=20_000_000)
+        _sync(device)
+        wall = time.perf_counter() - start
+        cpu = (time.process_time() - cpu[0], time.thread_time() - cpu[1])
+    chains = {n: s.app_chain for n, s in rec.node_states.items()}
+    if len(set(chains.values())) != 1:
+        raise AssertionError("rung 2: the nodes diverged")
+    return RungResult(
+        (wall, events, chains[0], rec.now),
+        cpu_s=cpu[0], thread_s=cpu[1], gc_s=collector.seconds,
+        chains=chains,
+        committed={n: list(s.committed_reqs)
+                   for n, s in rec.node_states.items()},
+        counts=[rec.committed_at(n) for n in range(NODES)],
+        plane=hash_plane,
+    )
+
+
+def warm_kernel_shapes(plane) -> None:
+    """Launch every packed shape the rung can give the SHA-256 kernel, one
+    a block bucket (1 to 128 blocks at ``plane.rows_for`` rows: request
+    and ack preimages pad to 1 block, a full batch's 200 acks x 32 B to
+    128), on the plane's device, before the timed run: the first launch
+    loads the library, and each shape's first launch pays its allocations."""
+    from .ops.sha256 import sha256_digest_words
+
+    for bucket in (1, 2, 4, 8, 16, 32, 64, 128):
+        rows = plane.rows_for(bucket)
+        blocks = torch.zeros((rows, bucket, 16), dtype=torch.int32,
+                             device=plane.device)
+        n_blocks = torch.ones((rows,), dtype=torch.int32, device=plane.device)
+        sha256_digest_words(blocks, n_blocks).cpu()
+
+
+# -- the Ed25519 microbenchmark --------------------------------------------------
+#
+# Batched signature verification (the JAX package's bench.py:622-668):
+# both Ed25519 kernels on 4096 distinct signatures (seed i signs
+# b"bench-request-%d" % i) against the pure-Python host oracle.
+ED25519_BATCH = 4096
+ED25519_HOST_SAMPLE = 64
+SIGN_PROCESSES = 8  # a corpus of this many rows or more signs in a pool
+SIGN_POOL_MIN_ROWS = 256
+
+
+def _microbench_row(i: int) -> tuple:
+    from .crypto import ed25519_host
+
+    seed = i.to_bytes(32, "little")
+    message = b"bench-request-%d" % i
+    return (ed25519_host.public_key(seed), message,
+            ed25519_host.sign(seed, message))
+
+
+def ed25519_corpus(batch: int = ED25519_BATCH) -> list:
+    """[(public key, message, signature)] of the microbenchmark, seed ``i``
+    signing ``b"bench-request-%d" % i``; signed in a pool of spawned
+    processes from ``SIGN_POOL_MIN_ROWS`` rows (the same bytes)."""
+    if batch < SIGN_POOL_MIN_ROWS:
+        return [_microbench_row(i) for i in range(batch)]
+    context = multiprocessing.get_context("spawn")
+    with context.Pool(SIGN_PROCESSES) as pool:
+        return pool.map(_microbench_row, range(batch), chunksize=64)
+
+
+def ed25519_microbench_warmup(batch: int = ED25519_BATCH, *,
+                              device="cuda") -> None:
+    """Build and load both Ed25519 kernels and launch them once at the
+    microbenchmark's batch, outside the timed window."""
+    from .crypto import ed25519_host
+    from .ops.ed25519 import verify_batch_pallas
+
+    seed = (0).to_bytes(32, "little")
+    message = b"bench-warmup"
+    pk, sig = ed25519_host.public_key(seed), ed25519_host.sign(seed, message)
+    if not all(verify_batch_pallas([pk] * batch, [message] * batch,
+                                   [sig] * batch, device=device)):
+        raise AssertionError("ed25519 warm-up: a valid signature failed")
+
+
+def ed25519_microbench(batch: int = ED25519_BATCH, *,
+                       device="cuda") -> tuple:
+    """Both Ed25519 kernels through the port's verify entry point
+    (``ops.ed25519.verify_batch_pallas``: host marshalling, the
+    decompression and ladder launches, the readback) against the
+    pure-Python host oracle.  The corpus (``ed25519_corpus``) verifies
+    once, all true, untimed; then two timed calls on distinct inputs (each
+    message with ``!``, then ``?``, appended) must reject every row, and
+    the faster one counts.  The oracle is timed over the first
+    ``ED25519_HOST_SAMPLE`` rows.  Returns the JAX pair (kernel verifies/s,
+    host verifies/s)."""
+    from .crypto import ed25519_host
+    from .ops.batching import resolve_device
+    from .ops.ed25519 import verify_batch_pallas
+
+    device = resolve_device(device)
+    corpus = ed25519_corpus(batch)
+    pks, msgs, sigs = map(list, zip(*corpus))
+    if not all(verify_batch_pallas(pks, msgs, sigs, device=device)):
+        raise AssertionError("ed25519 microbench: a valid signature failed")
+    times = []
+    for rep in (b"!", b"?"):  # distinct inputs a timed call; best of 2
+        flipped = [m + rep for m in msgs]
+        start = time.perf_counter()
+        got = verify_batch_pallas(pks, flipped, sigs, device=device)
+        times.append(time.perf_counter() - start)
+        if any(got):
+            raise AssertionError(
+                "ed25519 microbench: a flipped message verified"
+            )
+    kernel_rate = batch / min(times)
+
+    sample = corpus[:ED25519_HOST_SAMPLE]
+    start = time.perf_counter()
+    for pk, msg, sig in sample:
+        if not ed25519_host.verify(pk, msg, sig):
+            raise AssertionError("ed25519 microbench: the oracle rejected")
+    host_rate = len(sample) / (time.perf_counter() - start)
+    return kernel_rate, host_rate
+
+
+# -- ladder rung 3 ---------------------------------------------------------------
+#
+# BASELINE ladder rung 3 (the JAX package's bench.py:671-760, constants in
+# testengine/rung3.py): 64 nodes (f = 21), 1024 Ed25519-signed clients x
+# 8 requests, BatchSize 200, speculative batched ingress verification on
+# both Ed25519 kernels and every digest on the SHA-256 kernel.
+
+
+def _p99(seconds: list):
+    """The 99th percentile of ``seconds``, in ms (None when empty)."""
+    if not seconds:
+        return None
+    ms = sorted(1e3 * s for s in seconds)
+    return ms[min(len(ms) - 1, int(0.99 * len(ms)))]
+
+
+def rung3_run(*, device="cuda", nodes=None, clients=None, reqs=None,
+              presigned=None) -> tuple:
+    """Rung 3 to full commitment on a ``SpeculativeSignaturePlane`` and an
+    ``AsyncKernelHashPlane`` on ``device``.  ``nodes``, ``clients`` and
+    ``reqs`` default to ``testengine/rung3.py``'s; the clients sign before
+    the clock starts (``presigned``, from ``rung3.presign`` at the same
+    cut, else signed here, in a pool of spawned processes from
+    ``SIGN_POOL_MIN_ROWS`` requests).
+
+    Raises unless the nodes hold one chain and every node committed every
+    request.  Returns the JAX tuple ``(committed req/s, verify p99 ms,
+    events, verified, stats, simulated ms)``, ``stats`` the JAX
+    ``rung3_*`` counters, as a ``RungResult`` whose attributes hold the
+    app chain (``chain``, hex), the wall, the CPU seconds (``cpu_s``,
+    ``thread_s``, ``gc_s``) and the two planes (``signature_plane``,
+    ``hash_plane``)."""
+    from .ops.batching import resolve_device
+    from .testengine import rung3
+    from .testengine.crypto_plane import AsyncKernelHashPlane
+    from .testengine.engine import BasicRecorder
+    from .testengine.signing import SpeculativeSignaturePlane
+
+    device = resolve_device(device)
+    nodes = rung3.NODES if nodes is None else nodes
+    clients = rung3.CLIENTS if clients is None else clients
+    reqs = rung3.REQS if reqs is None else reqs
+    total = clients * reqs
+    if presigned is None:
+        presigned = rung3.presign(
+            SIGN_PROCESSES if total >= SIGN_POOL_MIN_ROWS else 1,
+            nodes=nodes, clients=clients, reqs=reqs,
+        )
+    plane = SpeculativeSignaturePlane(device=device)
+    hash_plane = AsyncKernelHashPlane(device=device)
+    gc.collect()
+    with _CollectorSeconds() as collector:
+        cpu = (time.process_time(), time.thread_time())
+        start = time.perf_counter()
+        rec = BasicRecorder(
+            nodes, clients, reqs, batch_size=rung3.BATCH_SIZE,
+            network_state=rung3.network_state(nodes, clients),
+            signer=lambda cid, rn, _payload: presigned[(cid, rn)],
+            signature_plane=plane, hash_plane=hash_plane, record=False,
+        )
+        events = rec.drain_clients(max_steps=50_000_000)
+        _sync(device)
+        wall = time.perf_counter() - start
+        cpu = (time.process_time() - cpu[0], time.thread_time() - cpu[1])
+    chains = {rec.node_states[n].app_chain for n in range(nodes)}
+    if len(chains) != 1:
+        raise AssertionError(f"rung 3: the nodes hold {len(chains)} chains")
+    if not all(rec.committed_at(n) == total for n in range(nodes)):
+        raise AssertionError(f"rung 3: not every node committed {total}")
+    p99_ms = _p99(plane.flush_wall_s)
+    stats = {
+        "rung3_speculative_admits": plane.admitted,
+        "rung3_speculative_evictions": plane.speculative_evictions,
+        "rung3_forced_joins": plane.forced_joins,
+        "rung3_device_verifies": plane.device_verifies,
+        "rung3_host_verifies": plane.host_verifies,
+    }
+    return RungResult(
+        (total / wall, p99_ms, events, sum(plane.flush_sizes), stats,
+         rec.now),
+        chain=chains.pop().hex(), wall_s=wall, cpu_s=cpu[0],
+        thread_s=cpu[1], gc_s=collector.seconds, signature_plane=plane,
+        hash_plane=hash_plane,
+    )
+
+
 # -- the live rung ---------------------------------------------------------------
 
 
@@ -762,8 +1086,9 @@ def live_cluster_rate(kind: str, *, device="cuda",
     Raises unless: the target is reached before the deadline, no node
     commits a request twice, and the nodes agree on the chain prefix they
     share.  For a ``cuda*`` kind also unless no digest came from the host,
-    every hash request of every node was launched, and the kernel
-    launched.  A live TCP run is not deterministic: chains are compared
+    every hash request of every node was launched, the kernel launched,
+    the audit saw every launch (on a card: as many as the wrappers
+    counted), and every kept launch read back hashlib's digests.  A live TCP run is not deterministic: chains are compared
     between the nodes of one run, never between runs.
 
     Returns the rate, the p95 commit latency (first proposal to first
@@ -792,6 +1117,7 @@ def live_cluster_rate(kind: str, *, device="cuda",
     past the first.  Dedup must absorb them: the gates above hold under
     the flood."""
     from .ops.batching import resolve_device
+    from .ops.sha256 import _IV as _SHA256_IV
     from .ops.sha256 import _kernel_library
     from .runtime.processor import PROCESSOR_KINDS, _CudaHashMixin
 
@@ -934,6 +1260,25 @@ def live_cluster_rate(kind: str, *, device="cuda",
             raise AssertionError(
                 f"live rung ({kind}): the audit missed launches"
             )
+        if device.type == "cuda" and (
+            result["wrapper_launches"] != result["launches"]
+        ):
+            raise AssertionError(
+                f"live rung ({kind}): the wrappers counted "
+                f"{result['wrapper_launches']} launches, the processors "
+                f"{result['launches']}"
+            )
+        # Each kept launch read back hashlib's digests, and the IV (an
+        # empty row's state) in its padding rows.
+        iv = b"".join(word.to_bytes(4, "big") for word in _SHA256_IV)
+        for shape, (_launches, kept) in samples.items():
+            for preimages, raw in kept:
+                want = b"".join(hashlib.sha256(m).digest() for m in preimages)
+                if raw != want + iv * (shape[0] - len(preimages)):
+                    raise AssertionError(
+                        f"live rung ({kind}): a launch of shape {shape} "
+                        "read back digests that are not hashlib's"
+                    )
     return result
 
 
@@ -2353,3 +2698,833 @@ def knee_run(*, device="cuda", configs=KNEE_CONFIGS, nodes=KNEE_NODES,
         drain_s=drain_s,
         client_model="honest",
     )
+
+
+# -- main: every stage under one budget ------------------------------------------
+#
+# ``python -m mirbft_tpu_torch.bench`` (the JAX package's bench.py:1729-2522):
+# every stage above under one wall-clock budget, each stage journaled the
+# moment it finishes, and one JSON object on stdout under the JAX key and
+# stage names.  The JAX host processor kinds map to their kernel twins
+# (serial -> cuda, pipelined -> cuda-pipelined).
+
+# Wall-clock budget for the whole bench (seconds), sized so budget +
+# watchdog grace + margin clears the harness's 870 s kill.
+DEFAULT_BUDGET_S = 600.0
+
+# The harness kills the process outright at this wall time (override with
+# BENCH_HARNESS_TIMEOUT_S); the budget is clamped so budget + grace +
+# margin lands under it: an oversized BENCH_BUDGET_S degrades to skipped
+# tail stages, never to a kill that leaves no JSON.
+HARNESS_TIMEOUT_S = 870.0
+HARNESS_MARGIN_S = 60.0
+
+# Launch-shape budget a function for the whole-run device capture
+# (override with BENCH_RETRACE_BUDGET): the ladder sweeps its bucket
+# shapes, so the bench's budget is looser than ``obsv.device``'s.
+BENCH_RETRACE_BUDGET = 32
+
+# Runway past the budget before the hard watchdog fires: for a stage that
+# cannot be timed out cooperatively (a native call that starves the
+# interpreter), with margin under the harness's kill.
+WATCHDOG_GRACE_S = 60.0
+
+METRIC = "committed_reqs_per_sec_per_chip"
+
+# The kernel sources the stages launch (csrc/<name>.cu).
+KERNEL_SOURCES = ("sha256", "ed25519", "ack_plane", "bls_g1")
+
+# The JAX stages, in the JAX order.
+STAGES = (
+    "live_serial", "live_pipelined", "soak", "live_under_attack",
+    "live_mp_serial", "live_mp_pipelined", "live_mp_reconfig", "app_kv",
+    "knee", "warm_calibrate", "ladder_kernel", "ladder_host",
+    "sha256_microbench", "ed25519_microbench", "rung3", "rung4",
+    "ackplane", "rung5",
+)
+
+# The ackplane rung's keys the JAX payload carries (as ``ackplane_<key>``).
+ACKPLANE_KEYS = (
+    "clients", "events_total", "host_events_per_sec", "host_build_s",
+    "device_events_per_sec", "device_build_s", "device_compile_s",
+    "device_vs_host", "committed_reqs_per_sec", "strong_certs",
+    "weak_certs", "drain_seconds", "sweep_seconds", "fallback_rows",
+    "dropped_rows", "divergences", "parity_mismatches",
+)
+
+# BASELINE ladder rung 5 (the JAX package's bench.py:839-841), for its
+# config string: the port has not run it yet.
+RUNG5_NODES = 256
+RUNG5_CLIENTS = 1024
+RUNG5_REQS = 1
+RUNG5_DISABLED = (
+    "not ported: ROADMAP queue 1, item 4 (rung 5 in the port's bench, "
+    "after a sizing run)"
+)
+
+
+class BenchStream:
+    """Crash-proof stage journal: one fsynced JSON line the moment each
+    stage finishes, so a SIGKILL (or the harness's timeout) on the newest
+    stage cannot erase the stages that already passed.
+
+    Line kinds: ``header`` (schema and pid), one ``stage`` line a stage
+    with its status, seconds and ``compile_s``, and a trailing ``final``
+    line carrying the payload.  ``obsv.diff.recover_stream`` rebuilds a
+    run with no ``final`` line from its stage lines.  Every write is best
+    effort: a full disk must not take the bench down with it."""
+
+    SCHEMA = "mirbft-bench-stream/1"
+
+    def __init__(self, path):
+        self.path = path
+        self._fh = None
+        try:
+            self._fh = open(path, "w", encoding="utf-8")
+        except OSError:
+            return
+        self._line({"schema": self.SCHEMA, "kind": "header",
+                    "pid": os.getpid()})
+
+    def _line(self, obj) -> None:
+        if self._fh is None:
+            return
+        try:
+            self._fh.write(json.dumps(obj) + "\n")
+            self._fh.flush()
+            os.fsync(self._fh.fileno())
+        except (OSError, ValueError, TypeError):
+            pass
+
+    def stage(self, name, entry, registry) -> None:
+        seconds = registry.gauge(
+            "mirbft_bench_stage_seconds", stage=name
+        ).value
+        self._line({"kind": "stage", "stage": name, "seconds": seconds,
+                    **entry})
+
+    def final(self, payload) -> None:
+        self._line({"kind": "final", "payload": payload})
+
+    def close(self) -> None:
+        if self._fh is not None:
+            try:
+                self._fh.close()
+            except OSError:
+                pass
+            self._fh = None
+
+
+class StageRunner:
+    """Time-boxed stages under one monotonic deadline.
+
+    Each stage runs on a daemon thread joined against the remaining
+    budget; a stage that overruns is marked ``timeout`` (its thread is
+    abandoned: the process ends with ``os._exit``), and the stages after
+    it are ``skipped`` once the budget is gone.  A stage's wall lands in
+    the ``mirbft_bench_stage_seconds`` gauge, which the payload reads
+    back.  ``stage_budget_s`` (``BENCH_STAGE_BUDGET_S``) also caps each
+    stage alone.
+
+    A stage's ``warmup`` runs on the same thread just before ``fn``, so
+    kernel builds and first launches stay outside the timed window: its
+    seconds go to ``compile_s`` (gauge
+    ``mirbft_bench_stage_compile_seconds``) and the stage's seconds time
+    ``fn`` alone.  With a ``stream`` every finished stage is journaled at
+    once."""
+
+    # Don't bother starting a stage with less runway than this.
+    MIN_RUNWAY_S = 5.0
+
+    def __init__(self, budget_s: float, registry, stage_budget_s=None,
+                 stream=None):
+        self.deadline = time.monotonic() + budget_s
+        self.registry = registry
+        self.stage_budget_s = stage_budget_s
+        self.stream = stream
+        self.status: dict = {}  # stage -> {"status": ..., ["detail": ...]}
+        # The stage running now (None between stages): the watchdog names
+        # it when join() itself is wedged.
+        self.current = None
+
+    def remaining(self) -> float:
+        return self.deadline - time.monotonic()
+
+    def run(self, name: str, fn, enabled: bool = True, detail: str = "",
+            warmup=None):
+        """Run one stage; returns fn() or None (skipped, timeout, error)."""
+        try:
+            return self._run(name, fn, enabled, detail, warmup)
+        finally:
+            if self.stream is not None:
+                self.stream.stage(
+                    name, self.status.get(name, {}), self.registry
+                )
+
+    def _run(self, name, fn, enabled, detail, warmup):
+        entry: dict = {"status": "skipped"}
+        if detail:
+            entry["detail"] = detail
+        self.status[name] = entry
+        self.registry.gauge("mirbft_bench_stage_seconds", stage=name)
+        if not enabled:
+            return None
+        runway = self.remaining()
+        if runway < self.MIN_RUNWAY_S:
+            entry["detail"] = "budget exhausted"
+            return None
+        if self.stage_budget_s is not None:
+            runway = min(runway, self.stage_budget_s)
+        box: dict = {}
+
+        def work():
+            try:
+                if warmup is not None:
+                    warm_start = time.perf_counter()
+                    warmup()
+                    box["compile_s"] = round(
+                        time.perf_counter() - warm_start, 3
+                    )
+                fn_start = time.perf_counter()
+                box["result"] = fn()
+                box["fn_s"] = round(time.perf_counter() - fn_start, 3)
+            except BaseException as exc:  # reported; the bench goes on
+                box["error"] = f"{type(exc).__name__}: {exc}"
+
+        thread = threading.Thread(
+            target=work, daemon=True, name=f"bench-{name}"
+        )
+        start = time.perf_counter()
+        self.current = name
+        try:
+            thread.start()
+            thread.join(timeout=runway)
+        finally:
+            self.current = None
+        if "compile_s" in box:
+            entry["compile_s"] = box["compile_s"]
+            self.registry.gauge(
+                "mirbft_bench_stage_compile_seconds", stage=name
+            ).set(box["compile_s"])
+        self.registry.gauge("mirbft_bench_stage_seconds", stage=name).set(
+            box.get("fn_s", round(time.perf_counter() - start, 3))
+        )
+        if thread.is_alive():
+            entry["status"] = "timeout"
+            return None
+        if "error" in box:
+            entry["status"] = "error"
+            entry["detail"] = box["error"]
+            return None
+        entry["status"] = "ok"
+        entry.pop("detail", None)  # the skip reason no longer applies
+        return box["result"]
+
+    def stage_report(self) -> dict:
+        """Status and seconds a stage, the seconds read from the registry."""
+        return {
+            name: {
+                **info,
+                "seconds": self.registry.gauge(
+                    "mirbft_bench_stage_seconds", stage=name
+                ).value,
+            }
+            for name, info in self.status.items()
+        }
+
+
+class Watchdog:
+    """The bench's last guarantee of a final JSON line on stdout.
+
+    The runner's cooperative timeouts need the main thread to return from
+    ``join``; a stage wedged inside a native call that starves the
+    interpreter stops that.  This daemon timer needs only a brief
+    scheduling window: it marks the running stage ``timeout``, emits the
+    final JSON with ``watchdog_fired: true``, and exits with 1.
+    ``emit`` and ``exit_fn`` are injectable, so a test can wedge a stage
+    without ending its own process."""
+
+    def __init__(self, runner, deadline_s, emit=None, exit_fn=None,
+                 stream=None):
+        self.runner = runner
+        self.deadline_s = deadline_s
+        self.emit = emit if emit is not None else print
+        self.exit_fn = exit_fn if exit_fn is not None else os._exit
+        self.stream = stream
+        self.fired = threading.Event()
+        self._cancelled = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, name="bench-watchdog", daemon=True
+        )
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def cancel(self) -> None:
+        self._cancelled.set()
+
+    def _run(self) -> None:
+        if self._cancelled.wait(self.deadline_s):
+            return
+        self.fire("hard watchdog fired")
+
+    def fire(self, reason: str) -> None:
+        """Emit the final JSON line and exit.  Idempotent; also where the
+        SIGALRM backstop lands."""
+        if self.fired.is_set() or self._cancelled.is_set():
+            return
+        self.fired.set()
+        wedged = self.runner.current
+        if wedged is not None:
+            entry = self.runner.status.get(wedged)
+            if entry is not None:
+                entry["status"] = "timeout"
+                entry["detail"] = reason
+        try:
+            stages = self.runner.stage_report()
+        except Exception:  # never let reporting block the exit
+            stages = {}
+        payload = {
+            "metric": METRIC,
+            "value": None,
+            "watchdog_fired": True,
+            "wedged_stage": wedged,
+            "stages": stages,
+        }
+        try:
+            if self.stream is not None:
+                self.stream.final(payload)
+            self.emit(json.dumps(payload))
+            sys.stdout.flush()
+        finally:
+            self.exit_fn(1)
+
+
+def _round(value, digits=1):
+    return None if value is None else round(value, digits)
+
+
+def _fold_engine(registry, stage, events, sim_ms):
+    """Record one engine stage's events and simulated ms as
+    ``mirbft_engine_*`` series labelled by stage; the payload's
+    ``engine_gauges`` reads them back from the registry."""
+    if events is not None:
+        registry.counter("mirbft_engine_events_total", stage=stage).inc(events)
+    if sim_ms is not None:
+        registry.gauge("mirbft_engine_sim_ms", stage=stage).set(sim_ms)
+
+
+def _engine_gauges(registry) -> dict:
+    """{stage: {events, sim_ms}} from the registry snapshot."""
+    snap = registry.snapshot()
+    out: dict = {}
+    for metric, key in (
+        ("mirbft_engine_events_total", "events"),
+        ("mirbft_engine_sim_ms", "sim_ms"),
+    ):
+        for series in snap.get(metric, {}).get("series", []):
+            stage = series["labels"].get("stage")
+            if stage is not None:
+                out.setdefault(stage, {})[key] = series["value"]
+    return out
+
+
+def effective_budget_s(environ=None) -> float:
+    """The stage budget used: ``BENCH_BUDGET_S`` clamped so budget +
+    watchdog grace lands inside ``BENCH_HARNESS_TIMEOUT_S`` with margin."""
+    env = os.environ if environ is None else environ
+    budget_s = float(env.get("BENCH_BUDGET_S", DEFAULT_BUDGET_S))
+    harness_s = float(env.get("BENCH_HARNESS_TIMEOUT_S", HARNESS_TIMEOUT_S))
+    ceiling = harness_s - WATCHDOG_GRACE_S - HARNESS_MARGIN_S
+    if ceiling > 0:
+        budget_s = min(budget_s, ceiling)
+    return budget_s
+
+
+def main(device="cuda") -> int:
+    """Run every stage on ``device`` and print one JSON object.
+
+    Returns 1 when no card is present on ``cuda`` (the JSON names it and
+    no stage runs), when a stage ends in ``error``, or when the ladder's
+    kernel run does not replay its host run; else 0 (a stage past its
+    budget, or skipped, leaves 0)."""
+    from .obsv import device as device_obsv
+    from .obsv.metrics import Registry
+    from .ops.batching import resolve_device
+
+    try:
+        on_card = resolve_device(device).type == "cuda"
+    except RuntimeError as exc:
+        print(json.dumps({"metric": METRIC, "value": None,
+                          "error": f"{type(exc).__name__}: {exc}"}))
+        return 1
+    if on_card:
+        # Every source the stages launch, one nvcc each, all at once and
+        # before the first stage: no stage's clock holds a build.
+        from . import _build
+
+        start = time.perf_counter()
+        _build.build_all(KERNEL_SOURCES)
+        print(f"bench: {', '.join(KERNEL_SOURCES)} built in "
+              f"{time.perf_counter() - start:.3f} s", file=sys.stderr)
+    budget_s = effective_budget_s()
+    stage_budget = os.environ.get("BENCH_STAGE_BUDGET_S")
+    registry = Registry()
+    # The device capture spans the whole run (independent of the hooks,
+    # which stages toggle): program times, launch shapes and transfer
+    # bytes land in the payload's "device" section that obsv --diff gates.
+    device_obsv.reset()
+    device_obsv.start_capture(
+        registry,
+        retrace_budget=int(
+            os.environ.get("BENCH_RETRACE_BUDGET", BENCH_RETRACE_BUDGET)
+        ),
+    )
+    stream = BenchStream(
+        os.environ.get("BENCH_STREAM_PATH", "BENCH_stream.jsonl")
+    )
+    runner = StageRunner(
+        budget_s,
+        registry,
+        stage_budget_s=float(stage_budget) if stage_budget else None,
+        stream=stream,
+    )
+    watchdog = Watchdog(
+        runner, deadline_s=budget_s + WATCHDOG_GRACE_S, stream=stream
+    )
+    watchdog.start()
+    alarm = threading.current_thread() is threading.main_thread() and (
+        hasattr(signal, "SIGALRM")
+    )
+    if alarm:
+        # Backstop for the backstop: if even the watchdog thread is
+        # starved, SIGALRM lands on the same exit path.
+        previous = signal.signal(
+            signal.SIGALRM,
+            lambda _sig, _frm: watchdog.fire("SIGALRM backstop fired"),
+        )
+        signal.alarm(int(budget_s + WATCHDOG_GRACE_S + 30))
+    try:
+        payload, consistent = _run_stages(runner, registry, device, budget_s)
+    finally:
+        device_obsv.stop_capture()
+        if alarm:
+            signal.alarm(0)
+            signal.signal(signal.SIGALRM, previous)
+    watchdog.cancel()
+    stream.final(payload)
+    stream.close()
+    print(json.dumps(payload))
+    failed = any(
+        entry["status"] == "error" for entry in runner.status.values()
+    )
+    return 1 if failed or consistent is False else 0
+
+
+def _run_stages(runner, registry, device, budget_s) -> tuple:
+    """The JAX stages in the JAX order; returns (payload, whether the
+    ladder's kernel run replayed its host run, None if either is
+    missing)."""
+    from . import loadgen
+    from .obsv import device as device_obsv
+    from .testengine import rung3
+    from .testengine.crypto_plane import AsyncKernelHashPlane
+
+    # The live rungs run first: sockets and fsyncs, not kernels in this
+    # process, so a pathological stage downstream cannot starve them.
+    live_serial = runner.run(
+        "live_serial",
+        lambda: live_cluster_rate("cuda", device=device)["rate"],
+    )
+    live_pipelined = runner.run(
+        "live_pipelined",
+        lambda: live_cluster_rate("cuda-pipelined", device=device)["rate"],
+    )
+    soak_s = float(os.environ.get("BENCH_SOAK_S", DEFAULT_SOAK_S))
+    soak = runner.run(
+        "soak",
+        lambda: soak_run(duration_s=soak_s, registry=registry, device=device),
+        enabled=soak_s > 0,
+        detail="BENCH_SOAK_S=0",
+    )
+    attack = runner.run(
+        "live_under_attack", lambda: live_attack_run("cuda", device=device)
+    )
+    if attack is None:
+        attack = dict.fromkeys(("clean_rate", "clean_p95_ms", "flood_rate",
+                                "flood_p95_ms", "flooded"))
+    mp_serial = runner.run(
+        "live_mp_serial", lambda: live_mp_run("cuda", device=device)
+    )
+    mp_pipelined = runner.run(
+        "live_mp_pipelined",
+        lambda: live_mp_run("cuda-pipelined", device=device),
+    )
+    mp_steps = []
+    for result in (mp_serial, mp_pipelined):
+        if result is not None:
+            mp_steps.extend(result["steps"])
+    mp_reconfig = runner.run(
+        "live_mp_reconfig", lambda: reconfig_run(device=device)
+    )
+    reconfig_steady = reconfig_during = None
+    reconfig_evidence = {}
+    if mp_reconfig is not None:
+        reconfig_steady, reconfig_during = mp_reconfig["steps"]
+        reconfig_evidence = mp_reconfig["evidence"]
+        mp_steps.extend(mp_reconfig["steps"])
+    app = runner.run("app_kv", lambda: app_run(device=device))
+    app_steps = [app["step"]] if app is not None else []
+    app_top = app_steps[-1] if app_steps else None
+    capacity = runner.run("knee", lambda: knee_run(device=device))
+
+    def warm_calibrate():
+        # The kernel plane's launch shapes, each launched once.  The port
+        # has no offload calibration: every digest goes to the kernel.
+        plane = AsyncKernelHashPlane(device=device)
+        warm_kernel_shapes(plane)
+        return plane
+
+    plane = runner.run("warm_calibrate", warm_calibrate)
+    ladder = runner.run(
+        "ladder_kernel",
+        lambda: ladder_run(hash_plane=plane, device=device),
+        enabled=plane is not None,
+        detail="needs warm_calibrate",
+    )
+    tpu_wall, events, chain, ladder_sim = (
+        ladder if ladder is not None else (None,) * 4
+    )
+    _fold_engine(registry, "ladder_kernel", events, ladder_sim)
+    host = runner.run("ladder_host", lambda: ladder_run(device=device))
+    host_wall, host_events, host_chain, host_sim = (
+        host if host is not None else (None,) * 4
+    )
+    _fold_engine(registry, "ladder_host", host_events, host_sim)
+    # The kernel run must replay the host run exactly: the same events
+    # and app chain.  Only checkable when both ran.
+    consistent = None
+    if ladder is not None and host is not None:
+        consistent = events == host_events and chain == host_chain
+
+    micro = runner.run(
+        "sha256_microbench",
+        lambda: kernel_microbench(device),
+        warmup=lambda: sha256_microbench_warmup(device),
+    )
+    ed = runner.run(
+        "ed25519_microbench",
+        lambda: ed25519_microbench(device=device),
+        warmup=lambda: ed25519_microbench_warmup(device=device),
+    )
+    ed_kernel_rate, ed_host_rate = ed if ed is not None else (None, None)
+    r3 = runner.run("rung3", lambda: rung3_run(device=device))
+    rung3_rate, rung3_p99, rung3_events, rung3_verified, rung3_stats, r3_sim = (
+        r3 if r3 is not None else (None, None, None, None, {}, None)
+    )
+    _fold_engine(registry, "rung3", rung3_events, r3_sim)
+    r4 = runner.run("rung4", lambda: rung4_run(device=device))
+    rung4 = r4 if r4 is not None else dict.fromkeys(
+        ("reqs_per_sec", "events", "certificates", "aggregate_ms", "sim_ms")
+    )
+    _fold_engine(registry, "rung4", rung4["events"], rung4["sim_ms"])
+    ackplane = runner.run(
+        "ackplane", lambda: ackplane_run(registry, device=device)
+    )
+    runner.run("rung5", None, enabled=False, detail=RUNG5_DISABLED)
+    rung5_rate = rung5_events = None
+
+    total_reqs = CLIENTS * REQS_PER_CLIENT
+    committed_rate = total_reqs / tpu_wall if tpu_wall else None
+    p99_ms = None
+    if plane is not None and ladder is not None:
+        p99_ms = _p99(plane.flush_wall_s) or 0.0
+    chain_rate = micro["chain_rate"] if micro is not None else None
+
+    payload = {
+        "metric": METRIC,
+        "value": _round(committed_rate),
+        "live_reqs_per_sec_serial": _round(live_serial),
+        "live_reqs_per_sec_pipelined": _round(live_pipelined),
+        "live_pipelined_speedup": (
+            round(live_pipelined / live_serial, 3)
+            if live_serial and live_pipelined
+            else None
+        ),
+        "live_config": (
+            f"{LIVE.nodes} nodes f={(LIVE.nodes - 1) // 3}, "
+            f"{LIVE.clients} clients, first {LIVE.target_commits} of "
+            f"{LIVE.clients * LIVE.reqs_per_client} reqs, "
+            f"batch_size={LIVE.batch_size}, loopback TCP, on-disk "
+            "WAL/reqstore, emulated flush latency "
+            f"{LIVE.fsync_floor_s * 1e3:.0f}ms/fsync; processors cuda "
+            "(serial) and cuda-pipelined (pipelined), every digest on the "
+            "SHA-256 kernel, one process a node"
+        ),
+        "live_attack_goodput_per_sec": _round(attack["flood_rate"]),
+        "live_attack_commit_p95_ms": _round(attack["flood_p95_ms"], 2),
+        "live_attack_clean_goodput_per_sec": _round(attack["clean_rate"]),
+        "live_attack_clean_commit_p95_ms": _round(attack["clean_p95_ms"], 2),
+        "live_attack_goodput_ratio": (
+            round(attack["flood_rate"] / attack["clean_rate"], 3)
+            if attack["flood_rate"] and attack["clean_rate"]
+            else None
+        ),
+        "live_attack_flooded_submissions": attack["flooded"],
+        "live_attack_config": (
+            f"duplication flood: every submission x{1 + LIVE_ATTACK_COPIES} "
+            "to every node, cuda processor, same cluster shape as "
+            "live_config; p95 is first-submission to first-commit on the "
+            "node with the most commits"
+        ),
+        "live_mp_goodput_per_sec_serial": _round(
+            mp_serial["goodput_per_sec"] if mp_serial else None
+        ),
+        "live_mp_p95_ms_serial": _round(
+            mp_serial["p95_ms"] if mp_serial else None, 2
+        ),
+        "live_mp_goodput_per_sec_pipelined": _round(
+            mp_pipelined["goodput_per_sec"] if mp_pipelined else None
+        ),
+        "live_mp_p95_ms_pipelined": _round(
+            mp_pipelined["p95_ms"] if mp_pipelined else None, 2
+        ),
+        "live_mp_config": (
+            f"{LIVE_MP_NODES} worker processes, open-loop Poisson at "
+            f"{'/'.join(str(int(r)) for r in LIVE_MP_RATE_STEPS)} req/s "
+            f"x {LIVE_MP_STEP_DURATION_S:.0f}s, "
+            f"batch_size={LIVE_MP_BATCH_SIZE}, client mix: honest + "
+            "slow/mixed-size + retry-storm; processors cuda (serial) and "
+            "cuda-pipelined (pipelined)"
+        ),
+        "reconfig_steady_goodput_per_sec": _round(
+            reconfig_steady.goodput_per_sec if reconfig_steady else None
+        ),
+        "reconfig_steady_p95_ms": _round(
+            reconfig_steady.p95_ms if reconfig_steady else None, 2
+        ),
+        "reconfig_window_goodput_per_sec": _round(
+            reconfig_during.goodput_per_sec if reconfig_during else None
+        ),
+        "reconfig_window_p95_ms": _round(
+            reconfig_during.p95_ms if reconfig_during else None, 2
+        ),
+        "reconfig_adoptions": reconfig_evidence.get("adoptions"),
+        "reconfig_joiner_booted": reconfig_evidence.get("joined"),
+        "reconfig_config": (
+            f"4 -> 5 nodes via a committed pb.NetworkConfig from admin "
+            f"client {LIVE_MP_RECONFIG_ADMIN_CLIENT}, ci="
+            f"{LIVE_MP_RECONFIG_CI}, Poisson "
+            f"{int(LIVE_MP_RECONFIG_RATE)} req/s x "
+            f"{LIVE_MP_RECONFIG_STEP_S:.0f}s per arm, cuda processor"
+        ),
+        "app_goodput_per_sec": _round(
+            app_top.goodput_per_sec if app_top else None
+        ),
+        "app_read_p50_ms": _round(app_top.read_p50_ms if app_top else None, 2),
+        "app_read_p95_ms": _round(app_top.read_p95_ms if app_top else None, 2),
+        "app_read_p99_ms": _round(app_top.read_p99_ms if app_top else None, 2),
+        "app_write_p50_ms": _round(
+            app_top.write_p50_ms if app_top else None, 2
+        ),
+        "app_write_p95_ms": _round(
+            app_top.write_p95_ms if app_top else None, 2
+        ),
+        "app_write_p99_ms": _round(
+            app_top.write_p99_ms if app_top else None, 2
+        ),
+        "app_config": (
+            f"{APP_NODES} in-process nodes with the KV service (not worker "
+            "processes: ROADMAP queue 1, item 3), "
+            f"{APP_SESSIONS} closed-loop sessions x "
+            f"{APP_OPS_PER_SESSION} ops, read_ratio={APP_READ_RATIO}, "
+            "uniform + Zipf keys, mixed payload sizes, committed-mode "
+            "reads (read-index barrier), cuda-pipelined processors"
+        ),
+        "knee_rate_per_sec": _round(
+            capacity.get("knee_rate_per_sec") if capacity else None, 1
+        ),
+        "knee_config": (
+            f"{KNEE_NODES} worker processes, honest open-loop Poisson "
+            f"probes x {KNEE_STEP_DURATION_S:.0f}s, SLO p95 <= "
+            f"{KNEE_SLO_P95_MS:.0f}ms + goodput >= "
+            f"{KNEE_MIN_GOODPUT_RATIO:.0%} of offered, geometric ramp "
+            f"from {KNEE_START_RATE:.0f} req/s + binary search; configs: "
+            + ", ".join(c[0] for c in KNEE_CONFIGS)
+        ),
+        "unit": "reqs/s",
+        "vs_baseline": (
+            round(host_wall / tpu_wall, 3) if tpu_wall and host_wall else None
+        ),
+        "ladder_consistent": consistent,
+        "config": (
+            f"{NODES} nodes f={(NODES - 1) // 3}, {CLIENTS} clients, "
+            f"batch_size={BATCH_SIZE}, {total_reqs} reqs, "
+            f"ready_latency={READY_LATENCY_MS}ms, "
+            "every digest via the async SHA-256 kernel plane (no host "
+            "route)"
+        ),
+        "p99_batch_digest_ms": _round(p99_ms, 2),
+        "engine_events": events,
+        "kernel_compressions_per_sec": _round(chain_rate),
+        # The JAX package timed an XLA and a Pallas route; the port has
+        # one, the hand-written chain kernel, under the Pallas key.
+        "kernel_compressions_per_sec_xla": None,
+        "kernel_compressions_per_sec_pallas": _round(chain_rate),
+        "kernel_digests_per_sec_640B": _round(
+            micro["kernel_digest_rate"] if micro else None
+        ),
+        "kernel_vs_hashlib": (
+            round(micro["kernel_digest_rate"] / micro["host_rate"], 3)
+            if micro else None
+        ),
+        "ed25519_verifies_per_sec": _round(ed_kernel_rate),
+        "ed25519_vs_host_python": (
+            round(ed_kernel_rate / ed_host_rate, 3) if ed else None
+        ),
+        "rung3_committed_reqs_per_sec": _round(rung3_rate),
+        "rung3_verify_p99_ms": _round(rung3_p99, 2),
+        "rung3_config": (
+            f"{rung3.NODES} nodes f={(rung3.NODES - 1) // 3}, "
+            f"{rung3.CLIENTS} ed25519-signed clients, "
+            f"{rung3.CLIENTS * rung3.REQS} reqs, "
+            f"batch_size={rung3.BATCH_SIZE}, "
+            "speculative batched ingress verification on the Ed25519 "
+            "kernels"
+        ),
+        "rung3_engine_events": rung3_events,
+        "rung3_verified_requests": rung3_verified,
+        **rung3_stats,
+        "rung4_committed_reqs_per_sec": _round(rung4["reqs_per_sec"]),
+        "rung4_config": (
+            f"{RUNG4_NODES} nodes f={(RUNG4_NODES - 1) // 3}, "
+            f"{RUNG4_CLIENTS} clients, 30ms WAN jitter + drop "
+            "mangler, BLS checkpoint certs aggregated on the card"
+        ),
+        "rung4_engine_events": rung4["events"],
+        "rung4_bls_certificates": rung4["certificates"],
+        "rung4_bls_aggregate_ms": _round(rung4["aggregate_ms"], 2),
+        "rung5_committed_reqs_per_sec": _round(rung5_rate),
+        "rung5_config": (
+            f"{RUNG5_NODES} nodes f={(RUNG5_NODES - 1) // 3}, "
+            f"{RUNG5_CLIENTS} clients, 20ms WAN jitter, follower "
+            "crash + checkpoint-GC + state-transfer recovery; "
+            + RUNG5_DISABLED
+        ),
+        "rung5_engine_events": rung5_events,
+        **{
+            f"ackplane_{key}": (ackplane or {}).get(key)
+            for key in ACKPLANE_KEYS
+        },
+        "ackplane_config": (
+            f"{ACKPLANE_CLIENTS} clients (width-1 windows), 4 nodes f=1, "
+            f"{len(ACKPLANE_SOURCES)} sources acking every req 0 in "
+            f"seeded shuffled frames of {ACKPLANE_FRAME}; events/s is "
+            "steady state (each plane's first frame is its build "
+            "window); committed = strong-certified slots per second of "
+            "device ingest + quorum sweep; boundary drain reported "
+            "separately"
+        ),
+        "soak": soak,
+        "soak_config": (
+            f"{SOAK_NODES} nodes f={(SOAK_NODES - 1) // 3}, "
+            f"{SOAK_CLIENTS} clients, sliding window {SOAK_WINDOW}, "
+            f"cuda-pipelined processors, {soak_s:.0f}s "
+            "(BENCH_SOAK_S), on-disk WAL/reqstore, obsv resource "
+            "sampler @0.5s"
+        ),
+        "bench_budget_s": budget_s,
+        "bench_stage_budget_s": runner.stage_budget_s,
+        "stages": runner.stage_report(),
+        "engine_gauges": _engine_gauges(registry),
+        "device": device_obsv.report(registry),
+    }
+    if mp_steps:
+        payload["loadgen"] = loadgen.artifact(
+            mp_steps,
+            cluster="mp",
+            nodes=LIVE_MP_NODES,
+            rate_steps=list(LIVE_MP_RATE_STEPS),
+        )
+    if capacity is not None:
+        payload["capacity"] = capacity
+    if app_steps:
+        payload["loadgen_app"] = loadgen.artifact(
+            app_steps,
+            cluster="inproc-app",
+            nodes=APP_NODES,
+            sessions=APP_SESSIONS,
+            read_ratio=APP_READ_RATIO,
+        )
+    if plane is not None:
+        payload.update(
+            {
+                "crypto_plane_digests": sum(plane.flush_sizes),
+                "crypto_plane_overlapped_launches": plane.launches,
+                # A digest demanded before its wave launched: the port
+                # launches that wave on the kernel (no host route).
+                "crypto_plane_demand_host_flushes": plane.demand_flushes,
+                "crypto_plane_device_digests": plane.device_digests,
+                "crypto_plane_host_digests": plane.host_digests,
+                # No host route to rescue to, and no calibration (ROADMAP,
+                # "Standing gap"): 0, null, null.
+                "crypto_plane_rescued_digests": 0,
+                "crypto_plane_device_rtt_ms": None,
+                "crypto_plane_min_device_rows": None,
+            }
+        )
+    return payload, consistent
+
+
+def recover_main(argv) -> int:
+    """``python -m mirbft_tpu_torch.bench --recover [journal]``: print the
+    payload recovered from a ``BENCH_stream.jsonl`` journal (its
+    ``final`` line when the run finished, a stage-only artifact when it
+    was killed)."""
+    from .obsv.diff import recover_stream
+
+    path = argv[0] if argv else os.environ.get(
+        "BENCH_STREAM_PATH", "BENCH_stream.jsonl"
+    )
+    try:
+        payload = recover_stream(path)
+    except OSError as exc:
+        print(json.dumps({"error": f"{type(exc).__name__}: {exc}"}))
+        return 1
+    print(json.dumps(payload))
+    return 0
+
+
+def cli(argv) -> int:
+    """``python -m mirbft_tpu_torch.bench [--device cpu]`` runs the bench;
+    ``--recover [journal]`` recovers an artifact.  An exception outside
+    the stages still prints one JSON line, with its ``error``."""
+    if argv and argv[0] == "--recover":
+        return recover_main(argv[1:])
+    parser = argparse.ArgumentParser(
+        prog="python -m mirbft_tpu_torch.bench",
+        description="Run the port's bench and print one JSON object.",
+    )
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="where the kernels run (cpu: their plain "
+                        "versions)")
+    args = parser.parse_args(argv)
+    try:
+        return main(device=args.device)
+    except BaseException as exc:  # noqa: BLE001 — the contract is one line
+        print(json.dumps({"metric": METRIC, "value": None,
+                          "error": f"{type(exc).__name__}: {exc}"}))
+        return 1
+
+
+if __name__ == "__main__":
+    # Through the package's module, so spawned node processes pickle
+    # references to mirbft_tpu_torch.bench, not to this script's copy.
+    from mirbft_tpu_torch.bench import cli as _cli
+
+    rc = _cli(sys.argv[1:])
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # Abandoned timed-out stage threads may still be inside a launch; a
+    # plain return can hang in interpreter teardown.
+    os._exit(rc)

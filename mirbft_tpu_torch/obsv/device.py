@@ -9,7 +9,7 @@ module closes that gap with one decorator:
         ack_plane.ack_step
     )
 
-Per call, while ``hooks.enabled`` is on, the wrapper
+Per call, while capture is active (see below), the wrapper
 
 - observes the call's time in ``mirbft_device_kernel_seconds{kernel}``:
   CUDA events around the call when a tensor argument lies on a card (the
@@ -24,7 +24,10 @@ Per call, while ``hooks.enabled`` is on, the wrapper
   per-function budget and the same metric, and a function past the budget
   lands in ``report()["retrace_breaches"]``.
 
-Off, the cost is one module-attribute load and a branch.
+Gating: the wrapper is active when either ``start_capture(registry)``
+installed a capture registry (a bench run: the capture spans the whole
+run, whatever each stage does to the hooks) or ``hooks.enabled`` is on
+(tests, chaos).  Off, the cost is one module-attribute load and a branch.
 
 ``transfer(direction, nbytes, device)`` counts one copy between the host
 and a card into ``mirbft_device_transfer_bytes_total{direction}``: the
@@ -50,6 +53,8 @@ from .metrics import CardinalityError
 #: batches to power-of-two buckets, so a handful of shapes is normal.
 RETRACE_BUDGET = 8
 
+_capture_registry = None  # Registry while start_capture() is active
+_retrace_budget = RETRACE_BUDGET
 _signatures: dict = {}  # fn name -> set of launch shapes seen
 _retraces: dict = {}  # fn name -> count of new-shape events
 _breaches: list = []  # fn names that exceeded the budget (insertion order)
@@ -62,7 +67,26 @@ def reset():
     del _breaches[:]
 
 
+def start_capture(registry, retrace_budget=None):
+    """Route device telemetry into ``registry`` independently of the
+    hooks switchboard (bench stages toggle the hooks themselves; the
+    device capture must span the whole run), with ``retrace_budget`` new
+    launch shapes a function in place of ``RETRACE_BUDGET``."""
+    global _capture_registry, _retrace_budget
+    _capture_registry = registry
+    if retrace_budget is not None:
+        _retrace_budget = retrace_budget
+
+
+def stop_capture():
+    global _capture_registry, _retrace_budget
+    _capture_registry = None
+    _retrace_budget = RETRACE_BUDGET
+
+
 def _registry():
+    if _capture_registry is not None:
+        return _capture_registry
     from . import hooks
 
     if hooks.enabled:
@@ -116,8 +140,7 @@ def _note_signature(fn_name, sig, registry):
         return
     seen.add(sig)
     _retraces[fn_name] = _retraces.get(fn_name, 0) + 1
-    if (_retraces[fn_name] > RETRACE_BUDGET
-            and fn_name not in _breaches):
+    if _retraces[fn_name] > _retrace_budget and fn_name not in _breaches:
         _breaches.append(fn_name)
     try:
         registry.counter("mirbft_device_retraces_total", fn=fn_name).inc()
@@ -128,7 +151,7 @@ def _note_signature(fn_name, sig, registry):
 def transfer(direction: str, nbytes: int, device) -> None:
     """Count one copy of ``nbytes`` between the host and ``device``
     (``direction`` "h2d" or "d2h"); nothing unless ``device`` is a card
-    and hooks are on."""
+    and capture is active."""
     if getattr(device, "type", None) != "cuda" or not nbytes:
         return
     registry = _registry()
@@ -242,7 +265,7 @@ def report(registry):
     return {
         "kernel_seconds": kernels,
         "retraces": dict(_retraces),
-        "retrace_budget": RETRACE_BUDGET,
+        "retrace_budget": _retrace_budget,
         "retrace_breaches": list(_breaches),
         "transfer_bytes": transfers,
         "divergence_total": divergence,

@@ -245,6 +245,10 @@ def _sharded(name, device="cuda"):
         lambda: _sharded("ed25519"),
         port_entry.entry,
         lambda: port_entry.dryrun_multichip(1),
+        port_bench.ladder_run,
+        port_bench.rung3_run,
+        port_bench.ed25519_microbench_warmup,
+        lambda: port_bench.ed25519_microbench(8),
     ],
     ids=[
         "kernel_plane", "sha256_many", "sha256_chunked", "to_tensors",
@@ -259,7 +263,8 @@ def _sharded(name, device="cuda"):
         "live_attack_run", "live_mp_run", "reconfig_run", "knee_run",
         "chaos_cli_mp_run", "make_mesh", "make_mesh_2", "sharded_sha256",
         "sharded_quorum_tally", "sharded_ed25519_verify", "entry",
-        "dryrun_multichip",
+        "dryrun_multichip", "ladder_run", "rung3_run",
+        "ed25519_microbench_warmup", "ed25519_microbench",
     ],
 )
 def test_entry_points_raise_without_a_card(no_card, entry):
@@ -311,6 +316,10 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         lambda: _sharded("ed25519", "cpu"),
         lambda: port_entry.entry("cpu"),
         lambda: port_entry.dryrun_multichip(2, devices=["cpu"] * 2),
+        lambda: port_bench.ladder_run(device="cpu", reqs_per_client=1),
+        lambda: port_bench.rung3_run(device="cpu", nodes=4, clients=2,
+                                     reqs=1),
+        lambda: port_bench.ed25519_microbench(2, device="cpu"),
     ],
     ids=[
         "kernel_plane", "sha256_many", "to_tensors", "recorder",
@@ -323,6 +332,7 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "run_live_scenario", "live_attack_run", "chaos_cli_mp_run",
         "make_mesh", "sharded_sha256", "sharded_quorum_tally",
         "sharded_ed25519_verify", "entry", "dryrun_multichip",
+        "ladder_run", "rung3_run", "ed25519_microbench",
     ],
 )
 def test_entry_points_run_on_the_cpu_when_asked(no_card, entry):
@@ -721,3 +731,56 @@ def test_a_spawned_worker_imports_neither_jax_nor_the_jax_package(tmp_path):
     assert proc.returncode == 0, err
     assert "loaded []" in out, (out, err)
     assert "blocked" not in err
+
+
+BENCH_RECOVER_BLOCKED = textwrap.dedent(
+    """
+    import os, runpy, sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".")
+                   for b in ("jax", "mirbft_tpu")):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    exit_now = os._exit
+
+    def reporting_exit(code):
+        loaded = [m for m in sys.modules
+                  if m == "jax" or m.startswith("jax.")
+                  or m == "mirbft_tpu" or m.startswith("mirbft_tpu.")]
+        print("loaded", loaded, flush=True)
+        exit_now(code)
+
+    os._exit = reporting_exit
+    sys.argv = ["mirbft_tpu_torch.bench", "--recover", sys.argv[1]]
+    runpy.run_module("mirbft_tpu_torch.bench", run_name="__main__",
+                     alter_sys=True)
+    """
+)
+
+
+def test_bench_recover_imports_neither_jax_nor_the_jax_package(tmp_path):
+    """``python -m mirbft_tpu_torch.bench --recover <journal>`` with jax and
+    the JAX package blocked: it prints the journal's payload, exits 0, and
+    loaded neither (its ``os._exit`` reports the modules first)."""
+    import json
+
+    payload = {"metric": "committed_reqs_per_sec_per_chip", "value": 1.5}
+    journal = tmp_path / "BENCH_stream.jsonl"
+    journal.write_text(
+        json.dumps({"schema": "mirbft-bench-stream/1", "kind": "header"})
+        + "\n" + json.dumps({"kind": "final", "payload": payload}) + "\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-c", BENCH_RECOVER_BLOCKED, str(journal)],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    assert json.loads(lines[0]) == payload
+    assert lines[1] == "loaded []"
+    assert "blocked" not in proc.stderr

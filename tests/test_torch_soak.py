@@ -13,9 +13,9 @@ equality of every output, except the process's own readings (RSS, fds,
 threads, wall-clock stamps), which are held to the original cases'
 bounds.
 
-Not mirrored: ``tests/test_device_obsv.py:398`` and ``:413`` call the
-JAX bench's ``main`` (``--recover``, the stream journal), which the port's
-bench does not have yet (ROADMAP queue 1, the bench ``main``).
+``tests/test_device_obsv.py:398`` and ``:413`` (``--recover``, the budget
+clamp) are mirrored in ``tests/test_torch_bench_main.py``, beside the
+bench ``main`` they call.
 
 New here: the port's sampler counts a failed tick instead of hiding it,
 and a sampler told it watches a card fails the tick that cannot read the
