@@ -149,39 +149,45 @@ Phases (any failure raises and the script exits nonzero):
     ``bls_host.aggregate_g1`` of its votes, every digest on the card;
     committed req/s, the aggregate's device ms on the rung's votes, and
     the card's idle share;
-16. signed ingress on live nodes (``mirbft_tpu_torch.bench.ingress_run``,
-    the traffic of the JAX package's multi-process rung, bench.py:133-144:
-    4 nodes, BatchSize 4, clients 1-3 under ``standard_client_models``
-    signed, Poisson steps at 25, 50 and 100 req/s of 2 s each, generator
-    seed 11, 25 s of drain) on the in-process cluster with the
-    cuda-pipelined processor, a ``SpeculativeIngress`` on
-    ``signing.batch_verifier("cuda")`` in front of each node's propose,
-    and a seeded forged twin (one bit of S flipped) of every 8th request
-    sent to the same nodes: every honest request committed exactly once
-    on every node (a node that fell behind and installed a snapshot holds
-    the requests below its checkpoint through it), no forgery reaching a
-    node, each node's evictions equal
-    to the forgeries it was sent, 0 verifier errors, 0 dropped, the chains
-    agreeing, every digest on the card, and each Ed25519 kernel launched
-    once for each ingress batch with a row left after the host's rejects,
-    at that many rows; the first launch at each row count is replayed
-    through the kernels and their plain versions on the card (bit for
-    bit) and its verdicts against the host oracle.  Per step: goodput,
-    p50 and p95 submit-to-commit latency, the ingress batch sizes, the
-    verify wall a batch;
-17. the replicated KV service (``mirbft_tpu_torch.bench.app_run``, the JAX
-    package's app rung, bench.py:157-180: 8 nodes, 4 closed-loop sessions
-    x 40 ops, read ratio 0.5, ``kv_client_models``, committed reads
-    through the read-index barrier, BatchSize 1, tick 0.25 s, op timeout
-    20 s, seed 7) on the in-process cluster with the cuda-pipelined
-    processor: 0 ops timed out, ``check_linearizable_reads`` passing, every
-    replica's KvStore snapshot the same bytes, every digest on the card;
-    then a lagging replica, its inbound frames held until the others'
-    low watermarks are two checkpoint intervals past its own, released
-    and caught up through ``TransferEngine``: a snapshot installed, 0
-    chunks rejected, its KvStore equal, committed reads served from it.
-    Read and write p50/p95/p99, goodput, the transfer's bytes, chunks and
-    wall, and the card's idle share;
+16. signed ingress on 4 worker processes
+    (``mirbft_tpu_torch.bench.live_mp_run(signed=True)``, the JAX
+    package's multi-process rung, bench.py:133-144: BatchSize 4, clients
+    1-3 under ``standard_client_models`` signed, Poisson steps at 25, 50
+    and 100 req/s of 2 s each, generator seed 11, 25 s of drain), every
+    worker on the cuda-pipelined processor with a ``SpeculativeIngress``
+    on ``signing.batch_verifier("cuda")`` in front of its propose that
+    journals every batch, and a seeded forged twin (one bit of S flipped)
+    of every 8th request sent to the same workers: every honest request
+    committed exactly once on every node (a node that fell behind and
+    installed a snapshot holds the requests below its checkpoint through
+    it), no forged bytes in any worker's request store (opened from its
+    directory after teardown), each node's evictions equal to the
+    forgeries it was sent, 0 verifier errors, 0 dropped, one chain, every
+    worker exiting 0 with no log fault, every digest on the card (the
+    SHA-256 wrappers' launches equal the processors', summed over the
+    workers), and each Ed25519 kernel launched once for each journaled
+    batch with a row left after the host's rejects, at that many rows (the
+    workers' counts by rows); the first batch at each row count is
+    replayed here through the kernels and their plain versions on the
+    card (bit for bit) and its verdicts against the host oracle.  Per
+    step: goodput, p50 and p95 submit-to-commit latency; the batch sizes;
+17. the replicated KV service on 8 worker processes
+    (``mirbft_tpu_torch.bench.app_run``, the JAX package's app rung,
+    bench.py:157-180, 1331-1381: ``app="kv"``, not proxied, 4 closed-loop
+    ``KvClient`` sessions x 40 ops over the workers' service sockets,
+    read ratio 0.5, ``kv_client_models``, committed reads through the
+    read-index barrier, BatchSize 1, tick 0.25 s, op timeout 20 s, seed 7)
+    on the cuda-pipelined processor: 0 ops timed out (the snapshots each
+    worker installed during the step printed beside it),
+    ``check_linearizable_reads`` passing, one KvStore digest on every
+    worker, every digest on the card; then node 7 stopped while the
+    sessions write until the others' low watermarks are two checkpoint
+    intervals past its own, restarted from its disk and caught up
+    through ``TransferEngine``: a snapshot installed, 0 chunks rejected,
+    its KvStore equal, committed reads served from it; every worker exits
+    0 with no log fault.  Read and write p50/p95/p99, goodput, the seqs it
+    missed, the transfer's bytes, chunks and wall from restart to install,
+    and the card's idle share;
 18. the observability plane on the card: (a) ``python -m
     mirbft_tpu_torch.obsv --nodes 4 --trace-dir DIR`` (its entry point, in
     this process) on the SHA-256 kernel, whose events and phase table
@@ -196,7 +202,8 @@ Phases (any failure raises and the script exits nonzero):
     the four per-process traces merged with the clock offsets of the
     transport's hellos and ``--critpath`` on the directory, the ledger at
     least the committed flows less the tracer's evictions; (c) one 50
-    req/s step of phase 16's configuration traced, per-node traces and
+    req/s step of phase 16's traffic on 4 in-process nodes
+    (``bench.ingress_run``, one process, one clock) traced, per-node traces and
     the loadgen's commit records in one directory, and the critical-path
     attribution by latency band printed (both Ed25519 kernels and the
     SHA-256 kernel launched);
@@ -220,10 +227,10 @@ Phases (any failure raises and the script exits nonzero):
     SIGKILLed, 40 more commit on the others, node 3 restarts from disk on
     its port, catches up to one chain, and 8 more commit on all four;
     (b) ``bench.live_mp_run`` (the JAX ``live_mp_run``: 4 workers,
-    BatchSize 4, the standard client mix, Poisson 25/50/100 req/s);
-    (c) its signed-ingress step at 50 req/s (a forged twin of every 8th
-    request), every worker verifying on both Ed25519 kernels;
-    (d) ``python -m mirbft_tpu_torch.chaos --live --cluster mp --smoke``;
+    BatchSize 4, the standard client mix, Poisson 25/50/100 req/s; its
+    signed form is phase 16);
+    (d) ``python -m mirbft_tpu_torch.chaos --live --cluster mp --smoke``,
+    started in the background beside phase 15 and collected here;
     (e) ``bench.reconfig_run`` (a committed reconfiguration adds node 4,
     which catches up by a snapshot).  Every worker must exit 0 (or -9
     where SIGKILLed), log no fault, show device hash flushes in its
@@ -1163,6 +1170,8 @@ def bls_phases(sms: int, t0: float) -> dict:
           f"{time.perf_counter() - t0:.1f} s)")
 
     # -- phase 15: ladder rung 4 at full scale ---------------------------------
+    # Phase 22d's CLI runs on worker processes beside this single-core rung.
+    _CLUSTER_CHAOS["run"] = start_cluster_chaos()
     bls_g1.aggregate_points.launches = 0
     bls_g1.aggregate_points.launches_by_shape.clear()
     sha256_digest_words.launches = 0
@@ -1257,88 +1266,101 @@ def compare_ingress_launch(items: list) -> tuple:
 
 
 def service_phases(t0: float) -> dict:
-    """Phases 16 and 17: signed ingress on live nodes, then the replicated
-    KV service and a lagging replica.  Returns what the kernels line
-    reads."""
+    """Phases 16 and 17, each on worker processes: signed ingress, then the
+    replicated KV service and a restarted replica.  Each worker counts its
+    wrappers' launches from 0 (a process of its own) and reports them;
+    the sums over the workers are what the kernels line reads."""
     from mirbft_tpu_torch import bench as port_bench
-    from mirbft_tpu_torch.ops import ed25519
-    from mirbft_tpu_torch.ops.sha256 import sha256_digest_words
 
-    # -- phase 16: signed ingress on live nodes --------------------------------
-    sha256_digest_words.launches = 0
-    ed25519.decompress.launches = ed25519.ladder.launches = 0
-    ed25519.decompress.launches_by_rows.clear()
-    ed25519.ladder.launches_by_rows.clear()
-    ing = port_bench.ingress_run(device="cuda")
-    ing_launches = {
-        "sha256_digest": sha256_digest_words.launches,
-        "ed25519_decompress": ed25519.decompress.launches,
-        "ed25519_ladder": ed25519.ladder.launches,
-    }
-    ladder_rows = collections.Counter(ed25519.ladder.launches_by_rows)
-    decompress_rows = collections.Counter(ed25519.decompress.launches_by_rows)
+    # -- phase 16: signed ingress on 4 workers ---------------------------------
+    start = time.perf_counter()
+    ing = port_bench.live_mp_run(CLUSTER_PROCESSOR, device="cuda",
+                                 rates=port_bench.INGRESS_RATES, signed=True)
+    ing_wall = time.perf_counter() - start
     for step in ing["steps"]:
-        s = step["step"]
-        walls = step["verify_wall_s"]
-        sizes = step["batch_sizes"]
         print(
-            f"  ingress {s.name}: submitted {s.submitted}, committed "
-            f"{s.committed}, timed out {s.timed_out}, retries "
-            f"{s.duplicates}; goodput {s.goodput_per_sec:.3f} req/s, "
-            f"submit-to-commit p50 {s.p50_ms:.3f} ms p95 {s.p95_ms:.3f} ms; "
-            f"{len(sizes)} ingress batches of "
-            f"{sorted(collections.Counter(sizes).items())} (size, count); "
-            f"verify wall a batch mean "
-            f"{1e3 * statistics.mean(walls) if walls else 0.0:.3f} ms, max "
-            f"{1e3 * max(walls, default=0.0):.3f} ms; the nodes' epochs "
-            f"after it {step['epochs']}"
+            f"  ingress {step.name}: submitted {step.submitted}, committed "
+            f"{step.committed}, timed out {step.timed_out}, retries "
+            f"{step.duplicates}; goodput {step.goodput_per_sec:.3f} req/s, "
+            f"submit-to-commit p50 {step.p50_ms:.3f} ms p95 "
+            f"{step.p95_ms:.3f} ms"
         )
+    sizes = collections.Counter(len(b) for b in ing["batches"])
+    print(f"  ingress batches by worker {dict(collections.Counter(ing['batch_nodes']))}"
+          f", by size {sorted(sizes.items())} (size, count); ingress "
+          f"counters {ing['ingress']}; boot {ing['boot_seconds']} s")
+    totals = check_workers("16", ing["evidence"], ing["exit_codes"],
+                           signed=True)
+    judged_invalid = collections.Counter()
+    for n, items, verdicts in zip(ing["batch_nodes"], ing["batches"],
+                                  ing["verdicts"]):
+        check(verdicts is not None and len(verdicts) == len(items),
+              f"ingress node {n}: a journaled batch of {len(items)} items "
+              f"has verdicts {verdicts}")
+        judged_invalid[n] += len(items) - sum(verdicts or ())
     for n, stage in sorted(ing["ingress"].items()):
         check(stage["verify_errors"] == 0,
-              f"ingress node {n}: {stage['verify_errors']} verifier errors, "
-              f"last {stage['last_error']!r}")
+              f"ingress node {n}: {stage['verify_errors']} verifier errors")
         check(stage["dropped_overflow"] == 0,
               f"ingress node {n}: {stage['dropped_overflow']} dropped")
-        check(stage["evicted"] == ing["forged_to"][n],
+        check(stage["evicted"] == ing["forged_to"][n] == judged_invalid[n],
               f"ingress node {n}: evicted {stage['evicted']}, sent "
-              f"{ing['forged_to'][n]} forgeries")
+              f"{ing['forged_to'][n]} forgeries, journaled "
+              f"{judged_invalid[n]} invalid verdicts")
     # A node that fell behind and installed a snapshot holds the requests
     # below its checkpoint through the snapshot: each request it did not
     # commit itself must sit at or below that checkpoint's seq_no.
-    seq_of = {(cid, req_no): seq
-              for _n, cid, req_no, seq, _ts in ing["observed"]}
     adopted = 0
-    for n, commits in sorted(ing["commits"].items()):
+    for n, commits in sorted(ing["per_node_commits"].items()):
         missing = ing["honest"] - set(commits)
         installed, cp_seq = ing["transfers"][n]
         check(not missing or (installed and all(
-            seq_of[key] <= cp_seq for key in missing)),
+            ing["seq_of"][key] <= cp_seq for key in missing)),
               f"ingress node {n}: committed {len(commits)} of "
               f"{len(ing['honest'])} requests; missing {sorted(missing)[:8]}"
               f", snapshots installed {ing['transfers']}")
-        check(max(commits.values()) == 1,
+        check(not commits or max(commits.values()) == 1,
               f"ingress node {n}: a request committed twice")
+        # The raw scan of the request log saw the whole run only if no
+        # compaction dropped a record: every committed request is there.
+        check(set(commits) <= ing["stored"][n],
+              f"ingress node {n}: {len(set(commits) - ing['stored'][n])} "
+              f"committed requests have no STORE record in its log")
         adopted += len(missing)
-    check(ing["forged_stored"] == 0,
-          f"ingress: {ing['forged_stored']} forged requests reached a node")
-    check(len(set(ing["chains"].values())) == 1, "ingress: chains differ")
+    check(not ing["missing"] and not ing["duplicates"],
+          f"ingress: never committed {ing['missing'][:5]}, twice "
+          f"{ing['duplicates'][:5]}")
+    check(ing["forged_admitted"] == 0 and ing["forged_stored"] == 0,
+          f"ingress: {ing['forged_admitted']} forged requests judged valid, "
+          f"{ing['forged_stored']} stored in a worker's request log")
+    check(len(set(ing["chains"])) == 1 and "" not in ing["chains"],
+          f"ingress: chains {ing['chains']}")
     for step in ing["steps"]:
-        check(step["step"].timed_out == 0,
-              f"ingress {step['step'].name}: {step['step'].timed_out} "
-              "requests timed out")
-    # Each batch with a row left after the host's rejects is one launch of
-    # each kernel at that many rows; the first batch at each row count is
-    # replayed through kernel and plain (outside the counted run).
+        check(step.timed_out == 0,
+              f"ingress {step.name}: {step.timed_out} requests timed out")
+    # Each journaled batch with a row left after the host's rejects is one
+    # launch of each kernel at that many rows in its worker; the first
+    # batch at each row count is replayed through kernel and plain here
+    # (outside the counted run).
     batch_rows = [len(port_bench.ingress_rows(b)) for b in ing["batches"]]
     launched = collections.Counter(n for n in batch_rows if n)
+    ing_launches = {
+        "sha256_digest": totals["launches_sha256"],
+        "ed25519_decompress": totals["launches_ed25519_decompress"],
+        "ed25519_ladder": totals["launches_ed25519_ladder"],
+    }
     check(ing_launches["ed25519_decompress"] == ing_launches["ed25519_ladder"]
           == sum(launched.values()) > 0,
           f"ingress: launches {ing_launches}, {sum(launched.values())} "
           f"batches with rows of {len(batch_rows)}")
-    check(ladder_rows == launched and decompress_rows == collections.Counter(
-        {2 * n: c for n, c in launched.items()}),
-          f"ingress: ladder launches by rows {sorted(ladder_rows.items())}, "
-          f"batches {sorted(launched.items())}")
+    by_rows = ing["launches_by_rows"]
+    check(by_rows["ed25519_ladder"] == launched
+          and by_rows["ed25519_decompress"] == collections.Counter(
+              {2 * n: c for n, c in launched.items()}),
+          f"ingress: ladder launches by rows "
+          f"{sorted(by_rows['ed25519_ladder'].items())}, decompress "
+          f"{sorted(by_rows['ed25519_decompress'].items())}, batches "
+          f"{sorted(launched.items())}")
     check(ing["host_digests"] == 0 and ing["device_digests"] > 0
           and ing_launches["sha256_digest"] == ing["hash_launches"],
           f"ingress: digests device {ing['device_digests']} host "
@@ -1348,53 +1370,78 @@ def service_phases(t0: float) -> dict:
     for items, n in zip(ing["batches"], batch_rows):
         if n and n not in replayed:
             rows, err = compare_ingress_launch(items)
-            check(rows == n, f"ingress replay: {rows} rows, recorded {n}")
+            check(rows == n, f"ingress replay: {rows} rows, journaled {n}")
             replayed[n] = len(items)
             ing_err = max(ing_err, err)
     evicted = sum(s["evicted"] for s in ing["ingress"].values())
     print(
-        f"phase 16 ok: signed ingress, {port_bench.INGRESS_NODES} nodes, "
-        f"BatchSize {port_bench.INGRESS_BATCH_SIZE}, Poisson "
-        f"{'/'.join(str(int(r)) for r in port_bench.INGRESS_RATES)} req/s x "
-        f"{port_bench.INGRESS_STEP_S} s: {len(ing['honest'])} honest "
-        f"requests committed once on every node ({adopted} of them through "
-        f"the snapshots installed, by node: "
+        f"phase 16 ok: signed ingress on {port_bench.LIVE_MP_NODES} workers "
+        f"({CLUSTER_PROCESSOR}), BatchSize {port_bench.LIVE_MP_BATCH_SIZE}, "
+        f"Poisson {'/'.join(str(int(r)) for r in port_bench.INGRESS_RATES)} "
+        f"req/s x {port_bench.LIVE_MP_STEP_DURATION_S} s: "
+        f"{len(ing['honest'])} honest requests committed once on every node "
+        f"({adopted} of them through the snapshots installed, by node: "
         f"{ {n: t[0] for n, t in ing['transfers'].items()} }), "
-        f"{ing['forged']} forged "
-        f"twins ({evicted} evictions, one a forgery a node), none reached a "
-        f"node; 0 verifier errors, 0 dropped; chains agree; "
-        f"{len(ing['batches'])} ingress batches, {sum(launched.values())} "
-        f"with rows: one launch of each Ed25519 kernel each at "
-        f"{len(launched)} row counts {sorted(launched)}, each replayed "
-        f"kernel == plain (max_abs_err {ing_err}) == oracle; digests device "
-        f"{ing['device_digests']} host {ing['host_digests']} in "
-        f"{ing['hash_launches']} launches; launches {ing_launches}; wall "
-        f"{ing['wall_s']:.3f} s (done at {time.perf_counter() - t0:.1f} s)"
+        f"{ing['forged']} forged twins ({evicted} evictions, one a forgery a "
+        f"node), none judged valid, none in a request log; 0 verifier "
+        f"errors, 0 dropped; one "
+        f"chain; every worker exited 0, no log fault; "
+        f"{len(ing['batches'])} journaled ingress batches, "
+        f"{sum(launched.values())} with rows: one launch of each Ed25519 "
+        f"kernel each at {len(launched)} row counts {sorted(launched)}, each "
+        f"replayed kernel == plain (max_abs_err {ing_err}) == oracle; digests"
+        f" device {ing['device_digests']} host {ing['host_digests']} in "
+        f"{ing['hash_launches']} launches; wrapper launches {ing_launches}; "
+        f"the rung {ing_wall:.3f} s, the phase {time.perf_counter() - start:.3f}"
+        f" s (done at {time.perf_counter() - t0:.1f} s)"
     )
 
-    # -- phase 17: the replicated KV service and a lagging replica -------------
-    sha256_digest_words.launches = 0
+    # -- phase 17: the KV service on 8 workers and a restarted replica ---------
+    start = time.perf_counter()
     app = port_bench.app_run(device="cuda")
-    app_launches = {"sha256_digest": sha256_digest_words.launches}
+    app_wall = time.perf_counter() - start
     step = app["step"]
     lag = app["lag"]
-    check(step.timed_out == 0, f"app: {step.timed_out} ops timed out")
+    # Queue 3, item 16: a snapshot install may orphan its home node's
+    # write waiter; which workers installed one during the step says
+    # whether a timed-out op is that.
+    print(f"  app: snapshots installed during the step, by worker "
+          f"{app['step_installs']}; session homes {app['homes']}; boot "
+          f"{app['boot_seconds']} s")
+    check(step.timed_out == 0,
+          f"app: {step.timed_out} ops timed out (snapshots installed during "
+          f"the step by worker {app['step_installs']}, homes {app['homes']})")
     check("violation" not in app["linearizable"],
           f"app: {app['linearizable'].get('violation')}")
-    check(app["converged"], "app: the replicas' KvStore snapshots differ")
+    check(app["converged"] and len(app["store_digests"]) == port_bench.APP_NODES
+          and len(set(app["store_digests"].values())) == 1,
+          f"app: the workers' KvStore digests {app['store_digests']}, "
+          f"(applied seq, applied index) {app['applied']}; (low, high, epoch,"
+          f" epoch state, applied seq) by worker {app['stall']}")
+    # The stopped worker's second incarnation may hash nothing after its
+    # install: its flushes are checked through its first.
+    app_totals = check_workers("17", app["evidence"], app["exit_codes"],
+                               nodes=range(port_bench.APP_NODES - 1))
+    for n, e in sorted(app["evidence"].items()):
+        check(e["device_digests"] > 0 and e["host_digests"] == 0,
+              f"app: node {n} digests device {e['device_digests']} host "
+              f"{e['host_digests']}")
+    check(all(codes == [0] * len(codes) for codes in app["exit_codes"].values()),
+          f"app: exit codes {app['exit_codes']}")
+    app_launches = {"sha256_digest": app_totals["launches_sha256"]}
     check(app["host_digests"] == 0 and app["device_digests"] > 0
           and app_launches["sha256_digest"] == app["hash_launches"],
           f"app: digests device {app['device_digests']} host "
           f"{app['host_digests']} in {app['hash_launches']} launches, the "
-          f"wrapper counted {app_launches}")
+          f"wrappers counted {app_launches}")
     engine = lag["engine"]
-    check(lag["caught_up"] and engine["snapshots_installed"] >= 1,
-          f"app: the lagging replica did not catch up: {lag}")
+    check(lag["caught_up"] and engine.get("snapshots_installed", 0) >= 1,
+          f"app: the restarted replica did not catch up: {lag}")
     check(engine["chunks_rejected_corrupt"] == 0
           and engine["chunks_rejected_oversized"] == 0,
-          f"app: the lagging replica rejected chunks: {engine}")
-    check(lag["snapshot_equal"], "app: the lagging replica's KvStore differs")
-    check(lag["reads_ok"], f"app: committed reads from the lagging replica: "
+          f"app: the restarted replica rejected chunks: {engine}")
+    check(lag["snapshot_equal"], "app: the restarted replica's KvStore differs")
+    check(lag["reads_ok"], f"app: committed reads from the restarted replica: "
           f"{lag['reads'][:4]}")
     idle = 100 * (1 - app["kernel_ms"] / 1e3 / app["wall_s"])
     print(
@@ -1408,28 +1455,35 @@ def service_phases(t0: float) -> dict:
         f"{app['linearizable']}"
     )
     print(
-        f"  app lagging replica {lag['node']}: {lag['frames_held']} frames "
-        f"held for {lag['hold_s']:.3f} s while {lag['writes']} writes moved "
-        f"the others' low watermarks from {lag['low_watermark_before']} to "
+        f"  app restarted replica {lag['node']}: down {lag['down_s']:.3f} s "
+        f"while {lag['writes']} keys were written and the others' low "
+        f"watermarks moved from {lag['low_watermark_before']} to "
         f"{min(lag['others_low_watermarks'])} (target "
-        f"{lag['target_low_watermark']}); transfer {lag['transfer_bytes']} "
-        f"bytes in {lag['transfer_chunks']} chunks, release to install "
-        f"{lag['transfer_s']:.3f} s; engine {engine}; {len(lag['reads'])} "
-        f"committed reads from it == the writes"
+        f"{lag['target_low_watermark']}), {lag['seqs_missed']} seqs missed; "
+        f"boot {lag['boot_s']:.3f} s, restart to install "
+        f"{lag['transfer_s']:.3f} s, to one KvStore digest "
+        f"{lag['caught_up_s']:.3f} s; transfer {lag['transfer_bytes']} "
+        f"bytes in {lag['transfer_chunks']} chunks; engine {engine}; "
+        f"{len(lag['reads'])} committed reads from it == the writes"
     )
     print(
-        f"phase 17 ok: the KV service, {port_bench.APP_NODES} nodes, "
-        f"{port_bench.APP_SESSIONS} sessions x "
-        f"{port_bench.APP_OPS_PER_SESSION} ops, 0 timed out, reads "
-        f"linearizable, every replica's KvStore the same "
-        f"{app['snapshot_bytes']} bytes; the lagging replica installed "
+        f"phase 17 ok: the KV service on {port_bench.APP_NODES} workers "
+        f"({CLUSTER_PROCESSOR}, app kv, not proxied), "
+        f"{port_bench.APP_SESSIONS} KvClient sessions x "
+        f"{port_bench.APP_OPS_PER_SESSION} ops over the service sockets, 0 "
+        f"timed out, reads linearizable, one KvStore digest "
+        f"({next(iter(app['store_digests'].values()))[:16]}...) on every "
+        f"worker; node "
+        f"{lag['node']} stopped and restarted from its disk installed "
         f"{engine['snapshots_installed']} snapshot(s), 0 chunks rejected, "
-        f"caught up byte for byte and served committed reads; digests device"
-        f" {app['device_digests']} host {app['host_digests']} in "
-        f"{app['hash_launches']} launches, {app['kernel_ms']:.6f} ms of "
-        f"kernel spans (CUDA events around each launch) over "
-        f"{app['wall_s']:.3f} s: the card idle at least {idle:.4f}%; "
-        f"launches {app_launches} (done at {time.perf_counter() - t0:.1f} s)"
+        f"equal KvStore bytes, committed reads == the writes; every worker "
+        f"exited 0, no log fault; digests device {app['device_digests']} "
+        f"host {app['host_digests']} in {app['hash_launches']} launches, "
+        f"{app['kernel_ms']:.6f} ms of kernel spans (CUDA events around each"
+        f" launch) over {app['wall_s']:.3f} s: the card idle at least "
+        f"{idle:.4f}%; wrapper launches {app_launches}; the rung "
+        f"{app_wall:.3f} s, the phase {time.perf_counter() - start:.3f} s "
+        f"(done at {time.perf_counter() - t0:.1f} s)"
     )
     return dict(ingress_launches=ing_launches, app_launches=app_launches,
                 ingress_err=ing_err, replayed=sorted(replayed))
@@ -1711,8 +1765,8 @@ def obsv_phases(t0: float) -> dict:
         print(f"  ingress traced, the p95 and above: "
               f"{[(b['band'], b['count'], round(b['total_us_mean']), b['dominant_phase'], b['dominant_node']) for b in tail]}; "
               f"the nodes' epochs after it {ing['steps'][0]['epochs']}")
-        print(f"phase 18c ok: one 50 req/s step of phase 16's configuration "
-              f"traced: {step.committed} committed, p50 {step.p50_ms:.3f} ms "
+        print(f"phase 18c ok: one 50 req/s step of phase 16's traffic on "
+              f"in-process nodes traced: {step.committed} committed, p50 {step.p50_ms:.3f} ms "
               f"p95 {step.p95_ms:.3f} ms; ledger {len(ing_ledger)} rows of "
               f"{len(step.records)} commits joined to the 4 nodes' "
               f"milestones; launches {ing_launches} "
@@ -2012,6 +2066,28 @@ CLUSTER_PROCESSOR = "cuda-pipelined"
 CLUSTER_REQS = 40  # 22a: requests a stage, each submitted to every node
 CLUSTER_COMMIT_S = 90.0  # 22a: a stage's commits on every live node
 CLUSTER_CHAOS_S = 600  # 22d: the chaos CLI's three scenarios
+# Phase 22d's CLI, once started (start_cluster_chaos).
+_CLUSTER_CHAOS: dict = {}
+
+
+def start_cluster_chaos() -> dict:
+    """Start phase 22d, ``python -m mirbft_tpu_torch.chaos --live --cluster
+    mp --smoke``, in the background, in a temp dir of its own.  The whole
+    script starts it beside phase 15, whose rung keeps one core busy for
+    80-120 s while the CLI mostly waits on its workers' boots;
+    ``cluster_phases`` collects and checks it."""
+    import os
+    import tempfile
+
+    scratch = tempfile.TemporaryDirectory()
+    handle = start_module(
+        ["mirbft_tpu_torch.chaos", "--live", "--cluster", "mp", "--smoke",
+         "--processor", CLUSTER_PROCESSOR, "--json"],
+        dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent)),
+        cwd=scratch.name,
+    )
+    handle["scratch"] = scratch
+    return handle
 CLUSTER_KERNELS = ("launches_sha256", "launches_ed25519_decompress",
                    "launches_ed25519_ladder")
 
@@ -2080,6 +2156,7 @@ def cluster_phases(t0: float) -> dict:
     from mirbft_tpu_torch.cluster.worker import read_json
 
     launches = dict.fromkeys(CLUSTER_KERNELS, 0)
+    phase_start = time.perf_counter()
 
     def add(counts):
         for key in CLUSTER_KERNELS:
@@ -2180,21 +2257,14 @@ def cluster_phases(t0: float) -> dict:
           f"({time.perf_counter() - start:.1f} s, done at "
           f"{time.perf_counter() - t0:.1f} s)")
 
-    def gate_mp(label, out, signed=False):
+    def gate_mp(label, out):
         check(len(set(out["chains"])) == 1 and "" not in out["chains"],
               f"{label}: chains {out['chains']}")
         check(not out["duplicates"],
               f"{label}: committed twice: {out['duplicates'][:5]}")
         check(not out["missing"],
               f"{label}: never committed: {out['missing'][:5]}")
-        counts = check_workers(label, out["evidence"], out["exit_codes"],
-                               signed=signed)
-        if signed:
-            for node, e in out["evidence"].items():
-                check(e.get("ingress_evicted", 0) >= out["forged_to"][node],
-                      f"{label}: node {node} evicted "
-                      f"{e.get('ingress_evicted')} of "
-                      f"{out['forged_to'][node]} forgeries")
+        counts = check_workers(label, out["evidence"], out["exit_codes"])
         add(counts)
         return counts
 
@@ -2212,37 +2282,17 @@ def cluster_phases(t0: float) -> dict:
           f"({time.perf_counter() - start:.1f} s, done at "
           f"{time.perf_counter() - t0:.1f} s)")
 
-    # -- phase 22c: signed ingress on workers ---------------------------------
-    start = time.perf_counter()
-    out = port_bench.live_mp_run(CLUSTER_PROCESSOR, device="cuda",
-                                 rates=(50.0,), signed=True)
-    counts = gate_mp("22c", out, signed=True)
-    ingress = {n: (e.get("ingress_batches"), e.get("ingress_delivered"),
-                   e.get("ingress_evicted"))
-               for n, e in out["evidence"].items()}
-    print(f"phase 22c ok: signed ingress on {port_bench.LIVE_MP_NODES} "
-          f"workers: {describe_steps(out['steps'])}; every honest request "
-          f"({out['submitted']}) committed once, one chain; forgeries sent "
-          f"{out['forged_to']}, ingress (batches, delivered, evicted) "
-          f"{ingress}, 0 verify errors; flushes signature/ingress "
-          f"{[e['flushes'].get('signature/ingress') for e in out['evidence'].values()]}"
-          f"; wrapper launches {counts} ({time.perf_counter() - start:.1f} "
-          f"s, done at {time.perf_counter() - t0:.1f} s)")
-
     # -- phase 22d: the chaos CLI on worker processes --------------------------
+    # Started beside phase 15 when the whole script runs (start_cluster_chaos).
     start = time.perf_counter()
-    argv = [sys.executable, "-m", "mirbft_tpu_torch.chaos", "--live",
-            "--cluster", "mp", "--smoke", "--processor", CLUSTER_PROCESSOR,
-            "--json"]
-    with tempfile.TemporaryDirectory() as scratch:
-        proc = subprocess.run(argv, capture_output=True, text=True,
-                              timeout=CLUSTER_CHAOS_S, cwd=scratch,
-                              env=dict(os.environ, PYTHONPATH=str(
-                                  Path(__file__).resolve().parent)))
-    check(proc.returncode == 0,
-          f"22d: chaos --cluster mp exited {proc.returncode}:\n"
-          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    campaign = json.loads(proc.stdout)
+    chaos_run = _CLUSTER_CHAOS.pop("run", None) or start_cluster_chaos()
+    started = chaos_run["start"] - t0
+    rc, stdout, stderr = finish_module(chaos_run, CLUSTER_CHAOS_S)
+    chaos_run["scratch"].cleanup()
+    check(rc == 0,
+          f"22d: chaos --cluster mp exited {rc}:\n"
+          f"{stdout[-3000:]}\n{stderr[-3000:]}")
+    campaign = json.loads(stdout)
     names = []
     for r in campaign["scenarios"]:
         c = r["counters"]
@@ -2265,8 +2315,9 @@ def cluster_phases(t0: float) -> dict:
     check(sorted(names) == ["crash-restart", "partition-minority",
                             "retry-storm-dedup"], f"22d: ran {names}")
     print(f"phase 22d ok: python -m mirbft_tpu_torch.chaos --live --cluster "
-          f"mp --smoke --processor {CLUSTER_PROCESSOR} exited 0 "
-          f"({time.perf_counter() - start:.1f} s, done at "
+          f"mp --smoke --processor {CLUSTER_PROCESSOR} exited 0 (started at "
+          f"{started:.1f} s, waited "
+          f"{time.perf_counter() - start:.1f} s for it here, done at "
           f"{time.perf_counter() - t0:.1f} s)")
 
     # -- phase 22e: the reconfiguration A/B -----------------------------------
@@ -2289,6 +2340,9 @@ def cluster_phases(t0: float) -> dict:
           f"boot {out['boot_seconds']} s; exit codes {out['exit_codes']}; "
           f"wrapper launches {counts} ({time.perf_counter() - start:.1f} s, "
           f"done at {time.perf_counter() - t0:.1f} s)")
+    launches["wall_s"] = time.perf_counter() - phase_start
+    print(f"phase 22 ok: 22a, 22b, 22d, 22e in {launches['wall_s']:.3f} s "
+          f"(done at {time.perf_counter() - t0:.1f} s)")
     return launches
 
 
@@ -2548,34 +2602,65 @@ BENCH_ENV = {"BENCH_BUDGET_S": "40", "BENCH_SOAK_S": "0"}  # phase 24
 BENCH_TIMEOUT_S = 300  # phase 24's bench: budget, watchdog grace, margin
 
 
-def run_module(argv: list, env: dict, timeout_s: float) -> tuple:
-    """``python -m ...`` from the checkout's root in a session of its own;
-    when it exits, whatever it left running (a timed-out stage's node
-    processes) is killed.  Its output goes to files, so waiting for it
-    does not wait for children that hold its pipes.  (rc, stdout,
-    stderr)."""
-    import os
-    import signal
+def start_module(argv: list, env: dict, cwd=None) -> dict:
+    """Start ``python -m ...`` (from the checkout's root, or ``cwd``) in a
+    session of its own, its output to files, so waiting for it does not
+    wait for children that hold its pipes.  If this script ends before
+    ``finish_module`` (a phase failed), ``atexit`` kills the session."""
+    import atexit
     import tempfile
 
-    with tempfile.TemporaryFile("w+") as out, \
-            tempfile.TemporaryFile("w+") as err:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", *argv],
-            cwd=Path(__file__).resolve().parent, env=env, stdout=out,
-            stderr=err, text=True, start_new_session=True,
-        )
-        try:
-            proc.wait(timeout=timeout_s)
-        finally:
-            try:
-                os.killpg(proc.pid, signal.SIGKILL)
-            except ProcessLookupError:
-                pass
-            proc.wait()
-        out.seek(0)
-        err.seek(0)
+    out = tempfile.TemporaryFile("w+")
+    err = tempfile.TemporaryFile("w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", *argv],
+        cwd=cwd or Path(__file__).resolve().parent, env=env, stdout=out,
+        stderr=err, text=True, start_new_session=True,
+    )
+    handle = {"proc": proc, "out": out, "err": err,
+              "start": time.perf_counter()}
+    handle["kill"] = lambda: _kill_session(proc)
+    atexit.register(handle["kill"])
+    return handle
+
+
+def _kill_session(proc) -> None:
+    import os
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def finish_module(handle: dict, timeout_s: float) -> tuple:
+    """Wait for a ``start_module`` command; when it exits, whatever it
+    left running (a timed-out stage's node processes) is killed.  (rc,
+    stdout, stderr)."""
+    import atexit
+
+    proc = handle["proc"]
+    try:
+        proc.wait(timeout=timeout_s)
+    finally:
+        handle["kill"]()
+        atexit.unregister(handle["kill"])
+    out, err = handle["out"], handle["err"]
+    out.seek(0)
+    err.seek(0)
+    try:
         return proc.returncode, out.read(), err.read()
+    finally:
+        out.close()
+        err.close()
+
+
+def run_module(argv: list, env: dict, timeout_s: float) -> tuple:
+    """``python -m ...`` from the checkout's root, waited for
+    (``start_module``, ``finish_module``).  (rc, stdout, stderr)."""
+    return finish_module(start_module(argv, env), timeout_s)
 
 
 def bench_phase(t0: float) -> dict:
@@ -3611,7 +3696,6 @@ def main() -> int:
             "launches_ingress_traced": observed["ingress"][name],
             "launches_chaos": chaos["det"][name],
             "launches_chaos_live": chaos["live"][name],
-            "launches_cluster": cluster[f"launches_{name}"],
             "ingress_rows_replayed": service["replayed"],
             "matched_plain": ed_err == 0 and service["ingress_err"] == 0,
             "max_abs_err": max(ed_err, service["ingress_err"]),

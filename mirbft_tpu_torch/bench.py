@@ -37,16 +37,18 @@ measurement protocols:
   device ack plane under one seeded ack storm of 100,000 clients, with the
   divergence oracle's verdict and a cross-plane parity check.
 - ``rung4_run`` (``bench.py:763-841``): rung 4 with BLS certificates.
-- ``ingress_run`` and ``app_run`` (``bench.py:133-180``): the live node as
-  a replicated service on the in-process cluster: signed client ingress
-  on the Ed25519 kernels under the multi-process rung's traffic, and the
-  KV service under the app rung's sessions, with a lagging replica that
-  catches up by state transfer.
+- ``app_run`` (``bench.py:1331-1381``): the KV service under the app
+  rung's sessions through the service sockets of worker processes, then a
+  replica stopped and restarted from its disk that catches up by state
+  transfer; ``ingress_run`` and ``app_inproc_run``: signed client ingress
+  (the multi-process rung's traffic) and the KV rung on the in-process
+  cluster.
 - ``soak_run`` (``bench.py:229-245, 1511-1735``): the resource-leak soak.
 - ``live_mp_run``, ``reconfig_run`` and ``knee_run`` (``bench.py:133-155,
   183-221, 1192-1330, 1384-1510``): the multi-process rungs, one worker
   process a node under ``cluster.ClusterSupervisor`` — the open-loop
-  Poisson steps (signed too, on the Ed25519 kernels in every worker), the
+  Poisson steps (signed too: ``SpeculativeIngress`` on the Ed25519
+  kernels in every worker, each batch journaled, forged twins), the
   add-node reconfiguration A/B, and the capacity knee with its critical
   path; each worker's exit codes and kernel evidence come back with them.
 
@@ -1437,9 +1439,11 @@ def rung4_run(*, device="cuda") -> dict:
 
 # -- the live node as a replicated service ----------------------------------
 #
-# Two rungs on the in-process cluster (loadgen/inproc.py: N real Nodes in
-# one process, direct-call links, in-memory storage, the real
-# TransferEngine), every node on the cuda-pipelined processor.
+# Two rungs, every node on the cuda-pipelined processor: each on worker
+# processes (``live_mp_run(signed=True)``, ``app_run``), and each also on
+# the in-process cluster (loadgen/inproc.py: N real Nodes in one process,
+# direct-call links, in-memory storage, the real TransferEngine;
+# ``ingress_run``, traced in one process, and ``app_inproc_run``).
 #
 # Signed ingress: the JAX package's multi-process rung traffic
 # (bench.py:133-144, 1192-1229): 4 nodes, BatchSize 4, clients 1-3 under
@@ -1465,9 +1469,10 @@ INGRESS_SETTLE_S = 30.0  # every node commits every request, after drain
 # 1331-1381): 8 nodes, 4 closed-loop sessions x 40 ops, read ratio 0.5,
 # kv_client_models, committed reads through the read-index barrier,
 # BatchSize 1, tick 0.25 s, op timeout 20 s, workload seed 7.  Then a
-# lagging replica: its inbound protocol frames are held until the others
-# have garbage-collected APP_LAG_CHECKPOINTS checkpoints past it, and on
-# release it must catch up by state transfer.
+# lagging replica: stopped (on workers) or its inbound protocol frames held
+# (in process) until the others have garbage-collected APP_LAG_CHECKPOINTS
+# checkpoints past it; restarted or released, it must catch up by state
+# transfer.
 APP_NODES = 8
 APP_SESSIONS = 4
 APP_OPS_PER_SESSION = 40
@@ -1537,6 +1542,19 @@ class _IngressFront:
             ))
 
 
+def _register_client_keys(client_ids) -> None:
+    """Register each signing client's public key in this process, as a
+    replica's configuration would hand it (``ingress_rows`` and the host
+    checks read them)."""
+    from .crypto import ed25519_host
+    from .testengine import signing
+
+    for cid in client_ids:
+        signing.register_pk(
+            cid, ed25519_host.public_key(signing.client_seed(cid))
+        )
+
+
 def ingress_rows(items: list) -> list:
     """The rows one ingress batch hands the Ed25519 kernels: the items
     that pass the host's checks (``signing.identified``, then
@@ -1568,15 +1586,11 @@ def ingress_run(*, device="cuda", rates=INGRESS_RATES, trace_dir=None) -> dict:
     records to ``trace_dir/records.json`` — the run directory
     ``python -m mirbft_tpu_torch.obsv --critpath`` reads."""
     from . import loadgen
-    from .crypto import ed25519_host
     from .obsv import hooks
     from .runtime.ingress import SpeculativeIngress
     from .testengine import signing
 
-    for cid in INGRESS_CLIENTS:
-        signing.register_pk(
-            cid, ed25519_host.public_key(signing.client_seed(cid))
-        )
+    _register_client_keys(INGRESS_CLIENTS)
     verify = signing.batch_verifier(device)
     batches: list = []
     batches_lock = threading.Lock()
@@ -1786,11 +1800,13 @@ def _kv_converged(replicas, timeout_s: float) -> bool:
         time.sleep(0.05)
 
 
-def app_run(*, device="cuda", ops_per_session=APP_OPS_PER_SESSION,
-            nodes=APP_NODES, tick_s=APP_TICK_S) -> dict:
-    """The KV rung (see the constants above), then the lagging replica.
-    ``ops_per_session``, ``nodes`` and ``tick_s`` shrink it for the CPU
-    tests.  Returns the workload's step and history, the linearizable-reads
+def app_inproc_run(*, device="cuda", ops_per_session=APP_OPS_PER_SESSION,
+                   nodes=APP_NODES, tick_s=APP_TICK_S) -> dict:
+    """The KV rung (see the constants above) on the in-process cluster
+    (direct calls, in-memory storage), then the lagging replica held in
+    process.  ``app_run`` is the rung on worker processes; this form is
+    kept for the CPU tests.  ``ops_per_session``, ``nodes`` and ``tick_s``
+    shrink it.  Returns the workload's step and history, the linearizable-reads
     evidence (``{"violation": message}`` when the audit fails), whether the replicas converged to one KvStore snapshot, the
     digest counters, and the held replica's catch-up: frames
     held, its engine's counters, the transfer's bytes, chunks and wall,
@@ -1944,6 +1960,7 @@ def _lagging_replica(cluster, sessions, lag_node, interval) -> dict:
     counters = dict(lagger.engine.counters)
     return {
         "node": lag_node,
+        "homes": {cid: s.home for cid, s in sessions.items()},
         "low_watermark_before": low0,
         "target_low_watermark": target,
         "others_low_watermarks": lows,
@@ -1960,6 +1977,332 @@ def _lagging_replica(cluster, sessions, lag_node, interval) -> dict:
         "snapshot_equal": caught_up and lagger.store.snapshot() == (
             others[0].store.snapshot()
         ),
+        "reads": reads,
+        "reads_ok": bool(reads) and all(
+            resp.get("status") == "ok" and resp.get("value") == want
+            for _key, want, resp in reads
+        ),
+    }
+
+
+def _app_states(supervisor) -> dict:
+    """node id -> the KV worker's last ``app.json`` (its commit stream's
+    status and the SHA-256 of its KvStore snapshot), for the live nodes
+    that have published one."""
+    from .cluster.worker import read_json
+
+    out = {}
+    for handle in supervisor.nodes:
+        doc = read_json(os.path.join(handle.dir, "app.json"))
+        if handle.alive and doc is not None:
+            out[handle.node_id] = doc
+    return out
+
+
+def _transfer_states(supervisor) -> dict:
+    """node id -> the worker's last ``transfer.json`` (the engine's
+    status and counters, each install's time)."""
+    from .cluster.worker import read_json
+
+    return {
+        h.node_id: read_json(os.path.join(h.dir, "transfer.json")) or {}
+        for h in supervisor.nodes
+    }
+
+
+def _installs(transfers: dict) -> dict:
+    return {
+        n: int(doc.get("counters", {}).get("snapshots_installed", 0))
+        for n, doc in transfers.items()
+    }
+
+
+def _kv_workers_converged(supervisor, timeout_s: float) -> dict | None:
+    """Wait until every worker of the cluster reports one app chain, one
+    applied index and one KvStore digest, and return the ``app.json``
+    documents that did (None after ``timeout_s``): a write the home node
+    rejected but a peer proposed may still commit after the step, so a
+    second read need not agree.  The index counts the KV ops applied; the
+    applied seq is no common point, since an idle cluster's leaders go on
+    committing empty batches and each worker publishes its seq at its own
+    moment."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        states = _app_states(supervisor)
+        chains = set(supervisor.chains())
+        if (
+            len(states) == len(supervisor.nodes)
+            and len(chains) == 1 and "" not in chains
+            and len({d["applied_index"] for d in states.values()}) == 1
+            and len({d["store_sha256"] for d in states.values()}) == 1
+        ):
+            return states
+        if time.monotonic() > deadline:
+            return None
+        time.sleep(0.1)
+
+
+def _stall_report(supervisor) -> dict:
+    """node id -> (low watermark, high watermark, epoch number, epoch
+    state, applied seq): what a cluster that did not converge shows, read
+    from each worker's ``/status`` and ``app.json``."""
+    states = _app_states(supervisor)
+    out = {}
+    for n in supervisor.node_ids:
+        doc = supervisor.status(n) or {}
+        epoch = doc.get("epoch_tracker") or {}
+        out[n] = (doc.get("low_watermark"), doc.get("high_watermark"),
+                  epoch.get("number"), epoch.get("state"),
+                  states.get(n, {}).get("applied_seq"))
+    return out
+
+
+def _low_watermark(supervisor, node: int, timeout_s: float = 30.0) -> int:
+    """One node's low watermark, read from its ``/status``."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        doc = supervisor.status(node)
+        if doc is not None:
+            return int(doc["low_watermark"])
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"node {node}: no /status in {timeout_s} s")
+        time.sleep(0.1)
+
+
+def _worker_summary(supervisor) -> dict:
+    """What a worker rung reports of its processes once torn down: each
+    worker's exit codes, log faults and kernel evidence, and the digest
+    counters summed over the workers (``kernel_evidence``)."""
+    evidence = supervisor.evidence
+    return {
+        "exit_codes": supervisor.exit_codes(),
+        "log_faults": {n: e["log_faults"] for n, e in evidence.items()},
+        "evidence": evidence,
+        "device_digests": sum(e["device_digests"] for e in evidence.values()),
+        "host_digests": sum(e["host_digests"] for e in evidence.values()),
+        "hash_launches": sum(e["launches"] for e in evidence.values()),
+        "launches_sha256": sum(
+            e["launches_sha256"] for e in evidence.values()),
+        "kernel_ms": sum(e["kernel_ms"] for e in evidence.values()),
+    }
+
+
+def app_run(*, device="cuda", ops_per_session=APP_OPS_PER_SESSION,
+            nodes=APP_NODES, tick_s=APP_TICK_S) -> dict:
+    """The KV rung as the JAX bench runs it (its ``app_run``,
+    bench.py:1331-1381): ``nodes`` worker processes with the KV service on
+    the cuda-pipelined processor (the kernel twin of the JAX
+    ``pipelined``), not proxied, one ``KvClient`` a session over the
+    workers' service sockets, the sessions homed on the first nodes in
+    turn.  Then, on the same cluster, the last node (no session's home) is
+    stopped, the sessions write until every other worker's low watermark
+    sits ``APP_LAG_CHECKPOINTS`` checkpoint intervals past its own, and it
+    restarts from its own disk and must catch up by state transfer.
+    ``ops_per_session``, ``nodes`` and ``tick_s`` shrink it for the CPU
+    tests.
+
+    Returns the workload's step and history, the linearizable-reads
+    evidence (``{"violation": message}`` when the audit fails), whether
+    every worker reached one app chain, applied index and KvStore digest
+    (``converged``; if not, each worker's watermarks, epoch and applied
+    seq as ``stall``), the snapshots each worker installed during the step
+    (``step_installs``), the lagging replica's catch-up (``lag``), and,
+    read once every worker has stopped, each worker's ``exit_codes``,
+    ``log_faults`` and ``boot_seconds`` and the digest counters summed
+    over the workers."""
+    from . import loadgen
+    from .app.service import KvClient
+    from .chaos.invariants import InvariantViolation, check_linearizable_reads
+    from .cluster import ClusterSupervisor
+    from .ops.batching import resolve_device
+    from .runtime.node import standard_initial_network_state
+
+    resolve_device(device)
+    client_ids = list(range(1, APP_SESSIONS + 1))
+    lag_node = nodes - 1
+    start = time.perf_counter()
+    supervisor = ClusterSupervisor(
+        node_count=nodes,
+        client_ids=client_ids,
+        batch_size=APP_BATCH_SIZE,
+        processor="cuda-pipelined",
+        tick_seconds=tick_s,
+        app="kv",
+        device=device,
+    )
+    sessions: dict = {}
+    try:
+        supervisor.start()
+        # Every worker publishes its service port at boot; wait for the
+        # full mesh so session homes spread across the nodes.
+        deadline = time.monotonic() + 30.0
+        addresses = supervisor.app_addresses()
+        while len(addresses) < nodes and time.monotonic() < deadline:
+            time.sleep(0.1)
+            addresses = supervisor.app_addresses()
+        if len(addresses) < nodes:
+            raise RuntimeError(
+                f"{len(addresses)} of {nodes} KV service endpoints published"
+            )
+        homes = sorted(addresses)
+        sessions = {
+            cid: KvClient(addresses, cid, home=homes[i % len(homes)])
+            for i, cid in enumerate(client_ids)
+        }
+        workload = loadgen.KvWorkload(
+            sessions,
+            loadgen.kv_client_models(client_ids, read_ratio=APP_READ_RATIO),
+            seed=APP_SEED,
+        )
+        installs_before = _installs(_transfer_states(supervisor))
+        step = workload.run_step(
+            "app-kv-mixed",
+            ops_per_session=ops_per_session,
+            op_timeout_s=APP_OP_TIMEOUT_S,
+        )
+        try:
+            evidence = check_linearizable_reads(workload.history)
+        except InvariantViolation as err:
+            evidence = {"violation": str(err)}
+        states = _kv_workers_converged(supervisor, APP_CONVERGE_S)
+        converged = states is not None
+        stall = None if converged else _stall_report(supervisor)
+        installs_after = _installs(_transfer_states(supervisor))
+        if states is None:
+            states = _app_states(supervisor)
+        out = {
+            "step": step,
+            "history": workload.history,
+            "linearizable": evidence,
+            "converged": converged,
+            "stall": stall,
+            "store_digests": {
+                n: d["store_sha256"] for n, d in states.items()},
+            "applied": {n: (d["applied_seq"], d["applied_index"])
+                        for n, d in states.items()},
+            "step_installs": {
+                n: installs_after[n] - installs_before[n]
+                for n in installs_after
+            },
+            "homes": {cid: s.home for cid, s in sessions.items()},
+            "workload_wall_s": time.perf_counter() - start,
+        }
+        interval = standard_initial_network_state(
+            nodes, client_ids
+        ).config.checkpoint_interval
+        out["lag"] = _restarted_replica(
+            supervisor, sessions, lag_node, interval
+        )
+        out["wall_s"] = time.perf_counter() - start
+    finally:
+        for session in sessions.values():
+            session.close()
+        supervisor.teardown()
+    out.update(_worker_summary(supervisor))
+    out["boot_seconds"] = {
+        h.node_id: list(h.boot_seconds) for h in supervisor.nodes
+    }
+    return out
+
+
+def _restarted_replica(supervisor, sessions, lag_node, interval) -> dict:
+    """Stop ``lag_node`` (SIGTERM and drain), write through the others
+    until every other worker's low watermark sits ``APP_LAG_CHECKPOINTS``
+    checkpoint intervals past the stopped node's, stop writing, restart it
+    from its own disk, and wait for it to install a snapshot and reach the
+    others' app chain, applied index and KvStore digest.  Then read
+    every written key from it, committed."""
+    from .app.service import KvClient
+    from .cluster.worker import read_json
+
+    timeout_s = APP_LAG_TIMEOUT_S
+    others = [n for n in supervisor.node_ids if n != lag_node]
+    for i, (_cid, session) in enumerate(sorted(sessions.items())):
+        if session.home == lag_node:
+            session.home = others[i % len(others)]
+    low0 = _low_watermark(supervisor, lag_node)
+    supervisor.kill(lag_node, graceful=True)
+    # Its last app.json, written as it stopped.
+    seq0 = (read_json(os.path.join(
+        supervisor.nodes[lag_node].dir, "app.json")) or {}).get("applied_seq")
+    target = low0 + APP_LAG_CHECKPOINTS * interval
+    stop = threading.Event()
+    written: dict = {}
+    written_lock = threading.Lock()
+
+    def writer(cid, session):
+        i = 0
+        while not stop.is_set():
+            key = f"lag-{cid}-{i % 8}"
+            value = b"%d:%d" % (cid, i)
+            resp = session.put(key, value, timeout=APP_OP_TIMEOUT_S)
+            if resp.get("status") == "ok":
+                with written_lock:
+                    written[key] = value
+            i += 1
+
+    threads = [
+        threading.Thread(target=writer, args=(cid, s), daemon=True)
+        for cid, s in sorted(sessions.items())
+    ]
+    down_start = time.perf_counter()
+    for thread in threads:
+        thread.start()
+    deadline = time.monotonic() + timeout_s
+    lows = []
+    while time.monotonic() < deadline:
+        lows = [_low_watermark(supervisor, n) for n in others]
+        if min(lows) >= target:
+            break
+        time.sleep(0.2)
+    stop.set()
+    for thread in threads:
+        thread.join(timeout=APP_OP_TIMEOUT_S + 5)
+    down_s = time.perf_counter() - down_start
+    missed = max(_app_states(supervisor)[n]["applied_seq"] for n in others)
+    restart_unix = time.time()
+    restart_at = time.perf_counter()
+    supervisor.restart(lag_node)
+    addresses = supervisor.app_addresses()
+    for session in sessions.values():
+        session.set_addresses(addresses)
+    states = _kv_workers_converged(supervisor, timeout_s)
+    caught_up = states is not None
+    caught_up_s = time.perf_counter() - restart_at
+    transfer = _transfer_states(supervisor)[lag_node]
+    counters = dict(transfer.get("counters", {}))
+    installs = transfer.get("installs_unix") or []
+    reads = []
+    if caught_up:
+        reader = KvClient(addresses, min(sessions), home=lag_node)
+        try:
+            reader.session_index = max(
+                s.session_index for s in sessions.values())
+            for key, value in sorted(written.items()):
+                resp = reader.get(key, mode="committed",
+                                  timeout=APP_OP_TIMEOUT_S)
+                reads.append((key, value.hex(), resp))
+        finally:
+            reader.close()
+    return {
+        "node": lag_node,
+        "homes": {cid: s.home for cid, s in sessions.items()},
+        "low_watermark_before": low0,
+        "target_low_watermark": target,
+        "others_low_watermarks": lows,
+        "applied_seq_before": seq0,
+        "seqs_missed": None if seq0 is None else missed - seq0,
+        "down_s": down_s,
+        "boot_s": supervisor.nodes[lag_node].boot_seconds[-1],
+        "writes": len(written),
+        "caught_up": caught_up,
+        "caught_up_s": caught_up_s,
+        "transfer_s": installs[0] - restart_unix if installs else None,
+        "transfer_bytes": int(counters.get("chunk_bytes_received", 0)),
+        "transfer_chunks": int(counters.get("chunks_received", 0)),
+        "engine": counters,
+        "snapshot_equal": caught_up and len(
+            {d["store_sha256"] for d in states.values()}) == 1,
         "reads": reads,
         "reads_ok": bool(reads) and all(
             resp.get("status") == "ok" and resp.get("value") == want
@@ -2336,20 +2679,130 @@ def _cluster_outcome(supervisor) -> dict:
     }
 
 
-def _settle(supervisor, want: set, timeout_s: float) -> None:
+def _settle(supervisor, want: set, timeout_s: float,
+            every_node: bool = False) -> None:
     """Wait until every node's app chain is the same and every request in
     ``want`` is committed on some node (the generator stops at the first
-    node's commit), or ``timeout_s`` passes; the caller gates on what it
+    node's commit) or, with ``every_node``, on every node that installed
+    no snapshot, or ``timeout_s`` passes; the caller gates on what it
     reads after."""
     deadline = time.monotonic() + timeout_s
     while time.monotonic() < deadline:
         chains = set(supervisor.chains())
-        committed = {
-            (c, q) for h in supervisor.nodes for c, q, _s in h.commits
+        per_node = {
+            h.node_id: {(c, q) for c, q, _s in h.commits}
+            for h in supervisor.nodes
         }
-        if len(chains) == 1 and "" not in chains and want <= committed:
+        if every_node:
+            installed = _installs(_transfer_states(supervisor))
+            done = all(want <= per_node[n] or installed[n] for n in per_node)
+        else:
+            done = want <= set().union(*per_node.values())
+        if len(chains) == 1 and "" not in chains and done:
             return
         time.sleep(0.1)
+
+
+def _read_batch_journals(directory: str) -> tuple:
+    """The ingress batches one worker's verifier was handed, in order,
+    and its verdicts on each (None where the launch raised), from its
+    ``ingress-batches-<pid>.jsonl`` (every incarnation's): each batch a
+    list of (client_id, req_no, data)."""
+    import glob
+
+    batches, verdicts = [], []
+    for path in sorted(glob.glob(
+            os.path.join(directory, "ingress-batches-*.jsonl"))):
+        with open(path, encoding="utf-8") as fh:
+            for line in fh:
+                if line.strip():
+                    doc = json.loads(line)
+                    batches.append([(cid, req_no, bytes.fromhex(data))
+                                    for cid, req_no, data in doc["items"]])
+                    verdicts.append(doc["verdicts"])
+    return batches, verdicts
+
+
+def _signed_outcome(supervisor, front, want: set) -> dict:
+    """What the signed-ingress gates read off a torn-down worker cluster
+    (its root kept): each worker's journaled ingress batches, its commits
+    by request and their seqs, its snapshots installed with the last
+    one's checkpoint seq_no, its ingress counters, the forged bytes
+    found in its request store, and the Ed25519 wrappers' launches by
+    rows summed over the workers.
+
+    Two counts hold the forged twins: ``forged_admitted``, the forged
+    items the verifiers judged valid (their journaled verdicts), and
+    ``forged_stored``, the forged payloads among every STORE record of
+    each worker's request log, read raw (``storage.logged_stores``), so
+    a forgery that was stored and then committed counts too.  That scan
+    sees the whole run only if no compaction rewrote the log after boot:
+    ``stored`` (node id -> the (client, req_no) of its STORE records)
+    lets the caller check that every request the node committed is
+    there."""
+    from .runtime.storage import logged_stores
+
+    batches, batch_nodes, verdicts = [], [], []
+    for handle in supervisor.nodes:
+        mine, judged = _read_batch_journals(handle.dir)
+        batches.extend(mine)
+        verdicts.extend(judged)
+        batch_nodes.extend([handle.node_id] * len(mine))
+    forged = set(front.forged.values())
+    stores = {
+        h.node_id: logged_stores(os.path.join(h.dir, "reqs"))
+        for h in supervisor.nodes
+    }
+    transfers = _transfer_states(supervisor)
+    evidence = supervisor.evidence
+    launches_by_rows = {}
+    for name in ("ed25519_decompress", "ed25519_ladder"):
+        counts = collections.Counter()
+        for e in evidence.values():
+            counts.update(e[f"launches_{name}_by_rows"])
+        launches_by_rows[name] = counts
+    return {
+        "batches": batches,
+        "batch_nodes": batch_nodes,
+        "verdicts": verdicts,
+        "honest": want,
+        "forged": len(front.forged),
+        "per_node_commits": {
+            h.node_id: collections.Counter(
+                (c, q) for c, q, _s in h.commits)
+            for h in supervisor.nodes
+        },
+        "seq_of": {
+            (c, q): s for h in supervisor.nodes for c, q, s in h.commits
+        },
+        "transfers": {
+            n: (int(doc.get("counters", {}).get("snapshots_installed", 0)),
+                doc.get("target_seq_no"))
+            for n, doc in transfers.items()
+        },
+        "ingress": {
+            n: {
+                key: e.get(f"ingress_{key}", 0)
+                for key in ("admitted", "delivered", "evicted", "batches",
+                            "verify_errors", "dropped_overflow")
+            }
+            for n, e in evidence.items()
+        },
+        "forged_admitted": sum(
+            1 for items, judged in zip(batches, verdicts)
+            for (_c, _q, data), ok in zip(items, judged or ())
+            if ok and data in forged
+        ),
+        "forged_stored": sum(
+            1 for records in stores.values()
+            for _ack, data in records if data in forged
+        ),
+        "stored": {
+            n: {(ack.client_id, ack.req_no) for ack, _data in records}
+            for n, records in stores.items()
+        },
+        "launches_by_rows": launches_by_rows,
+    }
 
 
 def live_mp_run(kind: str = "cuda-pipelined", *, device="cuda",
@@ -2373,7 +2826,12 @@ def live_mp_run(kind: str = "cuda-pipelined", *, device="cuda",
     ``duplicates``, the honest
     requests committed nowhere (``missing``), each worker's
     ``boot_seconds``, ``exit_codes`` and kernel ``evidence``
-    (``ClusterSupervisor.kernel_evidence``)."""
+    (``ClusterSupervisor.kernel_evidence``) and the digest counters
+    summed over the workers.  Signed, the settle waits for every honest
+    request on every node that installed no snapshot, and the result adds
+    ``_signed_outcome``'s keys: the batches every worker's verifier was
+    handed and its verdicts, read back from its journal, and what its
+    request log was handed, read after teardown."""
     from . import loadgen
     from .cluster import ClusterSupervisor
     from .ops.batching import resolve_device
@@ -2382,6 +2840,7 @@ def live_mp_run(kind: str = "cuda-pipelined", *, device="cuda",
     client_ids = list(LIVE_MP_CLIENTS)
     models = loadgen.standard_client_models(client_ids)
     if signed:
+        _register_client_keys(client_ids)
         models = {
             cid: dataclasses.replace(model, signed=True)
             for cid, model in models.items()
@@ -2393,47 +2852,58 @@ def live_mp_run(kind: str = "cuda-pipelined", *, device="cuda",
         processor=kind,
         signed_ingress=signed,
         device=device,
+        keep_root=signed,  # the request stores are read after teardown
     )
+    signed_out = {}
     try:
-        supervisor.start()
-        front = None
-        if signed:
-            front = _IngressFront(
-                supervisor, supervisor.submit, INGRESS_FORGE_EVERY,
-                INGRESS_SEED,
-            )
-        generator = loadgen.LoadGenerator(
-            front or supervisor, models, seed=LIVE_MP_SEED
-        )
-        steps = []
-        for rate in rates:
-            steps.append(
-                generator.run_step(
-                    f"{kind}-poisson-{int(rate)}",
-                    loadgen.PoissonArrivals(rate, seed=int(rate)),
-                    duration_s=step_s,
-                    drain_s=drain_s,
+        try:
+            supervisor.start()
+            front = None
+            if signed:
+                front = _IngressFront(
+                    supervisor, supervisor.submit, INGRESS_FORGE_EVERY,
+                    INGRESS_SEED,
                 )
+            generator = loadgen.LoadGenerator(
+                front or supervisor, models, seed=LIVE_MP_SEED
             )
-        want = generator.submitted()
-        _settle(supervisor, want, LIVE_MP_SETTLE_S)
-        outcome = _cluster_outcome(supervisor)
-        committed = {
-            (c, q) for h in supervisor.nodes for c, q, _s in h.commits
-        }
+            steps = []
+            start = time.perf_counter()
+            for rate in rates:
+                steps.append(
+                    generator.run_step(
+                        f"{kind}-poisson-{int(rate)}",
+                        loadgen.PoissonArrivals(rate, seed=int(rate)),
+                        duration_s=step_s,
+                        drain_s=drain_s,
+                    )
+                )
+            want = generator.submitted()
+            _settle(supervisor, want, LIVE_MP_SETTLE_S, every_node=signed)
+            wall = time.perf_counter() - start
+            outcome = _cluster_outcome(supervisor)
+            committed = {
+                (c, q) for h in supervisor.nodes for c, q, _s in h.commits
+            }
+        finally:
+            supervisor.teardown()
+        if signed:
+            signed_out = _signed_outcome(supervisor, front, want)
     finally:
-        supervisor.teardown()
+        if signed:
+            shutil.rmtree(supervisor.root, ignore_errors=True)
     top = steps[-1]
     return {
         "steps": steps,
+        "wall_s": wall,
         "goodput_per_sec": top.goodput_per_sec,
         "p95_ms": top.p95_ms,
         "submitted": len(want),
         "forged_to": dict(front.forged_to) if signed else {},
         "missing": sorted(want - committed),
         **outcome,
-        "exit_codes": supervisor.exit_codes(),
-        "evidence": supervisor.evidence,
+        **_worker_summary(supervisor),
+        **signed_out,
     }
 
 
@@ -3121,6 +3591,25 @@ def main(device="cuda") -> int:
     return 1 if failed or consistent is False else 0
 
 
+def workers_clean(result: dict, evidence_key: str = "evidence") -> dict:
+    """A worker rung's result, or ``RuntimeError`` naming every worker
+    that exited non-zero or whose log shows a fault: the stage running it
+    then ends ``error`` with that detail, not ``ok``."""
+    faults = [
+        f"node {node} exit codes {codes}"
+        for node, codes in sorted(result["exit_codes"].items())
+        if any(code != 0 for code in codes)
+    ]
+    faults += [
+        f"node {node} log: {e['log_faults'][0]}"
+        for node, e in sorted(result[evidence_key].items())
+        if e["log_faults"]
+    ]
+    if faults:
+        raise RuntimeError("worker fault: " + "; ".join(faults))
+    return result
+
+
 def _run_stages(runner, registry, device, budget_s) -> tuple:
     """The JAX stages in the JAX order; returns (payload, whether the
     ladder's kernel run replayed its host run, None if either is
@@ -3154,18 +3643,20 @@ def _run_stages(runner, registry, device, budget_s) -> tuple:
         attack = dict.fromkeys(("clean_rate", "clean_p95_ms", "flood_rate",
                                 "flood_p95_ms", "flooded"))
     mp_serial = runner.run(
-        "live_mp_serial", lambda: live_mp_run("cuda", device=device)
+        "live_mp_serial",
+        lambda: workers_clean(live_mp_run("cuda", device=device)),
     )
     mp_pipelined = runner.run(
         "live_mp_pipelined",
-        lambda: live_mp_run("cuda-pipelined", device=device),
+        lambda: workers_clean(live_mp_run("cuda-pipelined", device=device)),
     )
     mp_steps = []
     for result in (mp_serial, mp_pipelined):
         if result is not None:
             mp_steps.extend(result["steps"])
     mp_reconfig = runner.run(
-        "live_mp_reconfig", lambda: reconfig_run(device=device)
+        "live_mp_reconfig",
+        lambda: workers_clean(reconfig_run(device=device), "kernels"),
     )
     reconfig_steady = reconfig_during = None
     reconfig_evidence = {}
@@ -3173,7 +3664,7 @@ def _run_stages(runner, registry, device, budget_s) -> tuple:
         reconfig_steady, reconfig_during = mp_reconfig["steps"]
         reconfig_evidence = mp_reconfig["evidence"]
         mp_steps.extend(mp_reconfig["steps"])
-    app = runner.run("app_kv", lambda: app_run(device=device))
+    app = runner.run("app_kv", lambda: workers_clean(app_run(device=device)))
     app_steps = [app["step"]] if app is not None else []
     app_top = app_steps[-1] if app_steps else None
     capacity = runner.run("knee", lambda: knee_run(device=device))
@@ -3334,8 +3825,7 @@ def _run_stages(runner, registry, device, budget_s) -> tuple:
             app_top.write_p99_ms if app_top else None, 2
         ),
         "app_config": (
-            f"{APP_NODES} in-process nodes with the KV service (not worker "
-            "processes: ROADMAP queue 1, item 3), "
+            f"{APP_NODES} worker processes with the KV service, "
             f"{APP_SESSIONS} closed-loop sessions x "
             f"{APP_OPS_PER_SESSION} ops, read_ratio={APP_READ_RATIO}, "
             "uniform + Zipf keys, mixed payload sizes, committed-mode "
@@ -3451,7 +3941,7 @@ def _run_stages(runner, registry, device, budget_s) -> tuple:
     if app_steps:
         payload["loadgen_app"] = loadgen.artifact(
             app_steps,
-            cluster="inproc-app",
+            cluster="mp-app",
             nodes=APP_NODES,
             sessions=APP_SESSIONS,
             read_ratio=APP_READ_RATIO,

@@ -380,6 +380,20 @@ class ClusterSupervisor:
         except (urllib.error.URLError, OSError, ValueError):
             return None
 
+    def status(self, node_id: int) -> dict | None:
+        """One /status read (the node's state machine: watermarks, epoch,
+        buckets); None while the endpoint is unreachable or the node's
+        serializer does not answer in time."""
+        port = self.nodes[node_id].metrics_port
+        if not port:
+            return None
+        url = f"http://127.0.0.1:{port}/status"
+        try:
+            with urllib.request.urlopen(url, timeout=5.0) as resp:
+                return json.loads(resp.read().decode("utf-8"))
+        except (urllib.error.URLError, OSError, ValueError):
+            return None
+
     def _wait_ready(self, handle: _NodeHandle, deadline: float) -> None:
         while True:
             doc = self.healthz(handle.node_id)
@@ -756,8 +770,9 @@ class ClusterSupervisor:
 
     def kernel_evidence(self, node_id: int) -> dict:
         """One node's work on the kernels, read from its directory: the
-        processor's launches and digests and each wrapper's launches
-        summed over every incarnation's ``kernels-<pid>.json``, and the
+        processor's launches and digests and each wrapper's launches (the
+        Ed25519 wrappers' also by rows, as ``{rows: launches}``) summed
+        over every incarnation's ``kernels-<pid>.json``, and the
         crypto counters of the last graceful stop's ``metrics.json``
         (``mirbft_crypto_flush_total`` / ``mirbft_crypto_items_total`` by
         plane and path: ``hash/device``, ``hash/readback``,
@@ -773,6 +788,10 @@ class ClusterSupervisor:
         for key in summed:
             totals[key] = 0
         totals["kernel_ms"] = 0.0
+        by_rows = ("launches_ed25519_decompress_by_rows",
+                   "launches_ed25519_ladder_by_rows")
+        for key in by_rows:
+            totals[key] = {}
         processors = set()
         for path in sorted(glob.glob(os.path.join(handle.dir, "kernels-*.json"))):
             doc = read_json(path)
@@ -783,6 +802,9 @@ class ClusterSupervisor:
             for key in summed:
                 totals[key] += int(doc.get(key, 0))
             totals["kernel_ms"] += float(doc.get("kernel_ms", 0.0))
+            for key in by_rows:
+                for rows, n in (doc.get(key) or {}).items():
+                    totals[key][int(rows)] = totals[key].get(int(rows), 0) + n
             for key, value in (doc.get("ingress") or {}).items():
                 if key != "last_error":
                     name = f"ingress_{key}"

@@ -14,7 +14,10 @@ nonzero at boot; it never carries on on the host.  The processor is the
 spec's ``processor`` kind, the port's ``cuda`` by default: every digest of
 an Actions batch in one launch of the SHA-256 kernel.  With
 ``signed_ingress`` the client requests pass the Ed25519 kernels
-(``signing.batch_verifier(device)``) before they reach ``node.propose``.
+(``signing.batch_verifier(device)``) before they reach ``node.propose``,
+and every batch the verifier is handed is journaled with its verdicts
+(``_BatchJournal``), so a caller can replay each launch, count the
+launches a batch should have made and see that no forgery was admitted.
 
 Boot is a two-phase handshake over the shared filesystem (every process
 runs on one host — the multi-*process* cluster is about real OS-level
@@ -43,7 +46,11 @@ behind (staging the verified blob under the node dir, so SIGKILL
 mid-transfer resumes without the network after restart).  Workers still
 append every checkpoint they compute to ``checkpoints.jsonl`` — the
 supervisor's progress monitor reads it — and periodically publish the
-engine's counters to ``transfer.json`` for the chaos audits.
+engine's counters to ``transfer.json`` for the chaos audits, with the
+wall-clock time of every install.  In KV mode ``app.json`` carries the
+commit stream's status and the KvStore's digest (the SHA-256 of its
+snapshot, recomputed only when the applied index moved), so replicas can
+be compared byte for byte from outside.
 Checkpoint records are soft state — rebuilt from consensus on restart —
 so they are flushed but not fsynced.
 
@@ -288,19 +295,25 @@ class Worker:
             failed=self.node.state_transfer_failed,
             chunk_timeout_s=float(spec.get("transfer_chunk_timeout_s", 1.0)),
         )
+        self._installs_unix: list = []
+        self._store_digest = (None, "")  # (applied_index, KvStore digest hex)
         self.transport.set_transfer_sink(self.engine.on_frame)
         # Spec "signed_ingress": client requests carry Ed25519 trailers
         # (loadgen ClientModel signed=True) and are speculatively
         # admitted through the batched verify stage on the Ed25519
         # kernels — survivors reach node.propose, forgeries are evicted.
         self.ingress = None
+        self.batch_journal = None
         if bool(spec.get("signed_ingress", False)):
             from ..runtime.ingress import SpeculativeIngress
             from ..testengine import signing
 
-            self.ingress = SpeculativeIngress(
-                self.node.propose,
+            self.batch_journal = _BatchJournal(
+                os.path.join(self.dir, f"ingress-batches-{os.getpid()}.jsonl"),
                 signing.batch_verifier(self.device),
+            )
+            self.ingress = SpeculativeIngress(
+                self.node.propose, self.batch_journal,
                 name=f"ingress-{self.node_id}",
             )
             self.transport.set_propose_sink(self.ingress.submit)
@@ -486,17 +499,26 @@ class Worker:
         for ack, data in snap.requests:
             self.reqstore.store(ack, data)
         self.reqstore.sync()
+        self._installs_unix.append(time.time())
         return snap.network_state
 
     def kernel_evidence(self) -> dict:
         """This incarnation's work on the kernels: the processor's
         launches and digests, each wrapper's launches in this process,
         and the ingress stage's batches and verify errors."""
+        from ..ops import ed25519
+
         doc = {
             "pid": os.getpid(),
             "device": self.device,
             "processor": self.config.processor,
             **kernel_launches(),
+            "launches_ed25519_decompress_by_rows": dict(
+                ed25519.decompress.launches_by_rows
+            ),
+            "launches_ed25519_ladder_by_rows": dict(
+                ed25519.ladder.launches_by_rows
+            ),
         }
         processor = self.processor
         if processor is not None:
@@ -528,17 +550,30 @@ class Worker:
         this incarnation's kernel evidence."""
         try:
             write_json_atomic(
-                os.path.join(self.dir, "transfer.json"), self.engine.status()
+                os.path.join(self.dir, "transfer.json"),
+                {
+                    **self.engine.status(),
+                    "installs_unix": list(self._installs_unix),
+                },
             )
             write_json_atomic(
                 os.path.join(self.dir, "reconfig.json"),
                 self.node.reconfig_status(),
             )
             if self.app_stream is not None:
+                status = self.app_stream.status()
+                # The store changes only when an apply or an install moves
+                # the applied index: hash it again only then.
+                if self._store_digest[0] != status["applied_index"]:
+                    self._store_digest = (
+                        status["applied_index"], self.kv_store.digest().hex()
+                    )
                 write_json_atomic(
                     os.path.join(self.dir, "app.json"),
-                    self.app_stream.status(),
+                    {**status, "store_sha256": self._store_digest[1]},
                 )
+            if self.batch_journal is not None:
+                self.batch_journal.flush()
             write_json_atomic(
                 os.path.join(self.dir, f"kernels-{os.getpid()}.json"),
                 self.kernel_evidence(),
@@ -644,6 +679,8 @@ class Worker:
                 )
                 fault = fault or EXIT_VERIFY_FAULT
         self._publish_transfer_status()
+        if self.batch_journal is not None:
+            self.batch_journal.close()
         self.transport.close(0.5)
         self.node.stop()
         self._checkpoint_file.close()
@@ -670,6 +707,51 @@ class Worker:
         hooks.disable()
         sys.stderr.flush()
         return fault
+
+
+class _BatchJournal:
+    """The signed-ingress verifier, journaled: ``verify`` wrapped so that
+    every batch it is handed is kept as one JSON line,
+    ``{"items": [[client_id, req_no, data hex], ...], "verdicts": [...]}``
+    (``verdicts`` null when the launch raised).  The lines wait in memory
+    and reach ``path`` at ``flush`` (the worker's 0.5 s status publish and
+    its shutdown), so the verify thread makes no write of its own; a
+    SIGKILL loses at most the last 0.5 s.  The file grows by every
+    payload the node is sent, hex-encoded, for as long as the worker
+    runs, and goes with the node's directory."""
+
+    def __init__(self, path: str, verify):
+        self._verify = verify
+        self._file = open(path, "a", encoding="utf-8")
+        self._lines: list = []  # guarded-by: _lock
+        self._lock = threading.Lock()
+
+    def __call__(self, items: list) -> list:
+        verdicts = None
+        try:
+            verdicts = self._verify(items)
+            return verdicts
+        finally:
+            line = json.dumps({
+                "items": [[cid, req_no, data.hex()]
+                          for cid, req_no, data in items],
+                "verdicts": (None if verdicts is None
+                             else [bool(v) for v in verdicts]),
+            })
+            with self._lock:
+                self._lines.append(line)
+
+    def flush(self) -> None:
+        with self._lock:
+            lines, self._lines = self._lines, []
+            if lines and not self._file.closed:
+                self._file.write("".join(line + "\n" for line in lines))
+                self._file.flush()
+
+    def close(self) -> None:
+        self.flush()
+        with self._lock:
+            self._file.close()
 
 
 def run_worker(spec_path: str) -> int:

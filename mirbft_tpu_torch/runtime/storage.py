@@ -397,6 +397,43 @@ _COMPACT_MIN_BYTES = 4 * 1024 * 1024
 _COMPACT_DEAD_RATIO = 4
 
 
+def _log_records(log_path: str):
+    """(op, ack, payload, record bytes) of each whole record of a request
+    log, in the order written; stops at a torn or undecodable tail."""
+    try:
+        with open(log_path, "rb") as f:
+            data = f.read()
+    except FileNotFoundError:
+        return
+    pos = 0
+    while pos + _REQ_HEADER.size <= len(data):
+        op, ack_len, data_len = _REQ_HEADER.unpack_from(data, pos)
+        pos += _REQ_HEADER.size
+        if pos + ack_len + data_len > len(data):
+            return  # torn tail
+        try:
+            ack = pb.decode(pb.RequestAck, data[pos : pos + ack_len])
+        except ValueError:
+            return
+        payload = data[pos + ack_len : pos + ack_len + data_len]
+        pos += ack_len + data_len
+        yield op, ack, payload, _REQ_HEADER.size + ack_len + data_len
+
+
+def logged_stores(path: str) -> list:
+    """Every (ack, data) STORE record in the request log of the store
+    at ``path``, committed or not, read without replay or compaction
+    (opening a ``FileRequestStore`` drops the committed ones): what the
+    store was handed since its log was last compacted, at its open or
+    live past ``_COMPACT_MIN_BYTES``."""
+    return [
+        (ack, payload)
+        for op, ack, payload, _size in _log_records(
+            os.path.join(path, "requests.log"))
+        if op == _OP_STORE
+    ]
+
+
 class FileRequestStore:
     """store/get/commit/sync + uncommitted replay.
 
@@ -442,29 +479,9 @@ class FileRequestStore:
         )
 
     def _replay(self) -> None:  # holds: _lock
-        try:
-            with open(self._log_path, "rb") as f:
-                data = f.read()
-        except FileNotFoundError:
-            return
-        pos = 0
-        while pos + _REQ_HEADER.size <= len(data):
-            op, ack_len, data_len = _REQ_HEADER.unpack_from(data, pos)
-            pos += _REQ_HEADER.size
-            if pos + ack_len + data_len > len(data):
-                break  # torn tail
-            try:
-                ack = pb.decode(pb.RequestAck, data[pos : pos + ack_len])
-            except ValueError:
-                break
-            payload = data[pos + ack_len : pos + ack_len + data_len]
-            pos += ack_len + data_len
+        for op, ack, payload, size in _log_records(self._log_path):
             if op == _OP_STORE:
-                self._index[self._key(ack)] = (
-                    ack,
-                    payload,
-                    _REQ_HEADER.size + ack_len + data_len,
-                )
+                self._index[self._key(ack)] = (ack, payload, size)
             elif op == _OP_COMMIT:
                 self._index.pop(self._key(ack), None)
 

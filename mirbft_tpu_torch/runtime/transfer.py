@@ -244,6 +244,7 @@ _COUNTER_KEYS = (
     "snapshots_failed",
     "chunks_served",
     "chunks_received",
+    "chunk_bytes_received",
     "chunks_rejected_corrupt",
     "chunks_rejected_oversized",
     "chunks_stale",
@@ -492,6 +493,7 @@ class TransferEngine:
             self._total = total
             self._deadline = self.clock() + self.chunk_timeout_s
             self.counters["chunks_received"] += 1
+            self.counters["chunk_bytes_received"] += len(payload)
             _counter("mirbft_transfer_chunks_total", outcome="received")
             if len(self._chunks) == total:
                 self._phase = "ready"

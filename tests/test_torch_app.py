@@ -14,7 +14,7 @@ one seeded op stream through the port's and the JAX package's KvStore
 (every apply result, every snapshot and digest byte for byte), the
 state-blob codec and the app-state files, and the slice as a whole: one
 seeded session through the port's cluster answered as the JAX KvStore
-answers, ending at its snapshot bytes on every replica; and bench.app_run
+answers, ending at its snapshot bytes on every replica; and bench.app_inproc_run
 with its lagging replica caught up by state transfer.  Every comparison
 is exact.
 
@@ -957,15 +957,15 @@ def test_kv_cluster_answers_as_the_jax_kvstore_on_one_session():
 
 
 def test_app_rung_lagging_replica_catches_up_by_state_transfer():
-    """bench.app_run at a small size on the CPU: the KV workload, then a
+    """bench.app_inproc_run at a small size on the CPU: the KV workload, then a
     replica whose inbound frames are held until the others are two
     checkpoint intervals past it; on release it installs a snapshot
     through TransferEngine (no chunk rejected), reaches the others'
     KvStore bytes and serves committed reads of every write."""
     from mirbft_tpu_torch import bench
 
-    out = bench.app_run(device="cpu", nodes=4, ops_per_session=6,
-                        tick_s=0.02)
+    out = bench.app_inproc_run(device="cpu", nodes=4, ops_per_session=6,
+                               tick_s=0.02)
     assert out["step"].timed_out == 0
     assert out["converged"]
     assert out["host_digests"] == 0 and out["device_digests"] > 0

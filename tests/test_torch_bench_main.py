@@ -511,6 +511,15 @@ def _step(name, cls=loadgen.StepResult, **extra):
     return step
 
 
+def _clean_workers(n: int) -> dict:
+    """A worker rung's exit codes and evidence where every worker exited
+    0 and logged no fault."""
+    return {
+        "exit_codes": {node: [0] for node in range(n)},
+        "evidence": {node: {"log_faults": []} for node in range(n)},
+    }
+
+
 class Stubs:
     """Every stage function of the port's bench, returning the shapes the
     real ones return; ``calls`` lists the stages that ran."""
@@ -543,13 +552,15 @@ class Stubs:
         })
         stub("live_mp_run", lambda: {
             "steps": [_step("cuda-poisson-25")], "goodput_per_sec": 25.0,
-            "p95_ms": 300.0,
+            "p95_ms": 300.0, **_clean_workers(4),
         })
         stub("reconfig_run", lambda: {
             "steps": [_step("reconfig-steady"), _step("reconfig-add-node")],
             "evidence": {"adoptions": 4, "joined": True},
+            "exit_codes": _clean_workers(5)["exit_codes"],
+            "kernels": _clean_workers(5)["evidence"],
         })
-        stub("app_run", {"step": kv})
+        stub("app_run", lambda: {"step": kv, **_clean_workers(8)})
         stub("knee_run", {"schema": "mirbft-capacity/1",
                           "knee_rate_per_sec": 128.0, "configs": []})
         stub("warm_kernel_shapes", None)
@@ -620,8 +631,8 @@ def test_main_schema_equals_the_jax_mains(bench_env, monkeypatch, capsys):
     assert payload["device"]["retrace_budget"] == bench.BENCH_RETRACE_BUDGET
     assert payload["engine_gauges"]["rung3"] == {"events": 43280,
                                                  "sim_ms": 7000}
-    assert "in-process" in payload["app_config"]
-    assert "queue 1, item 3" in payload["app_config"]
+    assert "8 worker processes" in payload["app_config"]
+    assert payload["loadgen_app"]["meta"]["cluster"] == "mp-app"
     assert "cuda" in payload["live_config"]
     # The capture stops with main.
     assert device._capture_registry is None
@@ -656,6 +667,60 @@ def test_a_stage_error_returns_1(bench_env, monkeypatch, capsys):
     assert payload["stages"]["rung4"]["status"] == "ok"
     assert payload["rung4_engine_events"] == 241543
     assert payload["rung3_engine_events"] is None
+
+
+def _faulty(result: dict, fault: str) -> dict:
+    """``result`` with node 1 exiting 5 or logging a traceback."""
+    out = {key: dict(value) if isinstance(value, dict) else value
+           for key, value in result.items()}
+    evidence = "kernels" if "kernels" in out else "evidence"
+    if fault == "exit":
+        out["exit_codes"][1] = [5]
+    else:
+        out[evidence][1] = {"log_faults": [
+            "Traceback (most recent call last): | RuntimeError: boom"]}
+    return out
+
+
+@pytest.mark.parametrize("fault", ["exit", "log"])
+@pytest.mark.parametrize("stage, fn", [
+    ("live_mp_serial", "live_mp_run"),
+    ("live_mp_pipelined", "live_mp_run"),
+    ("live_mp_reconfig", "reconfig_run"),
+    ("app_kv", "app_run"),
+])
+def test_a_worker_fault_fails_its_stage(bench_env, monkeypatch, capsys,
+                                        stage, fn, fault):
+    """A worker that exits non-zero, or whose log shows a fault, ends its
+    stage ``error`` with the node named, and the bench returns 1; the
+    payload keeps its keys."""
+    Stubs().install(monkeypatch)
+    clean = getattr(bench, fn)
+    # live_mp_run runs twice: the serial stage's call, then the pipelined.
+    faulty_call = 2 if stage == "live_mp_pipelined" else 1
+    calls = []
+
+    def stage_fn(*args, **kwargs):
+        calls.append(1)
+        result = clean(*args, **kwargs)
+        return _faulty(result, fault) if len(calls) == faulty_call else result
+
+    monkeypatch.setattr(bench, fn, stage_fn)
+    rc, payload = _main(capsys)
+    assert rc == 1
+    _stages, jax_keys = jax_main_schema()
+    # No key added; the app artifact goes with its stage, as in the JAX
+    # main.
+    missing = {"loadgen_app"} if stage == "app_kv" else set()
+    assert set(payload) == jax_keys - missing
+    for name, entry in payload["stages"].items():
+        want = ("error" if name == stage
+                else "skipped" if name == "rung5" else "ok")
+        assert entry["status"] == want, (name, entry)
+    detail = payload["stages"][stage]["detail"]
+    assert "worker fault" in detail and "node 1" in detail
+    assert ("exit codes [5]" if fault == "exit" else "RuntimeError: boom") \
+        in detail
 
 
 def test_a_ladder_mismatch_returns_1(bench_env, monkeypatch, capsys):
