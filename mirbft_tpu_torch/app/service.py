@@ -128,6 +128,19 @@ class KvFrontend:
             self._count_write(msg["op"], "timeout")
             return {"status": "timeout", "frontier": self.stream.applied_index}
         index, result = got
+        if result is not None and "installed_seq" in result:
+            # Applied inside a snapshot this node installed: committed,
+            # its result never computed here.  A put always succeeds; a
+            # delete's or a cas's outcome is not known on this node.
+            outcome = "ok" if msg["op"] == "put" else "committed"
+            self._count_write(msg["op"], outcome)
+            return {
+                "status": outcome,
+                "version": 0,
+                "index": 0,
+                "frontier": self.stream.applied_index,
+                "installed_seq": result["installed_seq"],
+            }
         outcome = (result or {}).get("outcome", "ok")
         self._count_write(msg["op"], outcome)
         return {

@@ -33,6 +33,7 @@ import threading
 import time
 from collections import OrderedDict
 
+from ..core.quorum import bit_is_set
 from ..obsv import hooks
 from ..obsv.bqueue import BoundedQueue
 from ..runtime import storage
@@ -109,6 +110,14 @@ class _Item:
 
 
 _STOP = object()
+
+
+def _committed_at(client, req_no: int) -> bool:
+    """Whether a checkpoint's ``NetworkClient`` state holds ``req_no``
+    committed: below its low watermark, or set in its committed mask."""
+    return req_no < client.low_watermark or bit_is_set(
+        client.committed_mask, req_no - client.low_watermark
+    )
 
 
 class CommitStream(Log):
@@ -194,6 +203,27 @@ class CommitStream(Log):
         self.installs += 1
         self._gauge()
         return True
+
+    def answer_installed(self, network_state, seq_no: int) -> int:
+        """After a snapshot install at ``seq_no``: answer every write
+        waiter whose request the installed checkpoint's client states
+        show committed.  Its op was applied inside the snapshot, so no
+        result for it was ever computed here; the waiter gets
+        ``{"installed_seq": seq_no}`` at index 0 and the frontend answers
+        from its own record of the op.  (The JAX package leaves such a
+        waiter to time out.)  Returns how many it answered."""
+        clients = {c.id: c for c in network_state.clients}
+        answered = []
+        with self._cv:
+            for key in list(self._waiters):
+                client = clients.get(key[0])
+                if client is not None and _committed_at(client, key[1]):
+                    answered.append(self._waiters.pop(key))
+        for waiter in answered:
+            waiter.index = 0
+            waiter.result = {"installed_seq": seq_no}
+            waiter.event.set()
+        return len(answered)
 
     @staticmethod
     def chain_of(app_bytes: bytes) -> bytes | None:

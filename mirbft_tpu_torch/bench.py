@@ -37,12 +37,14 @@ measurement protocols:
   device ack plane under one seeded ack storm of 100,000 clients, with the
   divergence oracle's verdict and a cross-plane parity check.
 - ``rung4_run`` (``bench.py:763-841``): rung 4 with BLS certificates.
+- ``rung5_run`` (``bench.py:844-930``): rung 5, 256 nodes x 1024 clients
+  with a follower crashed and restarted, every digest on the SHA-256
+  kernel.
 - ``app_run`` (``bench.py:1331-1381``): the KV service under the app
   rung's sessions through the service sockets of worker processes, then a
   replica stopped and restarted from its disk that catches up by state
-  transfer; ``ingress_run`` and ``app_inproc_run``: signed client ingress
-  (the multi-process rung's traffic) and the KV rung on the in-process
-  cluster.
+  transfer; ``ingress_run``: signed client ingress (the multi-process
+  rung's traffic) on the in-process cluster.
 - ``soak_run`` (``bench.py:229-245, 1511-1735``): the resource-leak soak.
 - ``live_mp_run``, ``reconfig_run`` and ``knee_run`` (``bench.py:133-155,
   183-221, 1192-1330, 1384-1510``): the multi-process rungs, one worker
@@ -1437,13 +1439,242 @@ def rung4_run(*, device="cuda") -> dict:
     }
 
 
+# BASELINE ladder rung 5 (the JAX package's bench.py:839-930, its recipe):
+# 256 nodes (f = 85) over a WAN of 20 ms link jitter, 1024 clients x 1
+# request, BatchSize 200, 4 rotating leader buckets, checkpoints every 20
+# sequences, and a follower (node 200) crashed after 20,000 engine steps
+# and restarted from its durable state 40,000 steps later.  At this shape
+# both land before the first commit (~275 and ~288 simulated ms); the
+# restarted node then sits at 0 commits until it installs the others'
+# checkpoint at seq 100 by state transfer (PERF.md §5 and §6).
+RUNG5_NODES = 256
+RUNG5_CLIENTS = 1024
+RUNG5_REQS = 1
+RUNG5_BATCH_SIZE = 200
+RUNG5_JITTER_MS = 20
+RUNG5_CRASH_NODE = 200
+RUNG5_CRASH_AFTER = 20_000
+RUNG5_DOWN_FOR = 40_000
+RUNG5_MAX_STEPS = 50_000_000
+
+
+class StageCancelled(Exception):
+    """Raised inside a stage at its next engine event once the stage's
+    budget has run out (``StageRunner.cancel``)."""
+
+
+class Rung5Watch:
+    """Rung 5's interceptor: the crashed node's record and, every
+    ``every`` events, a progress line (a dict) to ``progress``.
+
+    It records each snapshot the node installs (a state transfer
+    delivered to it, at simulated ms) and the simulated ms of the first
+    event after its restart at which its commits had grown.  It reads only
+    what both packages' recorders and state machines share, so the JAX
+    recipe can be watched with it too.  With ``cancel`` (an event) set,
+    the next engine event raises ``StageCancelled``."""
+
+    def __init__(self, crash_node: int, total: int, *, progress=None,
+                 every: int = 50_000, cancel=None):
+        self.rec = None
+        self.crash_node = crash_node
+        self.total = total
+        self.progress = progress
+        self.every = every
+        self.cancel = cancel
+        self.installs: list = []  # [(simulated ms, seq)]
+        self.commits_at_restart = None
+        self.first_commit_ms = None
+        self.started = time.perf_counter()
+
+    def watch(self, rec) -> None:
+        self.rec = rec
+        rec.interceptor = self
+
+    def restarted(self) -> None:
+        self.commits_at_restart = self.rec.committed_at(self.crash_node)
+
+    def __call__(self, node, now, event) -> None:
+        rec = self.rec
+        if self.cancel is not None and self.cancel.is_set():
+            raise StageCancelled(f"stopped at {rec.event_count} events")
+        if (
+            self.first_commit_ms is None
+            and self.commits_at_restart is not None
+            and rec.committed_at(self.crash_node) > self.commits_at_restart
+        ):
+            self.first_commit_ms = now
+        if (
+            node == self.crash_node
+            and type(event.type).__name__ == "EventTransfer"
+            and event.type.c_entry.network_state is not None
+        ):
+            self.installs.append((now, event.type.c_entry.seq_no))
+        if self.progress is not None and rec.event_count % self.every == 0:
+            self.progress(self.line())
+
+    def outcome(self) -> dict:
+        """After the drain: the simulated ms of the crashed node's first
+        commit after its restart, its installs, whether its first commit
+        came from a snapshot or it ordered on from its replayed WAL, and
+        its last committed seq."""
+        rec, node = self.rec, self.crash_node
+        if (
+            self.first_commit_ms is None
+            and rec.committed_at(node) > self.commits_at_restart
+        ):
+            self.first_commit_ms = rec.now  # committed in the last event
+        first = self.installs[0] if self.installs else None
+        return {
+            "first_commit_ms": self.first_commit_ms,
+            "installs": self.installs,
+            "returned_by": (
+                "snapshot"
+                if first is not None
+                and self.first_commit_ms is not None
+                and first[0] <= self.first_commit_ms
+                else "wal-replay"
+            ),
+            "last_seq": rec.node_states[node].last_committed,
+        }
+
+    def line(self) -> dict:
+        """Wall, events, simulated ms; the nodes short of every request;
+        the crashed node's commits, last committed seq, epoch and whether
+        a transfer is in flight; node 0's last seq and checkpoint."""
+        rec, node = self.rec, self.crash_node
+        machine = rec.machines[node]
+        epoch = machine.epoch_tracker.current_epoch
+        zero = rec.node_states[0]
+        return {
+            "wall_s": round(time.perf_counter() - self.started, 3),
+            "events": rec.event_count,
+            "sim_ms": rec.now,
+            "short": sum(
+                rec.committed_at(n) < self.total
+                for n in range(rec.node_count)
+            ),
+            "node": node,
+            "commits": rec.committed_at(node),
+            "last_seq": rec.node_states[node].last_committed,
+            "epoch": None if epoch is None else epoch.number,
+            "transferring": machine.commit_state.transferring,
+            "node0_seq": zero.last_committed,
+            "node0_checkpoint": max(zero.checkpoints, default=0),
+        }
+
+
+def rung5_run(*, device="cuda", hash_plane=None, nodes=RUNG5_NODES,
+              clients=RUNG5_CLIENTS, crash_node=RUNG5_CRASH_NODE,
+              crash_after=RUNG5_CRASH_AFTER, down_for=RUNG5_DOWN_FOR,
+              max_steps=RUNG5_MAX_STEPS, progress=None, every=50_000,
+              cancel=None) -> dict:
+    """BASELINE ladder rung 5 on the kernel hash plane
+    (``AsyncKernelHashPlane(device)``; ``device="cpu"``: its plain
+    version).  ``hash_plane`` replaces it (a sizing run on the CPU may
+    pass a ``CoalescingHashPlane``: the events do not depend on the
+    plane).  The keywords cut the rung for tests; ``progress``,
+    ``every`` and ``cancel`` go to its ``Rung5Watch``.
+
+    Steps the engine ``crash_after`` times, crashes ``crash_node``, steps
+    ``down_for`` more, schedules its restart at once, then drains every
+    request in one ``drain_clients(max_steps)`` call, as the JAX rung
+    does.  Raises ``AssertionError`` unless the nodes hold one chain, every
+    node committed every request and, on the kernel plane, no digest ran
+    on the host.  Returns committed req/s over the run's wall, engine
+    events, simulated ms, the wall, the chain, the commit counts, the
+    hash plane's counters and the crashed node's record (``crash``)."""
+    from . import pb
+    from .ops.batching import resolve_device
+    from .testengine.crypto_plane import AsyncKernelHashPlane
+    from .testengine.engine import BasicRecorder, RuntimeParameters
+
+    device = resolve_device(device)
+    if hash_plane is None:
+        hash_plane = AsyncKernelHashPlane(device=device)
+    total = clients * RUNG5_REQS
+    watch = Rung5Watch(crash_node, total, progress=progress, every=every,
+                       cancel=cancel)
+    start = time.perf_counter()
+    rec = BasicRecorder(
+        nodes,
+        clients,
+        RUNG5_REQS,
+        batch_size=RUNG5_BATCH_SIZE,
+        network_state=pb.NetworkState(
+            config=pb.NetworkConfig(
+                nodes=list(range(nodes)),
+                f=(nodes - 1) // 3,
+                number_of_buckets=4,
+                checkpoint_interval=20,
+                max_epoch_length=200,
+            ),
+            clients=[
+                pb.NetworkClient(id=nodes + i, width=2, low_watermark=0)
+                for i in range(clients)
+            ],
+        ),
+        record=False,
+        hash_plane=hash_plane,
+        params=RuntimeParameters(link_jitter=RUNG5_JITTER_MS),
+    )
+    watch.watch(rec)
+    for _ in range(crash_after):
+        rec.step()
+    crash = {
+        "node": crash_node,
+        "crash_ms": rec.now,
+        "crash_events": rec.event_count,
+        "committed_anywhere_at_crash": sum(
+            len(c.committed_anywhere) for c in rec.clients.values()
+        ),
+    }
+    rec.crash(crash_node)
+    for _ in range(down_for):
+        rec.step()
+    rec.schedule_restart(crash_node, delay=0)
+    crash["restart_ms"] = rec.now
+    crash["restart_events"] = rec.event_count
+    watch.restarted()
+    events = rec.drain_clients(max_steps=max_steps)
+    _sync(device)
+    wall = time.perf_counter() - start
+    chains = {rec.node_states[n].app_chain for n in range(nodes)}
+    if len(chains) != 1:
+        raise AssertionError(f"rung 5: the nodes hold {len(chains)} chains")
+    commits = sorted({rec.committed_at(n) for n in range(nodes)})
+    if commits != [total]:
+        raise AssertionError(
+            f"rung 5: commits {commits}, not {total} at every node"
+        )
+    kernel_plane = isinstance(hash_plane, AsyncKernelHashPlane)
+    if kernel_plane and hash_plane.host_digests:
+        raise AssertionError(
+            f"rung 5: {hash_plane.host_digests} digests ran on the host"
+        )
+    crash.update(watch.outcome())
+    return {
+        "reqs_per_sec": total / wall,
+        "events": events,
+        "sim_ms": rec.now,
+        "wall_s": wall,
+        "chain": chains.pop().hex(),
+        "commits": commits,
+        "device_digests": getattr(hash_plane, "device_digests", 0),
+        "host_digests": hash_plane.host_digests,
+        "hash_launches": getattr(hash_plane, "launches", 0),
+        "kernel_ms": getattr(hash_plane, "kernel_ms", 0.0),
+        "crash": crash,
+    }
+
+
 # -- the live node as a replicated service ----------------------------------
 #
-# Two rungs, every node on the cuda-pipelined processor: each on worker
-# processes (``live_mp_run(signed=True)``, ``app_run``), and each also on
-# the in-process cluster (loadgen/inproc.py: N real Nodes in one process,
-# direct-call links, in-memory storage, the real TransferEngine;
-# ``ingress_run``, traced in one process, and ``app_inproc_run``).
+# Two rungs, every node on the cuda-pipelined processor, each on worker
+# processes (``live_mp_run(signed=True)``, ``app_run``); the signed one
+# also on the in-process cluster (loadgen/inproc.py: N real Nodes in one
+# process, direct-call links, in-memory storage; ``ingress_run``, traced
+# in one process).
 #
 # Signed ingress: the JAX package's multi-process rung traffic
 # (bench.py:133-144, 1192-1229): 4 nodes, BatchSize 4, clients 1-3 under
@@ -1469,10 +1700,9 @@ INGRESS_SETTLE_S = 30.0  # every node commits every request, after drain
 # 1331-1381): 8 nodes, 4 closed-loop sessions x 40 ops, read ratio 0.5,
 # kv_client_models, committed reads through the read-index barrier,
 # BatchSize 1, tick 0.25 s, op timeout 20 s, workload seed 7.  Then a
-# lagging replica: stopped (on workers) or its inbound protocol frames held
-# (in process) until the others have garbage-collected APP_LAG_CHECKPOINTS
-# checkpoints past it; restarted or released, it must catch up by state
-# transfer.
+# lagging replica: stopped until the others have garbage-collected
+# APP_LAG_CHECKPOINTS checkpoints past it; restarted, it must catch up by
+# state transfer.
 APP_NODES = 8
 APP_SESSIONS = 4
 APP_OPS_PER_SESSION = 40
@@ -1783,206 +2013,6 @@ class _HeldInbound:
                     pass  # dropped, as the direct link drops it
             self.holding = False
         return len(held)
-
-
-def _kv_converged(replicas, timeout_s: float) -> bool:
-    """Wait until every replica's commit stream sits at one applied index
-    and every KvStore snapshot is the same bytes."""
-    deadline = time.monotonic() + timeout_s
-    while True:
-        indexes = {r.stream.status()["applied_index"] for r in replicas}
-        if len(indexes) == 1 and len(
-            {r.store.snapshot() for r in replicas}
-        ) == 1:
-            return True
-        if time.monotonic() > deadline:
-            return False
-        time.sleep(0.05)
-
-
-def app_inproc_run(*, device="cuda", ops_per_session=APP_OPS_PER_SESSION,
-                   nodes=APP_NODES, tick_s=APP_TICK_S) -> dict:
-    """The KV rung (see the constants above) on the in-process cluster
-    (direct calls, in-memory storage), then the lagging replica held in
-    process.  ``app_run`` is the rung on worker processes; this form is
-    kept for the CPU tests.  ``ops_per_session``, ``nodes`` and ``tick_s``
-    shrink it.  Returns the workload's step and history, the linearizable-reads
-    evidence (``{"violation": message}`` when the audit fails), whether the replicas converged to one KvStore snapshot, the
-    digest counters, and the held replica's catch-up: frames
-    held, its engine's counters, the transfer's bytes, chunks and wall,
-    whether its snapshot equals the others', and the committed reads
-    served from it against a caught-up replica's values."""
-    from . import loadgen
-    from .chaos.invariants import InvariantViolation, check_linearizable_reads
-    from .runtime.node import standard_initial_network_state
-
-    client_ids = list(range(1, APP_SESSIONS + 1))
-    lag_node = nodes - 1  # no session is homed on it
-    start = time.perf_counter()
-    cluster = loadgen.InProcessCluster(
-        node_count=nodes,
-        client_ids=client_ids,
-        batch_size=APP_BATCH_SIZE,
-        processor="cuda-pipelined",
-        device=device,
-        tick_seconds=tick_s,
-        app="kv",
-    )
-    try:
-        sessions = {
-            cid: cluster.kv_session(cid, home=i % nodes)
-            for i, cid in enumerate(client_ids)
-        }
-        workload = loadgen.KvWorkload(
-            sessions,
-            loadgen.kv_client_models(client_ids, read_ratio=APP_READ_RATIO),
-            seed=APP_SEED,
-        )
-        step = workload.run_step(
-            "app-kv-mixed",
-            ops_per_session=ops_per_session,
-            op_timeout_s=APP_OP_TIMEOUT_S,
-        )
-        try:
-            evidence = check_linearizable_reads(workload.history)
-        except InvariantViolation as err:
-            evidence = {"violation": str(err)}
-        converged = _kv_converged(cluster.replicas, APP_CONVERGE_S)
-        snapshot = cluster.replicas[0].store.snapshot()
-        out = {
-            "step": step,
-            "history": workload.history,
-            "linearizable": evidence,
-            "converged": converged,
-            "snapshot_bytes": len(snapshot),
-            "workload_wall_s": time.perf_counter() - start,
-        }
-        interval = standard_initial_network_state(
-            nodes, client_ids
-        ).config.checkpoint_interval
-        out["lag"] = _lagging_replica(cluster, sessions, lag_node, interval)
-        cluster.check()
-        out["wall_s"] = time.perf_counter() - start
-    finally:
-        cluster.close()
-    # Read once every node has stopped: the wrappers' counts end there too.
-    out.update(_digest_counters(cluster))
-    return out
-
-
-def _lagging_replica(cluster, sessions, lag_node, interval) -> dict:
-    """Hold ``lag_node``'s inbound frames while the sessions write, until
-    every other node's low watermark sits ``APP_LAG_CHECKPOINTS``
-    checkpoint intervals past the held node's; stop writing, release, and
-    wait for the held node to install a snapshot and reach the others'
-    KvStore bytes.  Then read every written key from it, committed."""
-    from .runtime.transfer import decode_frame
-
-    timeout_s = APP_LAG_TIMEOUT_S
-    replicas = cluster.replicas
-    lagger = replicas[lag_node]
-    others = [r for r in replicas if r.node_id != lag_node]
-    low0 = lagger.node.status(timeout=5.0).low_watermark
-    target = low0 + APP_LAG_CHECKPOINTS * interval
-    received = {"bytes": 0, "chunks": 0, "first": None}
-    on_frame = lagger.engine.on_frame
-
-    def counting(sender, body):
-        try:
-            frame = decode_frame(body)
-        except ValueError:
-            frame = ("?",)
-        if frame[0] == "chunk":
-            received["bytes"] += len(frame[5])
-            received["chunks"] += 1
-            if received["first"] is None:
-                received["first"] = time.perf_counter()
-        on_frame(sender, body)
-
-    lagger.engine.on_frame = counting
-    held = _HeldInbound(lagger.node)
-    stop = threading.Event()
-    written: dict = {}
-    written_lock = threading.Lock()
-
-    def writer(cid, session):
-        i = 0
-        while not stop.is_set():
-            key = f"lag-{cid}-{i % 8}"
-            value = b"%d:%d" % (cid, i)
-            resp = session.put(key, value, timeout=APP_OP_TIMEOUT_S)
-            if resp.get("status") == "ok":
-                with written_lock:
-                    written[key] = value
-            i += 1
-
-    threads = [
-        threading.Thread(target=writer, args=(cid, s), daemon=True)
-        for cid, s in sorted(sessions.items())
-    ]
-    hold_start = time.perf_counter()
-    for thread in threads:
-        thread.start()
-    deadline = time.monotonic() + timeout_s
-    lows = []
-    while time.monotonic() < deadline:
-        lows = [r.node.status(timeout=5.0).low_watermark for r in others]
-        if min(lows) >= target:
-            break
-        time.sleep(0.1)
-    stop.set()
-    for thread in threads:
-        thread.join(timeout=APP_OP_TIMEOUT_S + 5)
-    hold_s = time.perf_counter() - hold_start
-    released_at = time.perf_counter()
-    frames = held.release()
-    caught_up = False
-    installed_at = None
-    while time.monotonic() < deadline + timeout_s:
-        if installed_at is None and lagger.engine.counters[
-            "snapshots_installed"
-        ]:
-            installed_at = time.perf_counter()
-        if installed_at is not None and _kv_converged(replicas, 0.0):
-            caught_up = True
-            break
-        time.sleep(0.05)
-    reads = []
-    if caught_up:
-        reader = cluster.kv_session(
-            min(sessions), home=lag_node
-        )
-        reader.session_index = others[0].stream.status()["applied_index"]
-        for key, value in sorted(written.items()):
-            resp = reader.get(key, mode="committed",
-                              timeout=APP_OP_TIMEOUT_S)
-            reads.append((key, value.hex(), resp))
-    counters = dict(lagger.engine.counters)
-    return {
-        "node": lag_node,
-        "homes": {cid: s.home for cid, s in sessions.items()},
-        "low_watermark_before": low0,
-        "target_low_watermark": target,
-        "others_low_watermarks": lows,
-        "frames_held": frames,
-        "hold_s": hold_s,
-        "writes": len(written),
-        "caught_up": caught_up,
-        "transfer_s": (
-            None if installed_at is None else installed_at - released_at
-        ),
-        "transfer_bytes": received["bytes"],
-        "transfer_chunks": received["chunks"],
-        "engine": counters,
-        "snapshot_equal": caught_up and lagger.store.snapshot() == (
-            others[0].store.snapshot()
-        ),
-        "reads": reads,
-        "reads_ok": bool(reads) and all(
-            resp.get("status") == "ok" and resp.get("value") == want
-            for _key, want, resp in reads
-        ),
-    }
 
 
 def _app_states(supervisor) -> dict:
@@ -3222,17 +3252,6 @@ ACKPLANE_KEYS = (
     "dropped_rows", "divergences", "parity_mismatches",
 )
 
-# BASELINE ladder rung 5 (the JAX package's bench.py:839-841), for its
-# config string: the port has not run it yet.
-RUNG5_NODES = 256
-RUNG5_CLIENTS = 1024
-RUNG5_REQS = 1
-RUNG5_DISABLED = (
-    "not ported: ROADMAP queue 1, item 4 (rung 5 in the port's bench, "
-    "after a sizing run)"
-)
-
-
 class BenchStream:
     """Crash-proof stage journal: one fsynced JSON line the moment each
     stage finishes, so a SIGKILL (or the harness's timeout) on the newest
@@ -3316,6 +3335,9 @@ class StageRunner:
         # The stage running now (None between stages): the watchdog names
         # it when join() itself is wedged.
         self.current = None
+        # Set when the running stage overruns its budget; a stage that
+        # polls it stops instead of running on beside the payload.
+        self.cancel = threading.Event()
 
     def remaining(self) -> float:
         return self.deadline - time.monotonic()
@@ -3361,6 +3383,7 @@ class StageRunner:
             except BaseException as exc:  # reported; the bench goes on
                 box["error"] = f"{type(exc).__name__}: {exc}"
 
+        self.cancel = threading.Event()
         thread = threading.Thread(
             target=work, daemon=True, name=f"bench-{name}"
         )
@@ -3380,6 +3403,7 @@ class StageRunner:
             box.get("fn_s", round(time.perf_counter() - start, 3))
         )
         if thread.is_alive():
+            self.cancel.set()
             entry["status"] = "timeout"
             return None
         if "error" in box:
@@ -3722,8 +3746,13 @@ def _run_stages(runner, registry, device, budget_s) -> tuple:
     ackplane = runner.run(
         "ackplane", lambda: ackplane_run(registry, device=device)
     )
-    runner.run("rung5", None, enabled=False, detail=RUNG5_DISABLED)
-    rung5_rate = rung5_events = None
+    r5 = runner.run(
+        "rung5", lambda: rung5_run(device=device, cancel=runner.cancel)
+    )
+    rung5 = r5 if r5 is not None else dict.fromkeys(
+        ("reqs_per_sec", "events", "sim_ms")
+    )
+    _fold_engine(registry, "rung5", rung5["events"], rung5["sim_ms"])
 
     total_reqs = CLIENTS * REQS_PER_CLIENT
     committed_rate = total_reqs / tpu_wall if tpu_wall else None
@@ -3894,14 +3923,14 @@ def _run_stages(runner, registry, device, budget_s) -> tuple:
         "rung4_engine_events": rung4["events"],
         "rung4_bls_certificates": rung4["certificates"],
         "rung4_bls_aggregate_ms": _round(rung4["aggregate_ms"], 2),
-        "rung5_committed_reqs_per_sec": _round(rung5_rate),
+        "rung5_committed_reqs_per_sec": _round(rung5["reqs_per_sec"]),
         "rung5_config": (
             f"{RUNG5_NODES} nodes f={(RUNG5_NODES - 1) // 3}, "
-            f"{RUNG5_CLIENTS} clients, 20ms WAN jitter, follower "
-            "crash + checkpoint-GC + state-transfer recovery; "
-            + RUNG5_DISABLED
+            f"{RUNG5_CLIENTS} clients, {RUNG5_JITTER_MS}ms WAN jitter, "
+            f"follower {RUNG5_CRASH_NODE} crashed and restarted before the "
+            "first commit, back by state transfer"
         ),
-        "rung5_engine_events": rung5_events,
+        "rung5_engine_events": rung5["events"],
         **{
             f"ackplane_{key}": (ackplane or {}).get(key)
             for key in ACKPLANE_KEYS

@@ -494,6 +494,7 @@ class Worker:
                 snap.app_bytes, snap.value, snap.seq_no
             ):
                 return None  # blob does not bind to the certified value
+            self.app_stream.answer_installed(snap.network_state, snap.seq_no)
         else:
             self.app_log.adopt(snap.value, snap.seq_no)
         for ack, data in snap.requests:

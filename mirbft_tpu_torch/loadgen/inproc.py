@@ -379,6 +379,7 @@ class _InProcReplica:
                 snap.app_bytes, snap.value, snap.seq_no
             ):
                 return None
+            self.stream.answer_installed(snap.network_state, snap.seq_no)
         else:
             self.app_log.adopt(snap.value, snap.seq_no)
         for ack, data in snap.requests:

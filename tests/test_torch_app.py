@@ -14,9 +14,9 @@ one seeded op stream through the port's and the JAX package's KvStore
 (every apply result, every snapshot and digest byte for byte), the
 state-blob codec and the app-state files, and the slice as a whole: one
 seeded session through the port's cluster answered as the JAX KvStore
-answers, ending at its snapshot bytes on every replica; and bench.app_inproc_run
-with its lagging replica caught up by state transfer.  Every comparison
-is exact.
+answers, ending at its snapshot bytes on every replica.  Every comparison
+is exact (the KV rung with its restarted replica runs on worker processes:
+tests/test_torch_app_mp.py).
 
 Not mirrored: the KV chaos scenarios on a multi-process cluster
 (tests/test_app.py:751, 768), which need the unported cluster/.
@@ -174,6 +174,92 @@ def _entry(seq, *reqs):
 
 def _data_source(table):
     return lambda ack: table.get((ack.client_id, ack.req_no), b"")
+
+
+def _write_across_an_install(package: str):
+    """A home node's KvFrontend takes client 1's put of k (req_no 0) and,
+    while it waits, the node installs a donor's snapshot at seq 1 whose
+    checkpoint holds that request committed (ROADMAP queue 3, item 16).
+    On the port the worker then calls ``answer_installed`` with the
+    checkpoint's network state; the JAX package has no such step.
+    Returns the frontend's answer (a 1 s op timeout)."""
+    if package == "jax":
+        from mirbft_tpu import pb as mod_pb
+        from mirbft_tpu.app import kvstore as mod_kv
+        from mirbft_tpu.app import service as mod_service
+        from mirbft_tpu.app import stream as mod_stream
+    else:
+        from mirbft_tpu_torch import pb as mod_pb
+        from mirbft_tpu_torch.app import kvstore as mod_kv
+        from mirbft_tpu_torch.app import service as mod_service
+        from mirbft_tpu_torch.app import stream as mod_stream
+    table = {(1, 0): mod_kv.encode_put("k", b"v")}
+    donor = mod_stream.CommitStream(mod_kv.KvStore(),
+                                    data_source=_data_source(table))
+    try:
+        donor.apply(mod_pb.QEntry(seq_no=1, digest=b"d1", requests=[
+            mod_pb.RequestAck(client_id=1, req_no=0)]))
+        value = donor.snap(None, None)
+        blob = donor.snapshot_blob(value)
+    finally:
+        donor.close()
+    state = mod_pb.NetworkState(clients=[
+        mod_pb.NetworkClient(id=1, width=2, low_watermark=1)])
+    store = mod_kv.KvStore()
+    home = mod_stream.CommitStream(store, data_source=_data_source(table))
+    installed = []
+
+    def install():
+        installed.append(home.install(blob, value, 1))
+        if package == "port":
+            home.answer_installed(state, 1)
+
+    def propose(_request):
+        threading.Thread(target=install, daemon=True).start()
+
+    try:
+        return mod_service.KvFrontend(home, store, propose).execute({
+            "op": "put", "key": "k", "value": b"v".hex(), "client_id": 1,
+            "req_no": 0, "want_reply": True, "timeout": 1.0,
+        }), installed, store.get("k")
+    finally:
+        home.close()
+
+
+def test_a_write_inside_an_installed_snapshot_is_answered_on_the_port():
+    """The JAX package's waiter is orphaned: the write committed, yet its
+    client hears a timeout.  The port answers it from the op it holds:
+    a put is ``ok``, at version 0 (not known here; the linearizability
+    audit reads 0 as no version) and the installed frontier."""
+    ref, ref_installed, ref_value = _write_across_an_install("jax")
+    assert ref_installed == [True] and ref_value == (b"v", 1)
+    assert ref["status"] == "timeout"
+    port, installed, value = _write_across_an_install("port")
+    assert installed == [True] and value == (b"v", 1)
+    assert port == {"status": "ok", "version": 0, "index": 0,
+                    "frontier": 1, "installed_seq": 1}
+
+
+def test_answer_installed_reads_the_checkpoints_client_states():
+    """Only waiters whose request the checkpoint holds committed (below
+    the low watermark, or in the committed mask above it) are answered;
+    the rest wait for their commit."""
+    stream = CommitStream(RecordingApp())
+    try:
+        waiters = {key: stream.register_waiter(*key)
+                   for key in [(1, 0), (1, 1), (1, 2), (1, 3), (2, 0)]}
+        # Client 1: req 0 below the low watermark 1, req 2 in the mask
+        # (bit 1 above it), reqs 1 and 3 not committed; client 2 absent.
+        state = pb.NetworkState(clients=[pb.NetworkClient(
+            id=1, width=4, low_watermark=1, committed_mask=b"\x40")])
+        assert stream.answer_installed(state, 40) == 2
+        assert waiters[(1, 0)].wait(0) == (0, {"installed_seq": 40})
+        assert waiters[(1, 2)].wait(0) == (0, {"installed_seq": 40})
+        assert all(waiters[key].wait(0) is None
+                   for key in [(1, 1), (1, 3), (2, 0)])
+        assert stream.status()["waiters"] == 3
+    finally:
+        stream.close()
 
 
 def test_commit_stream_delivers_ordered_exactly_once():
@@ -954,25 +1040,3 @@ def test_kv_cluster_answers_as_the_jax_kvstore_on_one_session():
     assert got == want
     assert {r["status"] for r in want} >= {"ok", "not_found"}
     assert snapshots == {want_snapshot}
-
-
-def test_app_rung_lagging_replica_catches_up_by_state_transfer():
-    """bench.app_inproc_run at a small size on the CPU: the KV workload, then a
-    replica whose inbound frames are held until the others are two
-    checkpoint intervals past it; on release it installs a snapshot
-    through TransferEngine (no chunk rejected), reaches the others'
-    KvStore bytes and serves committed reads of every write."""
-    from mirbft_tpu_torch import bench
-
-    out = bench.app_inproc_run(device="cpu", nodes=4, ops_per_session=6,
-                               tick_s=0.02)
-    assert out["step"].timed_out == 0
-    assert out["converged"]
-    assert out["host_digests"] == 0 and out["device_digests"] > 0
-    lag = out["lag"]
-    assert lag["caught_up"] and lag["snapshot_equal"] and lag["reads_ok"]
-    assert lag["engine"]["snapshots_installed"] >= 1
-    assert lag["engine"]["chunks_rejected_corrupt"] == 0
-    assert lag["transfer_chunks"] >= 1 and lag["transfer_bytes"] > 0
-    assert min(lag["others_low_watermarks"]) >= lag["target_low_watermark"]
-    assert len(lag["reads"]) == lag["writes"] > 0

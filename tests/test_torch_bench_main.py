@@ -10,7 +10,8 @@ packages' ``obsv/device.py`` and compared.  Then ``main(device="cpu")``
 with every stage function replaced by a stub: its stage names and payload
 keys equal the JAX ``main``'s (read from its source, as
 ``tests/test_bench.py:114`` reads it), every value is present but the keys
-null by design, a stage's error returns 1 and a budget timeout 0, and on
+null by design, a stage's error returns 1 and a budget timeout 0 (rung 5's
+too, with its keys null and the stage told to stop), and on
 ``cuda`` without a card ``main`` prints one JSON line naming the missing
 card and runs no stage.  Tolerance: exact; the wall-clock fields are held
 to the original cases' bounds.
@@ -493,15 +494,15 @@ def jax_main_schema() -> tuple:
 
 
 #: Null in every port payload: no XLA route, no offload calibration (no
-#: host route to calibrate against), rung 5 not run (ROADMAP queue 1,
-#: item 4).
+#: host route to calibrate against).
 NULL_BY_DESIGN = {
     "kernel_compressions_per_sec_xla",
     "crypto_plane_device_rtt_ms",
     "crypto_plane_min_device_rows",
-    "rung5_committed_reqs_per_sec",
-    "rung5_engine_events",
 }
+
+#: The rung-5 keys, null when its stage does not finish.
+RUNG5_KEYS = {"rung5_committed_reqs_per_sec", "rung5_engine_events"}
 
 
 def _step(name, cls=loadgen.StepResult, **extra):
@@ -585,6 +586,9 @@ class Stubs:
             "reqs_per_sec": 6.8, "events": 241543, "certificates": 1,
             "aggregate_ms": 1.5, "sim_ms": 5077,
         })
+        stub("rung5_run", {
+            "reqs_per_sec": 0.9, "events": 5442215, "sim_ms": 40901,
+        })
         stub("ackplane_run", lambda: {
             **{key: 1 for key in bench.ACKPLANE_KEYS},
             "frame": 12500, "step_launches": 24, "sweep_launches": 1,
@@ -619,9 +623,12 @@ def test_main_schema_equals_the_jax_mains(bench_env, monkeypatch, capsys):
     assert set(payload) == jax_keys
     assert {k for k, v in payload.items() if v is None} == NULL_BY_DESIGN
     for name, entry in payload["stages"].items():
-        want = "skipped" if name == "rung5" else "ok"
-        assert entry["status"] == want, (name, entry)
-    assert "queue 1, item 4" in payload["stages"]["rung5"]["detail"]
+        assert entry["status"] == "ok", (name, entry)
+    assert list(payload["stages"])[-1] == "rung5"
+    assert payload["rung5_engine_events"] == 5442215
+    assert payload["rung5_committed_reqs_per_sec"] == 0.9
+    assert payload["engine_gauges"]["rung5"] == {"events": 5442215,
+                                                 "sim_ms": 40901}
     assert payload["stages"]["sha256_microbench"]["compile_s"] >= 0.0
     assert payload["ladder_consistent"] is True
     assert payload["rung3_engine_events"] == 43280
@@ -714,8 +721,7 @@ def test_a_worker_fault_fails_its_stage(bench_env, monkeypatch, capsys,
     missing = {"loadgen_app"} if stage == "app_kv" else set()
     assert set(payload) == jax_keys - missing
     for name, entry in payload["stages"].items():
-        want = ("error" if name == stage
-                else "skipped" if name == "rung5" else "ok")
+        want = "error" if name == stage else "ok"
         assert entry["status"] == want, (name, entry)
     detail = payload["stages"][stage]["detail"]
     assert "worker fault" in detail and "node 1" in detail
@@ -745,6 +751,56 @@ def test_a_budget_timeout_returns_0(bench_env, monkeypatch, capsys):
     assert payload["stages"]["soak"]["status"] == "timeout"
     assert payload["soak"] is None
     assert payload["stages"]["ackplane"]["status"] == "ok"
+
+
+def test_a_rung5_timeout_leaves_its_keys_null_and_returns_0(
+        bench_env, monkeypatch, capsys):
+    """Rung 5 past its stage budget: ``timeout``, both keys null, the
+    payload printed and rc 0; the stage was told to stop."""
+    monkeypatch.setenv("BENCH_STAGE_BUDGET_S", "0.3")
+    Stubs().install(monkeypatch)
+    seen = {}
+
+    def wedged(**kwargs):
+        seen.update(kwargs)
+        seen["stopped"] = kwargs["cancel"].wait(30.0)
+
+    monkeypatch.setattr(bench, "rung5_run", wedged)
+    rc, payload = _main(capsys)
+    assert rc == 0
+    assert payload["stages"]["rung5"]["status"] == "timeout"
+    assert {k for k, v in payload.items() if v is None} == (
+        NULL_BY_DESIGN | RUNG5_KEYS)
+    assert "rung5" not in payload["engine_gauges"]
+    assert seen["device"] == "cpu" and seen["cancel"].is_set()
+
+
+def test_rung5_stops_at_its_next_event_once_cancelled():
+    cancel = threading.Event()
+    cancel.set()
+    with pytest.raises(bench.StageCancelled, match="stopped at 1 events"):
+        bench.rung5_run(device="cpu", nodes=4, clients=2, crash_node=3,
+                        cancel=cancel)
+
+
+def test_stage_runner_cancels_an_overrunning_stage():
+    """The runner sets ``cancel`` when a stage overruns; a stage that
+    polls it ends instead of running on beside the later stages."""
+    runner = bench.StageRunner(budget_s=60.0, registry=Registry(),
+                               stage_budget_s=0.2)
+    ended = threading.Event()
+
+    def polling():
+        cancel = runner.cancel
+        while not cancel.wait(0.01):
+            pass
+        ended.set()
+
+    assert runner.run("slow", polling) is None
+    assert runner.status["slow"]["status"] == "timeout"
+    assert ended.wait(5.0)
+    assert runner.run("after", lambda: "ok") == "ok"
+    assert not runner.cancel.is_set()
 
 
 def test_no_card_prints_one_error_line_and_runs_no_stage(

@@ -226,7 +226,7 @@ def _sharded(name, device="cuda"):
         lambda: _cluster(app="kv"),
         port_bench.ingress_run,
         port_bench.app_run,
-        port_bench.app_inproc_run,
+        port_bench.rung5_run,
         lambda: obsv_main(["--nodes", "1", "--clients", "1", "--reqs", "1"]),
         lambda: port_bench.soak_run(0.5),
         lambda: chaos_main(["--smoke"]),
@@ -259,7 +259,7 @@ def _sharded(name, device="cuda"):
         "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
         "default_config_processor", "batch_verifier", "kernel_authority",
         "inprocess_cluster", "inprocess_kv_cluster", "ingress_run",
-        "app_run", "app_inproc_run", "obsv_cli_run", "soak_run", "chaos_cli_run",
+        "app_run", "rung5_run", "obsv_cli_run", "soak_run", "chaos_cli_run",
         "chaos_cli_live_run", "run_scenario", "run_live_scenario",
         "live_attack_run", "live_mp_run", "reconfig_run", "knee_run",
         "chaos_cli_mp_run", "make_mesh", "make_mesh_2", "sharded_sha256",
