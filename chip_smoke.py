@@ -52,7 +52,11 @@ Phases (any failure raises and the script exits nonzero):
    RFC 8032 5.1.3: no square root, x = 0 with the sign bit set, roots that
    need sqrt(-1), the identity, a point of order 8) repeated to m = 1, 3,
    7, 8, 1024, 1025 and 8192 rows, against its plain version and the
-   oracle, bit for bit;
+   oracle, bit for bit.  On each of the n corpora the host route too:
+   ``marshal_signature`` rejects exactly the rows the device route rejects
+   (on the host or by a decompression ok flag of 0), and the extended
+   ladder on the rest, on the card and as its plain version, equals the
+   oracle and the device route's verdicts;
 7. a signed engine run, 16 nodes x 64 clients x 4 requests, BatchSize 200,
    with a forged request at every node: the async signature plane on the
    kernels against the host-oracle plane; equal events, app chains,
@@ -68,10 +72,12 @@ Phases (any failure raises and the script exits nonzero):
    device time and the card's idle share; the SHA-256 launches by packed
    shape at rungs 2 and 3, each times its gap to the larger of bound and
    chain floor;
-9. both Ed25519 kernels' times at n = 512, 1024 and 4096 (CUDA events over
-   launches queued behind a spin kernel) beside their bounds and chain
-   floors, rung 3's launches at each n times the gap to the larger of the
-   two, and the plain versions' times at n = 512;
+9. the three Ed25519 kernels' times at n = 512, 1024 and 4096 (CUDA
+   events over launches queued behind a spin kernel) beside their bounds
+   and chain floors, rung 3's launches at each n times the gap to the
+   larger of the two, and the plain versions' times at n = 512; and the
+   host's time a row to marshal for each route (``marshal_light``,
+   ``marshal_signature``);
 10. the SHA-256 chain kernel against its plain version, exactly, at
     (1024, 16) and the ragged (1000, 16) blocks, at the full batch of
     32768 rows, and at the microbenchmark's full 4096 iterations on 128
@@ -249,9 +255,11 @@ Phases (any failure raises and the script exits nonzero):
     its launch floor, its byte bound and the library call
     (``votes.sum(0, dtype=torch.int32)``); (b) the three sharded
     functions on ``[cuda:0]`` and ``[cuda:0] * 4`` equal to the unsharded
-    kernels (the Ed25519 verdicts accept the valid half and reject the
-    corrupted half), their launches counted, and timed against the
-    unsharded call;
+    kernels (the Ed25519 verify takes the JAX function's host-decompressed
+    rows through the extended ladder, a launch a shard, counted from 0
+    just before each call for the kernels line; its verdicts accept the
+    valid half and reject the corrupted half, as the oracle), their
+    launches counted, and timed against the unsharded call;
 24. the bench's ``main``: ``python -m mirbft_tpu_torch.bench`` in a process
     of its own with ``BENCH_BUDGET_S=40``, ``BENCH_SOAK_S=0`` and its
     journal in a temp dir: exit 0, one JSON line last with the JAX
@@ -998,10 +1006,53 @@ def compare_ed25519(n, rows, oracle) -> int:
     check(got == [o[0] for o in oracle[: len(rows)]],
           f"ed25519 n={n}: verify_batch != oracle")
     accepted = sum(got)
+    device_verdicts = {i: int(verdicts[j]) for j, (i, _row) in enumerate(live)}
+    device_rejects = set(range(len(rows))) - {
+        i for j, (i, _row) in enumerate(live) if ok[j] and ok[m + j]}
+    host_err, host_n = compare_host_route(n, rows, oracle, device_verdicts,
+                                          device_rejects)
     print(f"  ed25519 n={n}: {m} rows reach the kernels ({2 * m} points), "
           f"{len(rows) - m} rejected on the host, {accepted} accepted, "
-          f"{sum(ok)} points decode: kernel == plain == oracle")
-    return err
+          f"{sum(ok)} points decode: kernel == plain == oracle; host route: "
+          f"{host_n} rows decompress on the host, the others exactly the "
+          f"device route's rejects, ladder_extended == plain == oracle == "
+          f"the device route")
+    return max(err, host_err)
+
+
+def compare_host_route(n, rows, oracle, device_verdicts, device_rejects):
+    """The host route on phase 6's corpus: ``marshal_signature`` rejects
+    exactly the rows the device route rejects (on the host, or by a
+    decompression ok flag of 0), and the extended ladder on the rest, on
+    the card and as its plain version, equals the oracle and the device
+    route's verdicts.  Returns (max abs err kernel vs plain, rows)."""
+    import torch
+
+    from mirbft_tpu_torch.ops import ed25519
+
+    marshalled = [ed25519.marshal_signature(*row) for row in rows]
+    host_rejects = {i for i, h in enumerate(marshalled) if h is None}
+    check(host_rejects == device_rejects,
+          f"ed25519 n={n}: marshal_signature rejects rows "
+          f"{sorted(host_rejects ^ device_rejects)} unlike the device route")
+    live = [i for i, h in enumerate(marshalled) if h is not None]
+    if not live:
+        return 0, 0
+    s_words, k_words, neg_a, r_xy = (
+        torch.from_numpy(a).to("cuda")
+        for a in ed25519.pack_signature_rows([marshalled[i] for i in live])
+    )
+    verdicts = ed25519.ladder_extended(neg_a, r_xy, s_words, k_words)
+    torch.cuda.synchronize()
+    plain = ed25519.ladder_extended_plain(neg_a, r_xy, s_words, k_words)
+    err = int((verdicts - plain).abs().max())
+    check(err == 0, f"ed25519 n={n}: ladder_extended != plain ({err})")
+    for row, verdict in zip(live, verdicts.cpu().tolist()):
+        check(bool(verdict) == oracle[row][0],
+              f"ed25519 n={n}: row {row} ladder_extended verdict")
+        check(verdict == device_verdicts[row],
+              f"ed25519 n={n}: row {row} host route != device route")
+    return err, len(live)
 
 
 def compare_decompress_corpus(m: int) -> int:
@@ -1092,6 +1143,11 @@ def ed25519_bounds(n: int, sms: int, clock: float) -> dict:
         # n rows: two points and two flags in, S and k, a verdict out
         "ladder": (n * ed25519.int_ops_per_row(ed25519.LADDER_OPS),
                    n * (2 * 80 + 2 * 4 + 64 + 4) + consts),
+        # n rows: -A extended (160 bytes) and R affine (80) in, S and k, a
+        # verdict out
+        "ladder_extended": (
+            n * ed25519.int_ops_per_row(ed25519.LADDER_EXTENDED_OPS),
+            n * (160 + 80 + 64 + 4) + consts),
     }
     out = {}
     for name, (ops, moved) in shapes.items():
@@ -2389,6 +2445,7 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
         "sha256_digest": sha256_digest_words,
         "ed25519_decompress": ed_ops.decompress,
         "ed25519_ladder": ed_ops.ladder,
+        "ed25519_ladder_extended": ed_ops.ladder_extended,
     }
 
     def zero():
@@ -2509,20 +2566,24 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
     packed = pack_preimages(messages, batch_floor=PARALLEL_SHARDS)
     votes = rng.integers(0, 2, (256, 65536)).astype(np.int8)
     threshold = 171  # a 2f + 1 of 256 voters
-    rows = []
+    triples = []
     for i in range(PARALLEL_VERIFY_ROWS):
         seed = i.to_bytes(32, "little")
         msg = b"phase-23-%d" % i
         pk, sig = ed25519_host.public_key(seed), ed25519_host.sign(seed, msg)
-        rows.append(ed_ops.marshal_light(
-            pk, msg + (b"!" if i % 2 else b""), sig))
-    enc, s_words, k_words = ed_ops.pack_rows(rows)
+        triples.append((pk, msg + (b"!" if i % 2 else b""), sig))
+    oracle = [ed25519_host.verify(*t) for t in triples]
+    check(oracle == [i % 2 == 0 for i in range(PARALLEL_VERIFY_ROWS)],
+          "phase 23b: the oracle's verdicts")
+    # The JAX function's inputs: rows decompressed on the host, packed to
+    # a multiple of the mesh size.
+    rows = [ed_ops.marshal_signature(*t) for t in triples]
+    verify_args = ed_ops.pack_signature_rows(rows, batch_floor=PARALLEL_SHARDS)
     want_words = sha256_digest_words(*to_tensors(packed, card))
     want_mask = (torch.from_numpy(votes).to(card).sum(0, dtype=torch.int32)
                  >= threshold)
-    want_verdicts = ed_ops.launch_rows(rows, card)
-    check((want_verdicts != 0).tolist()
-          == [i % 2 == 0 for i in range(PARALLEL_VERIFY_ROWS)],
+    want_verdicts = ed_ops.launch_signature_rows(rows, card)
+    check((want_verdicts != 0).tolist() == oracle,
           "phase 23b: the unsharded verdicts")
     unsharded = {
         "sharded_sha256": lambda: sha256_digest_words(
@@ -2530,9 +2591,11 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
         "sharded_quorum_tally": lambda: tally.shard_sum(
             tally.tally_columns(torch.from_numpy(votes).to(card))
             .unsqueeze(0), threshold),
-        "sharded_ed25519_verify": lambda: ed_ops.launch_rows(rows, card),
+        "sharded_ed25519_verify": lambda: ed_ops.launch_signature_rows(
+            rows, card),
     }
     sharded = []
+    x4_launches = 0  # the extended ladder's, on X4's path
     for shards in (1, PARALLEL_SHARDS):
         m = sharding.make_mesh(devices=[card] * shards)
         calls = {
@@ -2543,7 +2606,7 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
                                                              threshold)),
             "sharded_ed25519_verify": (
                 lambda f=sharding.sharded_ed25519_verify(m): f(
-                    enc, s_words, k_words)),
+                    *verify_args)),
         }
         wants = {"sharded_sha256": want_words,
                  "sharded_quorum_tally": want_mask,
@@ -2552,14 +2615,17 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
             "sharded_sha256": {"sha256_digest": shards},
             "sharded_quorum_tally": {"tally_columns": shards,
                                      "shard_sum": 1},
-            "sharded_ed25519_verify": {"ed25519_decompress": shards,
-                                       "ed25519_ladder": shards},
+            "sharded_ed25519_verify": {"ed25519_ladder_extended": shards},
         }
         for name, call in calls.items():
+            if name == "sharded_ed25519_verify":
+                ed_ops.ladder_extended.launches = 0  # X4's path from 0
             before = read()
             got = call()
             torch.cuda.synchronize()
             after = read()
+            if name == "sharded_ed25519_verify":
+                x4_launches += ed_ops.ladder_extended.launches
             made = {k: after[k] - before[k] for k in after
                     if after[k] != before[k]}
             check(made == launches[name],
@@ -2576,6 +2642,9 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
                 "unsharded_wall_ms": time_wall(lambda: [], unsharded[name]),
                 "launches": made,
             })
+    check(x4_launches == 1 + PARALLEL_SHARDS,
+          f"phase 23b: the extended ladder launched {x4_launches} times on "
+          f"X4's path, not {1 + PARALLEL_SHARDS}")
     for e in sharded:
         print(f"  {e['what']} on [cuda:0] * {e['shards']}: "
               f"{e['ms']:.6f} ms (CUDA events around the call, median of "
@@ -2585,9 +2654,11 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
     phase_s = time.perf_counter() - start
     print(f"phase 23b ok: sharded_sha256 ({PARALLEL_DIGEST_ROWS} rows), "
           f"sharded_quorum_tally (256 x 65536), sharded_ed25519_verify "
-          f"({PARALLEL_VERIFY_ROWS} rows, the valid half accepted, the "
-          f"corrupted half rejected) on [cuda:0] and [cuda:0] * "
-          f"{PARALLEL_SHARDS} == the unsharded kernels")
+          f"({PARALLEL_VERIFY_ROWS} host-decompressed rows through the "
+          f"extended ladder, the valid half accepted, the corrupted half "
+          f"rejected, as the oracle) on [cuda:0] and [cuda:0] * "
+          f"{PARALLEL_SHARDS} == the unsharded kernels; the extended "
+          f"ladder launched {x4_launches} times on X4's path")
     print(f"phase 23 ok in {phase_s:.1f} s (done at "
           f"{time.perf_counter() - t0:.1f} s)")
     return {
@@ -2596,6 +2667,7 @@ def parallel_phases(t0: float, anchor_chains: dict) -> dict:
         "launches": main_launches,
         "anchor_launches": anchor,
         "sharded": sharded,
+        "x4_extended_launches": x4_launches,
     }
 
 
@@ -2799,7 +2871,10 @@ def main() -> int:
         ptxas.update(ptxas_report(text))
     from mirbft_tpu_torch.ops import ed25519 as ed25519_ops
 
-    dynamic = {"mirbft_ed25519_ladder_kernel": ed25519_ops.ladder_smem_bytes()}
+    dynamic = dict.fromkeys(
+        ("mirbft_ed25519_ladder_kernel",
+         "mirbft_ed25519_ladder_extended_kernel"),
+        ed25519_ops.ladder_smem_bytes())
     for kernel, (regs, stack, stores, loads, smem) in sorted(ptxas.items()):
         print(f"  {kernel}: {regs} registers, {stack} bytes stack frame, "
               f"{stores} bytes spill stores, {loads} bytes spill loads, "
@@ -3026,7 +3101,8 @@ def main() -> int:
         ))
     for m in DECOMPRESS_CORPUS_ROWS:
         ed_err = max(ed_err, compare_decompress_corpus(m))
-    print(f"phase 6 ok: ed25519 kernels == plain == oracle at n = "
+    print(f"phase 6 ok: ed25519 kernels (the host route's extended ladder "
+          f"too) == plain == oracle at n = "
           f"{', '.join(map(str, ED25519_COMPARED))}; decompress == plain == "
           f"oracle on the decompression corpus repeated to m = "
           f"{', '.join(map(str, DECOMPRESS_CORPUS_ROWS))} rows; "
@@ -3172,20 +3248,41 @@ def main() -> int:
     )
 
     # -- phase 9: Ed25519 kernel times, bounds, plain times ------------------
-    ed_shapes = {"ed25519_decompress": [], "ed25519_ladder": []}
+    ed_shapes = {"ed25519_decompress": [], "ed25519_ladder": [],
+                 "ed25519_ladder_extended": []}
+    marshal_us = []  # per n: (marshal_light, marshal_signature) us a row
     for n in ED25519_SHAPES:
-        marshalled = [
-            ed25519.marshal_light(*rung3_row(presigned, key, i % 4))
-            for i, key in enumerate(sorted(presigned)[:n])
-        ]
+        triples = [rung3_row(presigned, key, i % 4)
+                   for i, key in enumerate(sorted(presigned)[:n])]
+        start = time.perf_counter()
+        marshalled = [ed25519.marshal_light(*t) for t in triples]
+        light_us = (time.perf_counter() - start) * 1e6 / n
         enc, s_words, k_words = (
             torch.from_numpy(a).to("cuda")
             for a in ed25519.pack_rows(marshalled)
+        )
+        # The host route's rows: valid, corrupted S, wrong message (a
+        # corrupted R may not decompress, and every row must launch).
+        triples = [rung3_row(presigned, key, (0, 2, 3)[i % 3])
+                   for i, key in enumerate(sorted(presigned)[:n])]
+        start = time.perf_counter()
+        host_rows = [ed25519.marshal_signature(*t) for t in triples]
+        host_us = (time.perf_counter() - start) * 1e6 / n
+        check(None not in host_rows, f"phase 9: a host-route row at n={n} "
+              "does not decompress")
+        marshal_us.append({"n": n, "marshal_light_us": light_us,
+                           "marshal_signature_us": host_us})
+        ext_s, ext_k, neg_a, r_xy = (
+            torch.from_numpy(a).to("cuda")
+            for a in ed25519.pack_signature_rows(host_rows)
         )
         xy, ok = ed25519.decompress(enc)
         dec_ms, dec_call = time_device(lambda: ed25519.decompress(enc), 50)
         lad_ms, lad_call = time_device(
             lambda: ed25519.ladder(xy, ok, s_words, k_words), 20
+        )
+        ext_ms, ext_call = time_device(
+            lambda: ed25519.ladder_extended(neg_a, r_xy, ext_s, ext_k), 20
         )
         clock = sm_clock_mhz()
         bounds = ed25519_bounds(n, sms, clock)
@@ -3195,6 +3292,8 @@ def main() -> int:
                 ("decompress", lambda: ed25519.decompress_plain(enc)),
                 ("ladder", lambda: ed25519.ladder_plain(xy, ok, s_words,
                                                         k_words)),
+                ("ladder_extended", lambda: ed25519.ladder_extended_plain(
+                    neg_a, r_xy, ext_s, ext_k)),
             ):
                 torch.cuda.synchronize()
                 start = time.perf_counter()
@@ -3202,10 +3301,11 @@ def main() -> int:
                 torch.cuda.synchronize()
                 plain[name] = (time.perf_counter() - start) * 1e3
         for name, ms, call_ms in (("decompress", dec_ms, dec_call),
-                                  ("ladder", lad_ms, lad_call)):
+                                  ("ladder", lad_ms, lad_call),
+                                  ("ladder_extended", ext_ms, ext_call)):
             bound = bounds[name]
             floor = max(bound["bound_ms"], bound["chain_floor_ms"])
-            launches = rung3_ed_launches[name].get(n, 0)
+            launches = rung3_ed_launches.get(name, {}).get(n, 0)
             ed_shapes["ed25519_" + name].append(dict(
                 n=n, rows=2 * n if name == "decompress" else n, ms=ms,
                 call_ms=call_ms, plain_ms=plain.get(name), library_ms=None,
@@ -3228,6 +3328,12 @@ def main() -> int:
                 + (f"; plain {plain[name]:.3f} ms" if plain else "")
                 + "; library_ms null (no PyTorch call verifies Ed25519)"
             )
+    for e in marshal_us:
+        print(f"  host marshalling n={e['n']} on this machine's host: "
+              f"marshal_light {e['marshal_light_us']:.3f} us a row (the "
+              f"device route's), marshal_signature "
+              f"{e['marshal_signature_us']:.3f} us a row (the host route's: "
+              f"two decompressions)")
     print(f"phase 9 ok (done at {time.perf_counter() - t0:.1f} s)")
 
     # -- phase 10: the chain kernel and the kernel microbenchmark -----------
@@ -3716,6 +3822,30 @@ def main() -> int:
             "ptxas": ptxas.get(f"mirbft_{name}_kernel"),
             "dynamic_smem_bytes": dynamic.get(f"mirbft_{name}_kernel", 0),
         })
+    shapes = ed_shapes["ed25519_ladder_extended"]
+    head = shapes[0]
+    kernels.append({
+        "name": "ed25519_ladder_extended",
+        "route": "cuda",
+        "source": "mirbft_tpu_torch/csrc/ed25519.cu",
+        "replaces": "mirbft_tpu/ops/ed25519_pallas.py:341",
+        "launches": par["x4_extended_launches"],
+        "launches_note": "phase 23b: sharded_ed25519_verify on [cuda:0] "
+                         "and [cuda:0] * 4, a launch a shard",
+        "matched_plain": ed_err == 0,
+        "max_abs_err": ed_err,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": None,
+        "chain_floor_ms": head["chain_floor_ms"],
+        "shape": [head["rows"]],
+        "per_shape": shapes,
+        "marshal_us": marshal_us,
+        "ptxas": ptxas.get("mirbft_ed25519_ladder_extended_kernel"),
+        "dynamic_smem_bytes": dynamic["mirbft_ed25519_ladder_extended_kernel"],
+    })
     kernels.insert(1, {
         "name": "sha256_chain",
         "route": "cuda",

@@ -670,7 +670,11 @@ class Worker:
                 )
                 fault = EXIT_DRAIN_FAULT
         if self.ingress is not None:
-            self.ingress.close(drain_timeout=0.5)
+            # Until its thread ends: a process that exits while that
+            # thread is inside a verify launch aborts (SIGABRT, exit -6)
+            # as the interpreter finalises.  The supervisor's SIGKILL
+            # bounds a launch that never returns.
+            self.ingress.close(drain_timeout=0.5, join_timeout=None)
             if self.ingress.verify_errors:
                 print(
                     f"node {self.node_id} ingress verify failed "

@@ -2,16 +2,20 @@
 // a group of kDecGroup lanes per point, and the 4-bit windowed Shamir
 // ladder, four lanes (a quad) per signature.
 //
-// Replaces the Pallas TPU kernels launched by
-// mirbft_tpu/ops/ed25519_pallas.py::_verify_device:
-//   - mirbft_ed25519_decompress: _decompress_kernel (launched at :528);
-//   - mirbft_ed25519_ladder: _ladder_affine_kernel + _ladder_tail (at :559);
-// and their XLA twin mirbft_tpu/ops/ed25519.py::ladder_impl, which the port
-// routes into the same two kernels.  The plain PyTorch versions in
-// mirbft_tpu_torch/ops/ed25519.py compute the same functions serially with
-// their own carries: decompression's output is canonical and the ladder's
-// is one verdict a row, so kernel and plain agree exactly on what they
-// return, not limb for limb on the way.
+// Replaces the Pallas TPU kernels of mirbft_tpu/ops/ed25519_pallas.py:
+//   - mirbft_ed25519_decompress: _decompress_kernel (:410, launched by
+//     _verify_device at :528);
+//   - mirbft_ed25519_ladder: _ladder_affine_kernel + _ladder_tail (:356,
+//     :308, launched at :559), over the decompressed points;
+//   - mirbft_ed25519_ladder_extended: _ladder_kernel + _ladder_tail (:341),
+//     over -A in extended coordinates decompressed on the host, the form of
+//     its XLA twin mirbft_tpu/ops/ed25519.py::ladder_impl (the host route,
+//     marshal_signature, and the sharded verify of parallel/sharding.py).
+// The two ladders share one body (ladder_quad).  The plain PyTorch versions
+// in mirbft_tpu_torch/ops/ed25519.py compute the same functions serially
+// with their own carries: decompression's output is canonical and a
+// ladder's is one verdict a row, so kernel and plain agree exactly on what
+// they return, not limb for limb on the way.
 //
 // Field representation.  GF(2^255 - 19) as 10 signed int32 limbs of radix
 // 2^25.5 (ref10's layout: widths w = 26, 25, 26, ..., limb i at bit
@@ -648,47 +652,48 @@ __device__ __forceinline__ int window(const uint32_t* __restrict__ words,
   return static_cast<int>((__ldg(words + (nib >> 3)) >> (4 * (nib & 7))) & 15);
 }
 
-// xy: (2n, 2, 10) affine points from the decompress kernel (A rows, then R
-// rows); ok: (2n,).  s_words, k_words: (n, 8) little-endian words of S and
-// k.  out: (n,) 1 where [S]B + [k](-A) == R projectively, Z != 0 and both
-// points decompressed.  Four lanes a row; dynamic shared memory holds the
-// [j](-A) table (a column per lane) and the [j]B table.
-__global__ void __launch_bounds__(kLadderThreads)
-mirbft_ed25519_ladder_kernel(const int32_t* __restrict__ xy,
-                             const int32_t* __restrict__ okf,
-                             const uint32_t* __restrict__ s_words,
-                             const uint32_t* __restrict__ k_words,
-                             int32_t* __restrict__ out, int n,
-                             const int32_t* __restrict__ consts) {
-  extern __shared__ __align__(16) int32_t ladder_smem[];
-  int32_t* a_table = ladder_smem;  // [16][10][kLadderThreads]
-  int32_t* b_table = ladder_smem + kATableInts;  // [16][4][10]
-  // [j]B in cached form: (y - x, y + x, 2, 2d x y).
+// The [j]B table in cached form, (y - x, y + x, 2, 2d x y), filled by the
+// whole block, first thing in either ladder kernel.
+__device__ __forceinline__ void fill_b_table(
+    int32_t* __restrict__ smem, const int32_t* __restrict__ consts) {
+  int32_t* b_table = smem + kATableInts;  // [16][4][10]
   for (int i = threadIdx.x; i < kBTableInts; i += kLadderThreads) {
     const int j = i / 40, c = (i / 10) % 4, l = i % 10;
     b_table[i] = c == 2 ? (l == 0 ? 2 : 0)
                         : consts[10 * (kConstNiels + 3 * j + (c == 3 ? 2 : c)) + l];
   }
   __syncthreads();
+}
 
+// One signature's ladder, every thread of the block calling it after
+// fill_b_table: builds this quad's [j](-A) column, runs the 64 windows and
+// compares against R.  neg_a: this lane's coordinate c of -A (X, Y, Z, T
+// for lanes 0-3), any extended representation, each limb either carried or
+// canonical (in [0, 2^w)); r_xy: the row's affine R (x, then y), canonical;
+// s, k: the row's 8 little-endian words of S and of k.  Writes out[quad],
+// 1 where [S]B + [k](-A) == R projectively, Z != 0 and valid, when
+// quad < n.
+//
+// Canonical limbs are under 2^w = 2^(w-1) * 2 < 2 U_w: 2-term.  -A reaches
+// a product only through stage_a, both in its conversion to cached form and
+// in the first table addition (p = -A): f there is Y - X or Y + X (4-term)
+// or Z, T (2-term), within the 4-term f of fe_mul, and g a carried cached
+// coordinate or a constant.  Everything after is a product's output,
+// carried, as in the decompressed route; R is canonical on f against a
+// carried Z, as there.
+__device__ __forceinline__ void ladder_quad(
+    int32_t* __restrict__ smem, const Fe& neg_a,
+    const int32_t* __restrict__ r_xy, const uint32_t* __restrict__ s,
+    const uint32_t* __restrict__ k, bool valid, int quad, int n,
+    int32_t* __restrict__ out, const int32_t* __restrict__ consts) {
+  int32_t* a_table = smem;  // [16][10][kLadderThreads]
+  const int32_t* b_table = smem + kATableInts;  // [16][4][10]
   const int lane = threadIdx.x & 3;
-  const int quad = (blockIdx.x * kLadderThreads + threadIdx.x) >> 2;
-  const int row = quad < n ? quad : n - 1;  // a quad past n repeats row n - 1
-  const int32_t* a_xy = xy + 20 * static_cast<size_t>(row);
-  const int32_t* r_xy = xy + 20 * (static_cast<size_t>(n) + row);
-  const bool valid = okf[row] != 0 && okf[n + row] != 0;
   const Fe one = fe_one();
   const Fe two = fe_small(2);
   // Lane c's multiplier taking an extended point to cached form: 1, 1, 2, 2d.
   const Fe to_cached =
       fe_pick(lane, one, one, two, fe_load(consts + 10 * kConstD2));
-
-  // -A = (-x, y, 1, -x y), one product stage (lane 3's; the others times 1).
-  const Fe ax = fe_load(a_xy);
-  const Fe ay = fe_load(a_xy + 10);
-  const Fe nx = fe_sub_nc(fe_zero(), ax);
-  const Fe neg_a =
-      fe_mul(fe_pick(lane, nx, ay, one, nx), fe_pick(lane, one, one, one, ay));
 
   int32_t* column = a_table + threadIdx.x;
   auto store = [&](int j, const Fe& c) {
@@ -705,8 +710,6 @@ mirbft_ed25519_ladder_kernel(const int32_t* __restrict__ xy,
     store(j, stage_a(p, to_cached, lane));
   }
 
-  const uint32_t* s = s_words + 8 * static_cast<size_t>(row);
-  const uint32_t* k = k_words + 8 * static_cast<size_t>(row);
   Fe acc = fe_pick(lane, fe_zero(), one, one, fe_zero());  // (0, 1, 1, 0)
 #pragma unroll 1
   for (int t = 0; t < 64; ++t) {
@@ -730,6 +733,65 @@ mirbft_ed25519_ladder_kernel(const int32_t* __restrict__ xy,
   const int eq_y = __shfl_sync(0xffffffffu, eq ? 1 : 0, 1, 4);
   const bool good = eq_x && eq_y && !fe_is_zero(z) && valid;
   if (lane == 0 && quad < n) out[quad] = good ? 1 : 0;
+}
+
+// xy: (2n, 2, 10) affine points from the decompress kernel (A rows, then R
+// rows); ok: (2n,).  s_words, k_words: (n, 8) little-endian words of S and
+// k.  out: (n,) 1 where [S]B + [k](-A) == R projectively, Z != 0 and both
+// points decompressed.  Four lanes a row; dynamic shared memory holds the
+// [j](-A) table (a column per lane) and the [j]B table.
+__global__ void __launch_bounds__(kLadderThreads)
+mirbft_ed25519_ladder_kernel(const int32_t* __restrict__ xy,
+                             const int32_t* __restrict__ okf,
+                             const uint32_t* __restrict__ s_words,
+                             const uint32_t* __restrict__ k_words,
+                             int32_t* __restrict__ out, int n,
+                             const int32_t* __restrict__ consts) {
+  extern __shared__ __align__(16) int32_t ladder_smem[];
+  fill_b_table(ladder_smem, consts);
+  const int lane = threadIdx.x & 3;
+  const int quad = (blockIdx.x * kLadderThreads + threadIdx.x) >> 2;
+  const int row = quad < n ? quad : n - 1;  // a quad past n repeats row n - 1
+  const int32_t* a_xy = xy + 20 * static_cast<size_t>(row);
+  const bool valid = okf[row] != 0 && okf[n + row] != 0;
+
+  // -A = (-x, y, 1, -x y), one product stage (lane 3's; the others times 1).
+  const Fe one = fe_one();
+  const Fe ax = fe_load(a_xy);
+  const Fe ay = fe_load(a_xy + 10);
+  const Fe nx = fe_sub_nc(fe_zero(), ax);
+  const Fe neg_a =
+      fe_mul(fe_pick(lane, nx, ay, one, nx), fe_pick(lane, one, one, one, ay));
+  ladder_quad(ladder_smem, neg_a, xy + 20 * (static_cast<size_t>(n) + row),
+              s_words + 8 * static_cast<size_t>(row),
+              k_words + 8 * static_cast<size_t>(row), valid, quad, n, out,
+              consts);
+}
+
+// neg_a: (n, 4, 10) -A in extended coordinates (X, Y, Z, T; any Z != 0),
+// canonical limbs, from the host's decompression.  r_xy: (n, 2, 10) affine
+// R, canonical.  s_words, k_words: (n, 8).  out: (n,) 1 where [S]B +
+// [k](-A) == R projectively and Z != 0: the host has rejected every row
+// whose points do not decompress, so every row in range is valid.  Lane c
+// loads coordinate c of -A itself: no negation product stage.
+__global__ void __launch_bounds__(kLadderThreads)
+mirbft_ed25519_ladder_extended_kernel(const int32_t* __restrict__ neg_a,
+                                      const int32_t* __restrict__ r_xy,
+                                      const uint32_t* __restrict__ s_words,
+                                      const uint32_t* __restrict__ k_words,
+                                      int32_t* __restrict__ out, int n,
+                                      const int32_t* __restrict__ consts) {
+  extern __shared__ __align__(16) int32_t ladder_smem[];
+  fill_b_table(ladder_smem, consts);
+  const int lane = threadIdx.x & 3;
+  const int quad = (blockIdx.x * kLadderThreads + threadIdx.x) >> 2;
+  const int row = quad < n ? quad : n - 1;  // a quad past n repeats row n - 1
+  const int32_t* coordinate = neg_a + 40 * static_cast<size_t>(row) + 10 * lane;
+  ladder_quad(ladder_smem, fe_load(coordinate),
+              r_xy + 20 * static_cast<size_t>(row),
+              s_words + 8 * static_cast<size_t>(row),
+              k_words + 8 * static_cast<size_t>(row), true, quad, n, out,
+              consts);
 }
 
 int grid_for(long long threads, int block) {
@@ -774,7 +836,28 @@ extern "C" int mirbft_ed25519_ladder(const void* xy, const void* ok,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The ladder's dynamic shared memory a block, in bytes.
+extern "C" int mirbft_ed25519_ladder_extended(const void* neg_a,
+                                              const void* r_xy,
+                                              const void* s_words,
+                                              const void* k_words, void* out,
+                                              int n, const void* consts,
+                                              void* stream) {
+  if (n <= 0) return 0;
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      mirbft_ed25519_ladder_extended_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kLadderSmemBytes);
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  mirbft_ed25519_ladder_extended_kernel<<<grid_for(4LL * n, kLadderThreads),
+                                          kLadderThreads, kLadderSmemBytes,
+                                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(neg_a), static_cast<const int32_t*>(r_xy),
+      static_cast<const uint32_t*>(s_words),
+      static_cast<const uint32_t*>(k_words), static_cast<int32_t*>(out), n,
+      static_cast<const int32_t*>(consts));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Either ladder's dynamic shared memory a block, in bytes.
 extern "C" int mirbft_ed25519_ladder_smem_bytes() { return kLadderSmemBytes; }
 
 extern "C" const char* mirbft_ed25519_error_string(int code) {

@@ -4,15 +4,20 @@ plain versions.
 One module for what the JAX package splits in two: ``ops/ed25519.py``
 (the XLA scan ladder over host-decompressed points) and
 ``ops/ed25519_pallas.py`` (device decompression and the windowed Shamir
-ladder).  Both routes reach the same two kernels in ``csrc/ed25519.cu``:
+ladder).  Three kernels in ``csrc/ed25519.cu`` serve two routes:
 
-- ``decompress``: RFC 8032 §5.1.3 decompression of A and R, one row per
-  point (2n rows: A, then R), giving canonical affine (x, y) and an ok flag;
-- ``ladder``: [S]B + [k](−A) over 4-bit windows, most significant first,
-  compared projectively with R and ANDed with both ok flags.
-
-The host keeps what the JAX package kept there (``marshal_light``): byte
-parsing, the range checks y < p and S < L, and the SHA-512 challenge k.
+- the device route: ``decompress``, RFC 8032 §5.1.3 decompression of A
+  and R, one row per point (2n rows: A, then R), giving canonical affine
+  (x, y) and an ok flag; then ``ladder``, [S]B + [k](−A) over 4-bit
+  windows, most significant first, compared projectively with R and ANDed
+  with both ok flags.  The host keeps what the JAX Pallas pipeline kept
+  there (``marshal_light``): byte parsing, the range checks y < p and
+  S < L, and the SHA-512 challenge k;
+- the host route, the JAX ``ops/ed25519.py``'s: ``marshal_signature``
+  decompresses A and R on the host and negates A, ``pack_signature_rows``
+  packs the rows, and ``ladder_extended`` runs the same windowed ladder
+  over −A in extended coordinates and R affine (the Pallas
+  ``_ladder_kernel``'s inputs, and ``ladder_impl``'s).
 
 Field elements are 10 signed limbs of radix 2^25.5 (widths 26, 25, 26, ...,
 ref10's layout) in int32, with products in int64.  The 20×13-bit int32
@@ -35,12 +40,13 @@ and plain agree on what they return, exactly: canonical points and ok
 flags from ``decompress``, one verdict a row from ``ladder``.  That is the
 contract, not the limbs on the way.
 
-``decompress`` and ``ladder`` dispatch on the tensors' device: a CUDA tensor
-launches the kernel (counted in ``.launches``, and by its rows in
-``.launches_by_rows``), a CPU tensor takes the plain
-version (``decompress_plain``, ``ladder_plain``: the kernels' formulas on
-int64 tensors, batched over rows), any other device raises.  A launch that
-fails raises; there is no other route.
+``decompress``, ``ladder`` and ``ladder_extended`` dispatch on the
+tensors' device: a CUDA tensor launches the kernel (counted in
+``.launches``, and by its rows in ``.launches_by_rows``), a CPU tensor
+takes the plain version (``decompress_plain``, ``ladder_plain``,
+``ladder_extended_plain``: the kernels' formulas on int64 tensors, batched
+over rows), any other device raises.  A launch that fails raises; there is
+no other route.
 """
 
 from __future__ import annotations
@@ -81,6 +87,10 @@ CONST_ROWS = CONST_NIELS + 16 * 3
 # while the other lanes multiply) and 3 more a conversion; those are left
 # out of the bound.
 LADDER_OPS = {"mul": 1858, "sqr": 1024, "addsub": 3013, "canonical": 3}
+# The extended ladder's: the ladder's without -A's negation (one sub) and
+# its T = -x y (one mul), which the host has made.
+LADDER_EXTENDED_OPS = {**LADDER_OPS, "mul": LADDER_OPS["mul"] - 1,
+                       "addsub": LADDER_OPS["addsub"] - 1}
 DECOMPRESS_OPS = {"mul": 19, "sqr": 255, "addsub": 6, "canonical": 5}
 
 #: 32-bit integer instructions a carry step of an int64 limb needs: add the
@@ -131,6 +141,8 @@ SQR_CHAIN = 2 + 2 + CARRY_CHAIN
 LADDER_STAGE_OVERHEAD = 3
 LADDER_SQR_STAGES = 64 * 4
 LADDER_STAGES = 2 + 14 * 3 + 64 * 12 + 1
+#: The extended ladder loads -A: its cached form is the first stage.
+LADDER_EXTENDED_STAGES = LADDER_STAGES - 1
 #: Decompression's longest chain, every squaring and product but u v^3
 #: and x sqrt(-1): y^2, d y^2, v^2, v^3, v^6, v^7, u v^7 (3 squarings, 4
 #: products), pow22523's 251 squarings and 11 products, then x, x^2, v x^2
@@ -141,8 +153,9 @@ DECOMPRESS_CHAIN_MUL = 4 + 11 + 2
 
 def chain_floor_cycles(kernel: str) -> int:
     """Cycles on one row's longest dependent chain (see MUL_CHAIN)."""
-    if kernel == "ladder":
-        mul_stages = LADDER_STAGES - LADDER_SQR_STAGES
+    if kernel in ("ladder", "ladder_extended"):
+        stages = LADDER_STAGES if kernel == "ladder" else LADDER_EXTENDED_STAGES
+        mul_stages = stages - LADDER_SQR_STAGES
         instructions = (
             mul_stages * (MUL_CHAIN + LADDER_STAGE_OVERHEAD)
             + LADDER_SQR_STAGES * (SQR_CHAIN + LADDER_STAGE_OVERHEAD)
@@ -436,29 +449,22 @@ def _window(words, t: int):
     return (words[:, nib // 8] >> (4 * (nib % 8))) & 15
 
 
-def ladder_plain(xy, ok, s_words, k_words):
-    """The ladder kernel's function in plain PyTorch, on the tensors'
-    device.  xy: (2n, 2, 10) int32 affine points from ``decompress`` (A
-    rows, then R rows); ok: (2n,) int32; s_words, k_words: (n, 8) int32
-    little-endian words of the scalars S and k.  Returns (n,) int32: 1 where
-    [S]B + [k](-A) == R, Z != 0 and both points decompressed.
+def _shamir(neg_a, rx, ry, s_words, k_words):
+    """The two ladders' shared body, batched over rows: [S]B + [k](-A)
+    from -A extended (a tuple of (n, 10) int64 limbs, any Z), compared
+    projectively with the affine R; (n,) bool, Z != 0 included.
 
-    The kernel's formulas (the [j](-A) table in cached form, [j]B as Niels
-    points from the constants), serially and batched over rows, with every
-    sum and product carried: the kernel's lane schedule and its lazy sums
-    are not copied, and the verdicts are what the two share."""
-    n = s_words.shape[0]
-    device = xy.device
-    pts = xy.to(torch.int64)
-    ax, ay = pts[:n, 0], pts[:n, 1]
-    rx, ry = pts[n:, 0], pts[n:, 1]
-    valid = (ok[:n] != 0) & (ok[n:] != 0)
-    zero = torch.zeros_like(ax)
+    The kernels' formulas (the [j](-A) table in cached form, [j]B as Niels
+    points from the constants), serially, with every sum and product
+    carried: the kernels' lane schedule and their lazy sums are not
+    copied, and the verdicts are what the two share."""
+    x0 = neg_a[0]
+    n = x0.shape[0]
+    device = x0.device
+    zero = torch.zeros_like(x0)
     one = zero.clone()
     one[:, 0] = 1
     d2 = _const(device, CONST_D2, (n,))
-    nx = _fe_sub(zero, ax)
-    neg_a = (nx, ay, one, _fe_mul(nx, ay))
     neg_a_cached = _cached(neg_a, d2)
     table = [(one, one, _fe_add(one, one), zero), neg_a_cached]
     point = neg_a
@@ -483,12 +489,43 @@ def ladder_plain(xy, ok, s_words, k_words):
         acc = _point_add(acc, a_table[rows, _window(k, t)].unbind(1),
                          want_t=False)
     x, y, z, _t = acc
-    good = (
+    return (
         _fe_eq(x, _fe_mul(rx, z))
         & _fe_eq(y, _fe_mul(ry, z))
         & ~_fe_is_zero(z)
-        & valid
     )
+
+
+def ladder_plain(xy, ok, s_words, k_words):
+    """The ladder kernel's function in plain PyTorch, on the tensors'
+    device.  xy: (2n, 2, 10) int32 affine points from ``decompress`` (A
+    rows, then R rows); ok: (2n,) int32; s_words, k_words: (n, 8) int32
+    little-endian words of the scalars S and k.  Returns (n,) int32: 1 where
+    [S]B + [k](-A) == R, Z != 0 and both points decompressed.  -A is
+    (-x, y, 1, -x y), then ``_shamir``."""
+    n = s_words.shape[0]
+    pts = xy.to(torch.int64)
+    ax, ay = pts[:n, 0], pts[:n, 1]
+    rx, ry = pts[n:, 0], pts[n:, 1]
+    valid = (ok[:n] != 0) & (ok[n:] != 0)
+    one = torch.zeros_like(ax)
+    one[:, 0] = 1
+    nx = _fe_sub(torch.zeros_like(ax), ax)
+    neg_a = (nx, ay, one, _fe_mul(nx, ay))
+    good = _shamir(neg_a, rx, ry, s_words, k_words) & valid
+    return good.to(torch.int32)
+
+
+def ladder_extended_plain(neg_a, r_xy, s_words, k_words):
+    """The extended ladder kernel's function in plain PyTorch, on the
+    tensors' device.  neg_a: (n, 4, 10) int32 -A in extended coordinates
+    (X, Y, Z, T, any Z != 0), limbs of values in [0, p); r_xy: (n, 2, 10)
+    int32 affine R; s_words, k_words: (n, 8) int32.  Returns (n,) int32: 1
+    where [S]B + [k](-A) == R and Z != 0 (the host route rejects a point
+    that does not decompress before it packs a row)."""
+    pts = neg_a.to(torch.int64)
+    r = r_xy.to(torch.int64)
+    good = _shamir(tuple(pts.unbind(1)), r[:, 0], r[:, 1], s_words, k_words)
     return good.to(torch.int32)
 
 
@@ -507,6 +544,10 @@ def _kernel_library():
             ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr,
         ]
         lib.mirbft_ed25519_ladder.restype = i32
+        lib.mirbft_ed25519_ladder_extended.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, i32, ptr, ptr,
+        ]
+        lib.mirbft_ed25519_ladder_extended.restype = i32
         lib.mirbft_ed25519_ladder_smem_bytes.argtypes = []
         lib.mirbft_ed25519_ladder_smem_bytes.restype = i32
         lib.mirbft_ed25519_error_string.argtypes = [i32]
@@ -515,7 +556,7 @@ def _kernel_library():
 
 
 def ladder_smem_bytes() -> int:
-    """The ladder kernel's dynamic shared memory a block (its [j](-A)
+    """Either ladder kernel's dynamic shared memory a block (its [j](-A)
     columns and [j]B table), from the built library."""
     return int(_kernel_library().mirbft_ed25519_ladder_smem_bytes())
 
@@ -618,6 +659,44 @@ def ladder(xy, ok, s_words, k_words):
 
 ladder.launches = 0
 ladder.launches_by_rows = collections.Counter()
+
+
+def ladder_extended(neg_a, r_xy, s_words, k_words):
+    """Verdicts of n signatures from -A extended and R affine, decompressed
+    on the host, and their scalar words (see ``ladder_extended_plain``) ->
+    (n,) int32.  CUDA tensors launch the kernel on the current stream
+    (counted in ``ladder_extended.launches``); CPU tensors take
+    ``ladder_extended_plain``."""
+    if s_words.dim() != 2:
+        raise ValueError(f"s_words must be (n, 8), got {tuple(s_words.shape)}")
+    n = s_words.shape[0]
+    device = s_words.device
+    _check("neg_a", neg_a, (n, 4, NLIMB), device)
+    _check("r_xy", r_xy, (n, 2, NLIMB), device)
+    _check("s_words", s_words, (n, 8), device)
+    _check("k_words", k_words, (n, 8), device)
+    if device.type == "cpu":
+        return ladder_extended_plain(neg_a, r_xy, s_words, k_words)
+    if device.type != "cuda":
+        raise ValueError(f"no ed25519 path for device {device}")
+    out = torch.empty((n,), dtype=torch.int32, device=device)
+    if n == 0:
+        return out
+    lib = _kernel_library()
+    with torch.cuda.device(device):
+        err = lib.mirbft_ed25519_ladder_extended(
+            neg_a.data_ptr(), r_xy.data_ptr(), s_words.data_ptr(),
+            k_words.data_ptr(), out.data_ptr(), n,
+            _constants_on(device).data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_on(lib, err, "ladder_extended")
+    _count_launch(ladder_extended, n)
+    return out
+
+
+ladder_extended.launches = 0
+ladder_extended.launches_by_rows = collections.Counter()
 
 
 # -- host marshalling and the verify pipeline ---------------------------------
@@ -726,3 +805,111 @@ def verify_batch_pallas(
     """``verify_batch`` at the JAX Pallas pipeline's chunk of 4096 rows:
     the same two kernels."""
     return verify_batch(pks, messages, signatures, chunk=chunk, device=device)
+
+
+# -- the host route: host decompression, the extended ladder ------------------
+
+
+def marshal_signature(pk: bytes, message: bytes, signature: bytes):
+    """The JAX ``ops/ed25519.py::marshal_signature`` on the port's host
+    code: structural checks, both points decompressed on the host, S < L,
+    the SHA-512 challenge.  Returns (s, k, -A extended (X, Y, Z, T), R
+    affine (x, y)), every one ints, or None where the signature is rejected
+    on the host (the JAX function returns None on the same rows)."""
+    if len(pk) != 32 or len(signature) != 64:
+        return None
+    a = host.decompress(pk)
+    r = host.decompress(signature[:32])
+    if a is None or r is None:
+        return None
+    s = int.from_bytes(signature[32:], "little")
+    if s >= L:
+        return None
+    k = (
+        int.from_bytes(
+            hashlib.sha512(signature[:32] + pk + message).digest(), "little"
+        )
+        % L
+    )
+    return (s, k, host.point_negate(a), (r[0], r[1]))
+
+
+def _scalar_words(values) -> np.ndarray:
+    """Scalars below 2^256 -> (len, 8) int32 little-endian words."""
+    return _words([v.to_bytes(32, "little") for v in values])
+
+
+def _limb_rows(values) -> np.ndarray:
+    """Field values in [0, p) -> (len, 10) int32 limbs."""
+    return np.stack([int_to_limbs(v) for v in values])
+
+
+def pack_signature_rows(rows: list, batch_floor: int = 1) -> tuple:
+    """The JAX ``ops/ed25519.py::pack_rows`` for ``marshal_signature``'s
+    rows: (s_words (n, 8), k_words (n, 8), neg_a (n, 4, 10), r_affine (n,
+    2, 10)), int32, in the JAX function's order.  n is padded only to a
+    multiple of ``batch_floor`` (the mesh size of a sharded call), by
+    repeating row 0, whose verdicts the caller discards: a CUDA kernel has
+    no per-shape compile, so nothing is padded to a power of two."""
+    if not rows:
+        raise ValueError(
+            "pack_signature_rows needs at least one row; a batch the host "
+            "rejected whole has nothing to launch"
+        )
+    padded = rows + [rows[0]] * (-len(rows) % batch_floor)
+    n = len(padded)
+    s_words = _scalar_words([row[0] for row in padded])
+    k_words = _scalar_words([row[1] for row in padded])
+    neg_a = _limb_rows([c for row in padded for c in row[2]]).reshape(
+        n, 4, NLIMB)
+    r_affine = _limb_rows([c for row in padded for c in row[3]]).reshape(
+        n, 2, NLIMB)
+    return s_words, k_words, neg_a, r_affine
+
+
+#: The JAX package's limbs: 20 of 13 bits.
+JAX_LIMBS, JAX_RADIX = 20, 13
+
+
+def _jax_limbs_to_int(limbs) -> list:
+    """(n, 20) 13-bit limbs (the JAX layout) -> their values mod p."""
+    weights = [1 << (JAX_RADIX * i) for i in range(JAX_LIMBS)]
+    return [
+        sum(int(v) * w for v, w in zip(row, weights)) % P
+        for row in np.asarray(limbs).tolist()
+    ]
+
+
+def _bits_to_words(bits) -> np.ndarray:
+    """(n, 256) MSB-first bits (the JAX layout) -> (n, 8) int32
+    little-endian words."""
+    lsb = np.asarray(bits, dtype=np.uint64)[:, ::-1].reshape(-1, 8, 32)
+    words = (lsb << np.arange(32, dtype=np.uint64)).sum(axis=2)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def from_jax_rows(s_bits, k_bits, neg_a, r_affine) -> tuple:
+    """The JAX ``pack_rows`` arrays -> ``pack_signature_rows``'s, padding
+    rows included: scalar bits to words, each coordinate's 13-bit limbs to
+    the port's 10 limbs of its value mod p.  ``neg_a`` and ``r_affine`` are
+    the JAX tuples of 4 and 2 (n, 20) limb arrays."""
+    n = len(np.asarray(s_bits))
+    neg = np.stack(
+        [_limb_rows(_jax_limbs_to_int(c)) for c in neg_a], axis=1)
+    r = np.stack(
+        [_limb_rows(_jax_limbs_to_int(c)) for c in r_affine], axis=1)
+    return (_bits_to_words(s_bits), _bits_to_words(k_bits),
+            neg.reshape(n, 4, NLIMB), r.reshape(n, 2, NLIMB))
+
+
+def launch_signature_rows(rows: list, device="cuda",
+                          batch_floor: int = 1) -> torch.Tensor:
+    """Send ``marshal_signature``'s rows through the extended ladder and
+    return the (n,) int32 verdicts on ``device`` without waiting for them,
+    n the rows padded to a multiple of ``batch_floor``."""
+    device = resolve_device(device)
+    s_words, k_words, neg_a, r_affine = (
+        torch.from_numpy(a).to(device)
+        for a in pack_signature_rows(rows, batch_floor)
+    )
+    return ladder_extended(neg_a, r_affine, s_words, k_words)

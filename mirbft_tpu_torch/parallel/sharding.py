@@ -19,9 +19,10 @@ Three programs, as in the JAX package:
 - ``sharded_quorum_tally(mesh)``: vote matrices split over voters, each
   shard's column sums by ``tally_columns``, then ``shard_sum`` of the
   partials against the threshold;
-- ``sharded_ed25519_verify(mesh)``: marshalled signature rows split over
-  the mesh, each shard through decompression and the ladder, the
-  verdicts gathered.
+- ``sharded_ed25519_verify(mesh)``: signature rows decompressed on the
+  host (``ops.ed25519.pack_signature_rows``, the JAX ``pack_rows``'s
+  layout) split over the mesh, each shard through the extended ladder,
+  the verdicts gathered.
 
 The device ack plane (``core.device_tracker``) splits its dense state the
 same way: each device owns a contiguous block of clients
@@ -44,7 +45,7 @@ import torch
 
 from ..obsv import device as _device
 from ..ops.batching import resolve_device
-from ..ops.ed25519 import decompress, ladder
+from ..ops.ed25519 import ladder_extended
 from ..ops.sha256 import sha256_digest_words
 from ..ops.tally import shard_sum, tally_columns
 
@@ -225,38 +226,32 @@ def sharded_quorum_tally(mesh: Mesh):
 
 
 def sharded_ed25519_verify(mesh: Mesh):
-    """Returns fn(enc, s_words, k_words) -> (n,) int32 verdicts (nonzero:
-    the signature verifies) on ``mesh.devices[0]``, the signature rows
-    split over the mesh, each shard through both Ed25519 kernels on its
-    device.  The inputs are ``ops.ed25519.pack_rows``'s (the port's row
-    layout: (2n, 8) encodings, A then R, and (n, 8) words of S and of k).
-    n must be a multiple of the mesh size.  On a mesh of one device it
-    launches exactly what ``ops.ed25519.launch_rows`` launches."""
+    """Returns fn(s_words, k_words, neg_a, r_affine) -> (n,) int32 verdicts
+    (nonzero: the signature verifies) on ``mesh.devices[0]``, the signature
+    rows split over the mesh, each shard through the extended ladder
+    (``ops.ed25519.ladder_extended``) on its device: the JAX function's
+    signature and inputs, -A extended and R affine decompressed on the
+    host.  The inputs are ``ops.ed25519.pack_signature_rows(rows,
+    batch_floor=mesh.size)``'s ((n, 8) words of S and of k, (n, 4, 10) -A,
+    (n, 2, 10) R; numpy or tensors), or the JAX ``pack_rows`` arrays
+    through ``ops.ed25519.from_jax_rows``.  n must be a multiple of the
+    mesh size.  On a mesh of one device it launches exactly what
+    ``ops.ed25519.launch_signature_rows`` launches."""
     mesh = _checked(mesh)
 
-    def run(enc, s_words, k_words):
-        enc, s_words, k_words = (_tensor(a) for a in (enc, s_words, k_words))
+    def run(s_words, k_words, neg_a, r_affine):
+        s_words, k_words, neg_a, r_affine = (
+            _tensor(a) for a in (s_words, k_words, neg_a, r_affine))
         n = s_words.shape[0]
-        if enc.shape[0] != 2 * n or k_words.shape[0] != n:
+        if (k_words.shape[0], neg_a.shape[0], r_affine.shape[0]) != (n,) * 3:
             raise ValueError(
-                f"enc must hold 2n = {2 * n} encodings and k_words n = {n} "
-                f"rows, got {enc.shape[0]} and {k_words.shape[0]}"
+                f"k_words, neg_a and r_affine must hold n = {n} rows, got "
+                f"{k_words.shape[0]}, {neg_a.shape[0]} and "
+                f"{r_affine.shape[0]}"
             )
-        k = mesh.size
-        if n % k:
-            raise ValueError(
-                f"{n} signature rows are not a multiple of the mesh size {k}"
-            )
-        b = n // k
-        verdicts = []
-        for i, device in enumerate(mesh.devices):
-            lo, hi = i * b, (i + 1) * b
-            shard = enc if k == 1 else torch.cat(
-                [enc[lo:hi], enc[n + lo:n + hi]])
-            xy, ok = decompress(_on(shard, device))
-            verdicts.append(ladder(xy, ok, _on(s_words[lo:hi], device),
-                                   _on(k_words[lo:hi], device)))
-        return gather(mesh, verdicts)
+        shards = zip(*(split_blocks(mesh, a)
+                       for a in (neg_a, r_affine, s_words, k_words)))
+        return gather(mesh, [ladder_extended(*shard) for shard in shards])
 
     return _device.instrument(
         "sharded_ed25519_verify", fn_name="sharded_ed25519_verify"

@@ -163,9 +163,13 @@ class SpeculativeIngress:
                 self._cv.wait(timeout=min(remaining, 0.1))
         return True
 
-    def close(self, drain_timeout: float = 5.0) -> None:
+    def close(self, drain_timeout: float = 5.0,
+              join_timeout: float | None = 5.0) -> None:
+        """Judge what was admitted (up to ``drain_timeout``), refuse new
+        requests, and wait up to ``join_timeout`` (None: until it ends)
+        for the stage's thread to verify what is still queued."""
         self.flush(timeout=drain_timeout)
         with self._cv:
             self._closed = True
             self._cv.notify_all()
-        self._thread.join(timeout=5)
+        self._thread.join(timeout=join_timeout)

@@ -11,8 +11,10 @@ app rung (``bench.app_run``: APP_NODES workers on the ``pipelined``
 processor, APP_SESSIONS ``KvClient`` sessions x APP_OPS_PER_SESSION ops)
 on the CPU and then waits, as the port's rung does, up to the port's
 APP_CONVERGE_S for every worker to report one app chain and one applied
-index (the JAX worker's ``app.json`` carries no store digest).  Run from
-the repo root.  Prints one JSON line a run: the step's ops and timeouts,
+index (the JAX worker's ``app.json`` carries no store digest).
+``--test-size`` runs the port at tests/test_torch_app_mp.py's cut.  Run
+from the repo root.  Prints one JSON line a run: the step's ops and
+timeouts (the port's: each write not seen committed, with its outcome),
 whether the workers converged and after how many seconds, and, when they
 did not, each worker's (low watermark, high watermark, epoch, epoch
 state, applied seq, applied index); then a ``SUMMARY`` line.
@@ -28,15 +30,37 @@ import urllib.request
 sys.path.insert(0, os.getcwd())
 
 
-def port_run(device: str) -> dict:
+def failed_writes(history) -> list:
+    """Each write the step did not see committed: its session, key,
+    outcome and seconds from the step's first op to its invoke and
+    return."""
+    if not history:
+        return []
+    t0 = min(e["invoke_ns"] for e in history)
+    return [
+        (e["client_id"], e["key"], e["outcome"],
+         round((e["invoke_ns"] - t0) / 1e9, 3),
+         round((e["return_ns"] - t0) / 1e9, 3))
+        for e in history
+        if e["op"] == "put"
+        and e["outcome"] not in ("ok", "not_found", "cas_conflict")
+    ]
+
+
+def port_run(device: str, test_size: bool = False) -> dict:
     from mirbft_tpu_torch import bench
 
     start = time.perf_counter()
-    out = bench.app_run(device=device)
+    # The CPU test's cut (tests/test_torch_app_mp.py): 4 workers, 32 ops a
+    # session, tick 0.05 s.
+    kw = dict(nodes=4, ops_per_session=32, tick_s=0.05) if test_size else {}
+    out = bench.app_run(device=device, **kw)
     step = out["step"]
     return {
         "ops": step.submitted,
         "timed_out": step.timed_out,
+        "failed_writes": failed_writes(out["history"]),
+        "homes": out["homes"],
         "converged": out["converged"],
         "stall": out["stall"],
         "applied": out["applied"],
@@ -141,12 +165,15 @@ def main() -> int:
     parser.add_argument("--device", default="cuda",
                         help="the port's device (cuda or cpu)")
     parser.add_argument("--runs", type=int, default=3)
+    parser.add_argument("--test-size", action="store_true",
+                        help="the port at the CPU test's cut (4 workers, "
+                        "32 ops a session, tick 0.05 s)")
     args = parser.parse_args()
     converge_s = 60.0
     stalls = timeouts = 0
     for i in range(args.runs):
         if args.package == "port":
-            out = port_run(args.device)
+            out = port_run(args.device, args.test_size)
         else:
             out = jax_run(converge_s)
         stalls += not out["converged"]

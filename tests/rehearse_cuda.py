@@ -14,11 +14,15 @@ in for them.  Dynamic shared memory is a buffer a block.  The
 ``extern "C"`` launchers are cut off and a host main launches the kernels
 itself.
 
-    python3 tests/rehearse_cuda.py [ladder|sha256|decompress|ack|bls|parallel] [--rows N]
+    python3 tests/rehearse_cuda.py [ladder|ladder_extended|sha256|decompress|ack|bls|parallel] [--rows N]
 
 ``ladder`` runs the quad ladder on rows it builds with the host oracle
 (valid signatures, corrupted ones, the identity and a point of order 8 as
-keys) and checks every verdict against the oracle; ``sha256`` runs both
+keys) and checks every verdict against the oracle; ``ladder_extended``
+runs the extended ladder on the same rows decompressed on the host
+(``marshal_signature``), every other row's -A scaled to Z != 1, and checks
+every verdict against the oracle and, bit for bit, against its plain
+version, and that nothing is written past the rows; ``sha256`` runs both
 digest bodies on ragged batches at several buckets against hashlib;
 ``decompress`` runs point decompression, a group of lanes a point, on the
 decompression corpus (tests/ed25519_corpus.py) and on ragged row counts,
@@ -384,6 +388,30 @@ int main(int argc, char** argv) {
   const int grid = (4 * n + kLadderThreads - 1) / kLadderThreads;
   launch(grid, kLadderThreads, kLadderSmemBytes, [&] {
     mirbft_ed25519_ladder_kernel(xy, ok, s, k, out.data(), n, consts);
+  });
+  write_all(argv[2], out.data(), out.size() * 4);
+  return 0;
+}
+"""
+
+LADDER_EXTENDED_MAIN = r"""
+// argv: input file (n, then neg_a, r_xy, s_words, k_words, consts), output
+// file: n + 1 verdicts, each set to -1 first, so a write past n shows.
+int main(int argc, char** argv) {
+  g_warp = 8;
+  std::vector<char> in = read_all(argv[1]);
+  const int32_t* p = reinterpret_cast<const int32_t*>(in.data());
+  const int n = p[0];
+  const int32_t* neg_a = p + 1;
+  const int32_t* r_xy = neg_a + 40 * n;
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(r_xy + 20 * n);
+  const uint32_t* k = s + 8 * n;
+  const int32_t* consts = reinterpret_cast<const int32_t*>(k + 8 * n);
+  std::vector<int32_t> out(n + 1, -1);
+  const int grid = (4 * n + kLadderThreads - 1) / kLadderThreads;
+  launch(grid, kLadderThreads, kLadderSmemBytes, [&] {
+    mirbft_ed25519_ladder_extended_kernel(neg_a, r_xy, s, k, out.data(), n,
+                                          consts);
   });
   write_all(argv[2], out.data(), out.size() * 4);
   return 0;
@@ -765,6 +793,63 @@ def rehearse_ladder(n: int, workdir: Path) -> int:
     print(f"ladder, {n} rows on the host: verdicts {got.tolist()}, oracle "
           f"{want}: {'equal' if not bad else f'rows {bad} differ'}")
     return 1 if bad else 0
+
+
+def extended_rows(n: int, seed: int) -> tuple:
+    """``ladder_rows(n, seed)`` that the host accepts (a corrupted R may not
+    decompress; the identity and the order-8 key do), and their
+    ``marshal_signature`` rows, every other row's -A scaled by a seeded
+    lambda to Z != 1."""
+    from mirbft_tpu_torch.ops import ed25519
+
+    rng = random.Random(seed)
+    rows, marshalled = [], []
+    for row in ladder_rows(n, seed):
+        m = ed25519.marshal_signature(*row)
+        if m is None:
+            continue
+        s, k, neg_a, r = m
+        if len(rows) % 2:
+            lam = rng.randrange(2, ed25519.P)
+            neg_a = tuple(c * lam % ed25519.P for c in neg_a)
+        rows.append(row)
+        marshalled.append((s, k, neg_a, r))
+    return rows, marshalled
+
+
+def rehearse_ladder_extended(n: int, workdir: Path) -> int:
+    """The extended ladder on the host on ``extended_rows(n)``: verdicts
+    against the oracle and, bit for bit, against
+    ``ladder_extended_plain``; nothing written past the rows."""
+    import torch
+
+    from mirbft_tpu_torch.crypto import ed25519_host as host
+    from mirbft_tpu_torch.ops import ed25519
+
+    binary = compile_host_main("ed25519", LADDER_EXTENDED_MAIN, workdir)
+    rows, marshalled = extended_rows(n, seed=n)
+    m = len(rows)
+    s_words, k_words, neg_a, r_xy = ed25519.pack_signature_rows(marshalled)
+    blob = b"".join([
+        np.int32(m).tobytes(), neg_a.tobytes(), r_xy.tobytes(),
+        s_words.tobytes(), k_words.tobytes(), ed25519.constants().tobytes(),
+    ])
+    (workdir / "ladder_extended.in").write_bytes(blob)
+    subprocess.run([str(binary), str(workdir / "ladder_extended.in"),
+                    str(workdir / "ladder_extended.out")], check=True)
+    got = np.frombuffer((workdir / "ladder_extended.out").read_bytes(),
+                        dtype=np.int32)
+    plain = ed25519.ladder_extended_plain(
+        *(torch.from_numpy(a) for a in (neg_a, r_xy, s_words, k_words))
+    ).tolist()
+    want = [int(host.verify(*row)) for row in rows]
+    bad = [i for i in range(m) if got[i] != want[i] or got[i] != plain[i]]
+    past = int(got[m]) != -1
+    print(f"ladder_extended, {m} of {n} rows past the host, on the host: "
+          f"verdicts {got[:m].tolist()}, plain {plain}, oracle {want}: "
+          + ("equal" if not bad else f"rows {bad} differ")
+          + (", a write past the rows" if past else ""))
+    return 1 if bad or past or not m else 0
 
 
 def rehearse_decompress(encodings: list, workdir: Path) -> int:
@@ -1174,8 +1259,8 @@ def rehearse_bls(cases: list, workdir: Path, exact: bool = False) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("what", nargs="*", default=["ladder", "sha256"],
-                        choices=["ladder", "sha256", "decompress", "ack",
-                                 "bls", "parallel"])
+                        choices=["ladder", "ladder_extended", "sha256",
+                                 "decompress", "ack", "bls", "parallel"])
     parser.add_argument("--rows", type=int, default=6,
                         help="ladder rows (default 6: two ragged blocks)")
     args = parser.parse_args(argv)
@@ -1184,6 +1269,8 @@ def main(argv=None) -> int:
         workdir = Path(tmp)
         if "ladder" in args.what:
             status |= rehearse_ladder(args.rows, workdir)
+        if "ladder_extended" in args.what:
+            status |= rehearse_ladder_extended(args.rows, workdir)
         if "sha256" in args.what:
             status |= rehearse_sha256(workdir)
         if "ack" in args.what:

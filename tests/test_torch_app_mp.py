@@ -94,7 +94,8 @@ def test_signed_live_mp_run_journals_every_ingress_batch():
         "cuda-pipelined", device="cpu", rates=(10.0,), signed=True))
     assert not out["missing"] and not out["duplicates"]
     assert len(set(out["chains"])) == 1 and "" not in out["chains"]
-    assert all(codes == [0] for codes in out["exit_codes"].values())
+    assert all(codes == [0] for codes in out["exit_codes"].values()), (
+        out["exit_codes"], out["log_faults"])
     assert all(not faults for faults in out["log_faults"].values())
     assert out["host_digests"] == 0 and out["device_digests"] > 0
     # Every honest request committed once on every node, or, on a node

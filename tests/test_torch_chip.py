@@ -2,9 +2,11 @@
 and hashlib, launched and counted on the engine's commit path; the two
 Ed25519 kernels equal to their plain versions and the RFC 8032 oracle
 (decompression also on the corpus that takes each of its branches), and
-the signed engine run on them equal to the host-oracle run; the ack
-plane's two kernels; and the BLS G1 aggregation kernel equal to its plain
-version and the host fold, with no host fold behind it; and the live
+the signed engine run on them equal to the host-oracle run; the extended
+ladder (the host route's) equal to its plain version, the oracle and the
+device route; the ack plane's two kernels; and the BLS G1 aggregation
+kernel equal to its plain version and the host fold, with no host fold
+behind it; and the live
 chaos campaign's two signed scenarios, whose Ed25519 kernels' plain
 versions are too slow on a CPU for the live protocol's timers.
 
@@ -193,6 +195,39 @@ def test_ed25519_kernels_match_plain_and_oracle(card, n):
     if n >= 4:
         assert any(expect) and not all(expect)  # forgeries among them
     assert ed25519.verify_batch(pks, msgs, sigs, device=card).tolist() == expect
+
+
+# The host route at the device route's shapes: every row the host accepts
+# (the corpus's corrupted R may not decompress), every other -A scaled to
+# Z != 1 from the second half on.
+@pytest.mark.parametrize("n", [1, 3, 7, 8, 256, 512, 513, 4096])
+def test_extended_ladder_matches_plain_oracle_and_device_route(card, n):
+    pks, msgs, sigs = signature_corpus(n)
+    triples = list(zip(pks, msgs, sigs))
+    marshalled = [ed25519.marshal_signature(*t) for t in triples]
+    live = [i for i, m in enumerate(marshalled) if m is not None]
+    rng = random.Random(n)
+    rows = []
+    for j, i in enumerate(live):
+        s, k, neg_a, r = marshalled[i]
+        if j % 2 and j >= len(live) // 2:
+            lam = rng.randrange(2, ed25519.P)
+            neg_a = tuple(c * lam % ed25519.P for c in neg_a)
+        rows.append((s, k, neg_a, r))
+    s_words, k_words, neg_a, r_xy = (
+        torch.from_numpy(a).to(card)
+        for a in ed25519.pack_signature_rows(rows)
+    )
+    before = ed25519.ladder_extended.launches
+    verdicts = ed25519.ladder_extended(neg_a, r_xy, s_words, k_words)
+    torch.cuda.synchronize()
+    assert ed25519.ladder_extended.launches == before + 1
+    assert torch.equal(verdicts, ed25519.ladder_extended_plain(
+        neg_a, r_xy, s_words, k_words))
+    expect = [ed25519_host.verify(*t) for t in triples]
+    assert verdicts.cpu().tolist() == [int(expect[i]) for i in live]
+    device_route = ed25519.verify_batch(pks, msgs, sigs, device=card)
+    assert [device_route[i] for i in live] == [expect[i] for i in live]
 
 
 # The decompression corpus (every branch of RFC 8032 5.1.3), repeated to m
@@ -794,8 +829,9 @@ def test_sharded_functions_on_the_card_equal_the_unsharded_kernels(card,
                                                                    shards):
     """Phase 23b: the three sharded functions on ``[cuda:0] * shards``
     against one unsharded call of their kernels: digest words, quorum
-    masks, and Ed25519 verdicts (valid rows accepted, corrupted ones
-    rejected)."""
+    masks, and Ed25519 verdicts of host-decompressed rows through the
+    extended ladder, one launch a shard (valid rows accepted, corrupted
+    ones rejected)."""
     import numpy as np
 
     from mirbft_tpu_torch.parallel import sharding
@@ -819,10 +855,13 @@ def test_sharded_functions_on_the_card_equal_the_unsharded_kernels(card,
         seed = bytes([i + 1]) * 32
         msg = b"phase-23-%d" % i
         pk, sig = ed25519_host.public_key(seed), ed25519_host.sign(seed, msg)
-        rows.append(ed25519.marshal_light(pk, msg + (b"!" if i % 2 else b""),
-                                          sig))
-    got = sharding.sharded_ed25519_verify(mesh)(*ed25519.pack_rows(rows))
-    single = ed25519.launch_rows(rows, device=card)
+        rows.append(ed25519.marshal_signature(
+            pk, msg + (b"!" if i % 2 else b""), sig))
+    before = ed25519.ladder_extended.launches
+    got = sharding.sharded_ed25519_verify(mesh)(
+        *ed25519.pack_signature_rows(rows, batch_floor=shards))
+    assert ed25519.ladder_extended.launches == before + shards
+    single = ed25519.launch_signature_rows(rows, device=card)
     assert torch.equal(got, single)
     assert (got != 0).tolist() == [i % 2 == 0 for i in range(8)]
 

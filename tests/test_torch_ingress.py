@@ -12,6 +12,7 @@ verifier.  ``runtime/ingress.py``'s three cases (tests/test_crypto_auth.py:
 tolerance is exact: verdicts are booleans."""
 
 import threading
+import time
 
 import pytest
 import torch
@@ -177,6 +178,30 @@ def test_ingress_fails_closed_when_verifier_dies():
         assert str(stage.last_error) == "verifier down"
     finally:
         stage.close()
+
+
+def test_ingress_close_waits_for_the_verify_in_flight():
+    """A worker's shutdown closes the stage with ``join_timeout=None``:
+    close returns only once the verify in flight and the queue behind it
+    are judged, so the process never exits with the stage's thread inside
+    a launch (a thread inside a torch op at interpreter exit aborts the
+    process, exit -6).  The default close waits at most its 5 s."""
+    started = threading.Event()
+
+    def slow(items):
+        started.set()
+        time.sleep(0.3)
+        return [True] * len(items)
+
+    delivered = []
+    stage = SpeculativeIngress(delivered.append, slow, max_batch=1)
+    for i in range(3):
+        assert stage.submit(_Req(1, i, b"p"))
+    assert started.wait(timeout=10)
+    stage.close(drain_timeout=0.0, join_timeout=None)
+    assert not stage._thread.is_alive()
+    assert stage.delivered == len(delivered) == stage.admitted == 3
+    assert not stage.submit(_Req(1, 3, b"p"))
 
 
 def test_ingress_sheds_load_past_queue_depth():

@@ -147,6 +147,11 @@ def _rows():
     return [port_ed25519.marshal_light(*t) for t in zip(*SIGNED)]
 
 
+def _host_rows():
+    """``SIGNED`` decompressed on the host (``marshal_signature``)."""
+    return [port_ed25519.marshal_signature(*t) for t in zip(*SIGNED)]
+
+
 class _StubNode:
     """Enough of a Node for build_processor: its config."""
 
@@ -190,7 +195,7 @@ def _sharded(name, device="cuda"):
     if name == "ed25519":
         mesh = sharding.Mesh([device])
         return sharding.sharded_ed25519_verify(mesh)(
-            *port_ed25519.pack_rows(_rows()))
+            *port_ed25519.pack_signature_rows(_host_rows()))
     mesh = sharding.Mesh([device] * 2)
     if name == "sha256":
         packed = pack_preimages([b"abc", b"de"], batch_floor=2)
@@ -212,6 +217,7 @@ def _sharded(name, device="cuda"):
         lambda: port_ed25519.verify_batch_pallas(*SIGNED),
         lambda: port_ed25519.verify_batch([], [], []),
         lambda: port_ed25519.launch_rows(_rows()),
+        lambda: port_ed25519.launch_signature_rows(_host_rows()),
         lambda: signing.kernel_verifier([(7, 0, b"x" * 100)]),
         port_bench.kernel_microbench,
         port_bench.sha256_microbench_warmup,
@@ -255,7 +261,8 @@ def _sharded(name, device="cuda"):
         "kernel_plane", "sha256_many", "sha256_chunked", "to_tensors",
         "recorder", "async_signature_plane", "speculative_signature_plane",
         "verify_batch", "verify_batch_pallas", "verify_batch_empty",
-        "launch_rows", "kernel_verifier", "kernel_microbench", "microbench_warmup", "live_cluster_rate",
+        "launch_rows", "launch_signature_rows", "kernel_verifier",
+        "kernel_microbench", "microbench_warmup", "live_cluster_rate",
         "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
         "default_config_processor", "batch_verifier", "kernel_authority",
         "inprocess_cluster", "inprocess_kv_cluster", "ingress_run",
@@ -288,6 +295,8 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         lambda: port_ed25519.verify_batch(*SIGNED, device="cpu"),
         lambda: port_ed25519.verify_batch_pallas(*SIGNED, device="cpu"),
         lambda: port_ed25519.launch_rows(_rows(), device="cpu"),
+        lambda: port_ed25519.launch_signature_rows(_host_rows(),
+                                                   device="cpu"),
         lambda: port_sha256.sha256_chain_checksum(_chain_block(), iters=1),
         lambda: port_bench.kernel_microbench(
             "cpu", batch=8, iters=1, reps=1, host_messages=8
@@ -326,7 +335,7 @@ def test_entry_points_raise_without_a_card(no_card, entry):
         "kernel_plane", "sha256_many", "to_tensors", "recorder",
         "async_signature_plane", "speculative_signature_plane",
         "verify_batch", "verify_batch_pallas", "launch_rows",
-        "sha256_chain_checksum", "kernel_microbench", "microbench_warmup",
+        "launch_signature_rows", "sha256_chain_checksum", "kernel_microbench", "microbench_warmup",
         "cuda_processor", "cuda_pool_processor", "cuda_pipelined_processor",
         "default_config_processor", "batch_verifier", "inprocess_cluster",
         "obsv_cli_run", "soak_run", "chaos_cli_run", "run_scenario",

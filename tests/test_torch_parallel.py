@@ -116,35 +116,64 @@ def test_sharded_quorum_tally_equals_the_jax_mesh(ref_mesh, mesh, label,
         assert got.tolist() == [True, False, True, False]
 
 
-@needs_8
-@pytest.mark.slow
-def test_sharded_ed25519_verify_equals_the_jax_mesh(ref_mesh, mesh):
-    """test_multichip.py:50 on both packages: 8 signatures, the odd ones
-    over a corrupted message, through the JAX ladder on its mesh and the
-    port's two kernels (plain versions) on its mesh; the verdicts equal,
-    valid accepted and corrupted rejected, and equal to the unsharded
-    call."""
-    from mirbft_tpu.ops import ed25519 as ref_ed25519
+def _verify_triples(count: int, tag: bytes) -> list:
+    """``count`` signed (pk, msg, sig) rows, the odd ones over a corrupted
+    message."""
     from mirbft_tpu_torch.crypto import ed25519_host as host
-    from mirbft_tpu_torch.ops import ed25519
 
     triples = []
-    for i in range(8):
+    for i in range(count):
         seed = bytes([i]) * 32
-        msg = b"multichip-%d" % i
+        msg = tag + b"-%d" % i
         pk, sig = host.public_key(seed), host.sign(seed, msg)
         if i % 2:
             msg = msg + b"!"
         triples.append((pk, msg, sig))
-    ref_rows = [ref_ed25519.marshal_signature(*t) for t in triples]
-    want = np.asarray(ref_sharding.sharded_ed25519_verify(ref_mesh)(
-        *ref_ed25519.pack_rows(ref_rows, batch_floor=8)))
-    rows = [ed25519.marshal_light(*t) for t in triples]
-    got = sharding.sharded_ed25519_verify(mesh)(*ed25519.pack_rows(rows))
-    single = ed25519.launch_rows(rows, device="cpu")
+    return triples
+
+
+@needs_8
+@pytest.mark.slow
+def test_sharded_ed25519_verify_equals_the_jax_mesh(ref_mesh, mesh):
+    """test_multichip.py:50 on both packages: 8 signatures, the odd ones
+    over a corrupted message, marshalled and packed once by the JAX
+    package (``marshal_signature``, ``pack_rows(rows, batch_floor=8)``);
+    the same arrays through the JAX ladder on its mesh and, converted by
+    ``from_jax_rows``, through the port's extended ladder (plain version)
+    on its mesh.  The verdicts equal, valid accepted and corrupted
+    rejected, and equal to the unsharded call on the port's own
+    marshalling."""
+    from mirbft_tpu.ops import ed25519 as ref_ed25519
+    from mirbft_tpu_torch.ops import ed25519
+
+    triples = _verify_triples(8, b"multichip")
+    packed = ref_ed25519.pack_rows(
+        [ref_ed25519.marshal_signature(*t) for t in triples], batch_floor=8)
+    want = np.asarray(ref_sharding.sharded_ed25519_verify(ref_mesh)(*packed))
+    got = sharding.sharded_ed25519_verify(mesh)(
+        *ed25519.from_jax_rows(*packed))
+    single = ed25519.launch_signature_rows(
+        [ed25519.marshal_signature(*t) for t in triples], device="cpu")
     assert (got != 0).tolist() == want.tolist() == [
         i % 2 == 0 for i in range(8)]
     assert torch.equal(got, single)
+
+
+def test_sharded_ed25519_verify_on_four_shards_equals_the_unsharded_call():
+    """A mesh naming the CPU four times against one unsharded call of the
+    extended ladder's plain version, on 8 rows packed to the mesh size:
+    the same verdicts, split and gathered in order."""
+    from mirbft_tpu_torch.ops import ed25519
+
+    rows = [ed25519.marshal_signature(*t)
+            for t in _verify_triples(6, b"four-shards")]
+    packed = ed25519.pack_signature_rows(rows, batch_floor=4)
+    assert len(packed[0]) == 8
+    four = sharding.make_mesh(devices=[CPU] * 4)
+    got = sharding.sharded_ed25519_verify(four)(*packed)
+    single = ed25519.launch_signature_rows(rows, device="cpu", batch_floor=4)
+    assert got.device == CPU and torch.equal(got, single)
+    assert (got != 0).tolist() == [i % 2 == 0 for i in range(6)] + [True] * 2
 
 
 @needs_8
@@ -256,10 +285,11 @@ def test_sharded_functions_refuse_ragged_batches(mesh):
     from mirbft_tpu_torch.ops import ed25519
 
     seed = b"\x05" * 32
-    rows = [ed25519.marshal_light(host.public_key(seed), b"m",
-                                  host.sign(seed, b"m"))] * 3
+    rows = [ed25519.marshal_signature(host.public_key(seed), b"m",
+                                      host.sign(seed, b"m"))] * 3
     with pytest.raises(ValueError, match="not a multiple of the mesh"):
-        sharding.sharded_ed25519_verify(mesh)(*ed25519.pack_rows(rows))
+        sharding.sharded_ed25519_verify(mesh)(
+            *ed25519.pack_signature_rows(rows))
 
 
 # -- the ack plane's client axis: the step and the sweep -------------------------

@@ -1,6 +1,6 @@
 """The CUDA sources of the port rehearsed on the host with g++
-(tests/rehearse_cuda.py): the quad ladder's verdicts against the RFC 8032
-oracle, decompression's points against the oracle and its plain version,
+(tests/rehearse_cuda.py): both quad ladders' verdicts against the RFC 8032
+oracle (the extended one's against its plain version too), decompression's points against the oracle and its plain version,
 both SHA-256 digest bodies against hashlib, the ack plane's step and
 sweep against their plain versions (the step on a mesh's client blocks
 too), the BLS G1 aggregation against its plain version and the host
@@ -26,6 +26,15 @@ def gxx():
 @pytest.mark.parametrize("rows", [1, 6])
 def test_quad_ladder_verdicts_equal_the_oracle_on_the_host(gxx, tmp_path, rows):
     assert rehearse_cuda.rehearse_ladder(rows, tmp_path) == 0
+
+
+@pytest.mark.parametrize("rows", [1, 6])
+def test_extended_ladder_verdicts_equal_the_oracle_on_the_host(gxx, tmp_path,
+                                                              rows):
+    """Host-decompressed rows (valid, corrupted, the identity and an
+    order-8 key), every other -A at Z != 1: the oracle's verdicts and the
+    plain version's, bit for bit, and nothing past the rows."""
+    assert rehearse_cuda.rehearse_ladder_extended(rows, tmp_path) == 0
 
 
 @pytest.mark.parametrize(

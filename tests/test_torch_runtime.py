@@ -564,15 +564,19 @@ def test_shadow_stride_wires_the_divergence_oracle():
 def test_node_on_the_device_plane_audits_clean():
     """Config.ack_plane and Config.ack_device reach the node's tracker (the
     device plane, on the plain versions), and the oracle, run on the
-    serializer, finds the tracker consistent."""
+    serializer, finds the tracker consistent.  The serializer makes the
+    tracker when it initialises the node, so the tracker is read only
+    after the audit's answer: in a fresh process that initialisation
+    first imports the device plane's modules, and the test thread would
+    read the tracker before it exists."""
     node = Node.start_new(
         Config(id=0, ack_plane="device", ack_device="cpu"),
         standard_initial_network_state(1, [1]),
     )
     try:
+        assert node.audit_divergence(timeout=60.0) == []
         tracker = node._machine.client_tracker
         assert tracker._ack_plane == "device" and tracker._device_ok
-        assert node.audit_divergence() == []
     finally:
         node.stop()
 
